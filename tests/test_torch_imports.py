@@ -1,0 +1,64 @@
+"""The port stands alone: importing every module of repro_torch pulls in
+neither JAX nor the reference package, and its entry points default to the
+card, raising (not falling back to the CPU) when there is none."""
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro.") or m.startswith("ml_dtypes"))
+assert not bad, bad
+assert len(names) >= 20, names
+
+import torch
+from repro_torch import configs
+from repro_torch.kernels import compat
+from repro_torch.models.model import Model
+from repro_torch.serve.batcher import BatchServer
+assert not torch.cuda.is_available()
+assert compat.device_kind() == "cpu"
+cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
+for make in (lambda: Model(cfg), lambda: compat.resolve_device(None),
+             lambda: BatchServer(Model(cfg, device="cpu"), batch_slots=1,
+                                 max_len=8)):
+    try:
+        make()
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("device=None must raise without a card")
+print("OK", len(names))
+"""
+
+
+def test_port_imports_no_jax_and_needs_a_card():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("OK")
+
+
+def test_no_reference_imports_in_sources():
+    """The static form of the same rule, over every port source and
+    chip_smoke.py."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    banned = ("import jax", "from jax", "ml_dtypes", "import repro.",
+              "import repro ", "from repro.", "from repro ",
+              "from repro import")
+    for f in files:
+        for n, line in enumerate(f.read_text().splitlines(), 1):
+            assert not any(b in line for b in banned), f"{f}:{n}: {line}"
