@@ -13,12 +13,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (2304, 5760), (5760, 2304), (2304, 122753)}, in bf16 (beta unfolded) and
    int8 (beta folded, as the int8 dense layer calls them); the flash kernel
    K4 at BH = 4 x 36, d = 64, causal, over the prefill buckets S in {16, 32,
-   64, 128}. Tolerances: int8 exact; bf16 GEMMs the reference's f32 GEMM bar
-   (rtol 1e-4, atol 1e-3 * max(1, K // 64)), both sides summing the same
-   products in f32 in another order; flash o at 2**-7 (one bf16 rounding of
-   o) and lse at 2e-3. Each call is timed with CUDA events, L2 flushed
-   between launches, beside its plain version, its library yardstick and its
-   bound.
+   64, 128}; the paged kernel K5 at decode (B 4, H = KV = 36, Sq 1 and 4,
+   d 64, pages of 16, 16 pages a sequence, lengths 17-256 and one of 0), a
+   64-row prefill chunk, GQA group 4, a window of 40 and an MLA-like d 576,
+   dv 512, in bf16 and f32. Tolerances: int8 exact; bf16 GEMMs the
+   reference's f32 GEMM bar (rtol 1e-4, atol 1e-3 * max(1, K // 64)), both
+   sides summing the same products in f32 in another order; flash o at 2**-7
+   (one bf16 rounding of o) and lse at 2e-3; K5 at 2**-7, with exact zeros
+   for a sequence of length 0. Each call is timed with CUDA events, L2
+   flushed between launches, beside its plain version (timed on the call
+   that checks it, after a warm call for the cheap K4/K5 ones), its library
+   yardstick and its bound.
 3. Serve minicpm-2b at its published widths (random weights from --seed)
    through ``BatchServer(gemm_impl="cuda")``: 4 slots, 8 requests of 16-128
    prompt tokens, 16 new tokens each, once each with gemm_algo ffip, fip and
@@ -34,8 +39,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    taken in the same run: the int8 run once more with plain attention (no
    flash kernel; it must pass the float bar) and int8 runs with planted
    faults (each must fail the int8 bar).
-5. Count and profile one prefill dispatch and one decode step.
-6. Print the kernels line (JSON), then the result line.
+5. Serve minicpm-2b paged (``paged=True``, K5 for all attention): 4 slots,
+   max_len 256 in pages of 16, prefill chunks of 64, 8 prompts of 16-128
+   tokens (the even ones behind a shared 64-token prefix, the last a copy of
+   the first), 16 new tokens each: flash ffip at decode_chunk 4 and flash
+   int8 at decode_chunk 1, their first and second tokens held to the plain
+   path under the same bars. Then, at the first IDENTITY_LAYERS layers:
+   int8 with every prompt in one chunk must give the tokens of int8 in
+   chunks of 64 (float is not held to this: its split-K sums depend on the
+   rows of a dispatch), and gather-paged int8 with plain attention the
+   contiguous server's tokens. Every paged run must hit the
+   prefix index, copy on write, drain its page reservations, balance the
+   allocator, peak below slots x max_pages pages, and launch K5 exactly
+   n_layers x (prefill chunks + decode dispatches x decode_chunk) times and
+   K4 never.
+6. Count and profile one contiguous prefill dispatch and decode step, one
+   paged decode step and one paged prefill chunk.
+7. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -78,13 +98,35 @@ REPLACES = {
     "fip_gemm": "src/repro/kernels/fip_gemm.py:65",
     "ffip_gemm_y": "src/repro/kernels/ffip_gemm.py:92",
     "flash_fwd": "src/repro/kernels/flash_attention.py:81",
+    "flash_paged": "src/repro/kernels/flash_attention.py:335",
 }
 SOURCES = {
     "baseline_gemm": "src/repro_torch/kernels/csrc/baseline_gemm.cu",
     "fip_gemm": "src/repro_torch/kernels/csrc/fip_gemm.cu",
     "ffip_gemm_y": "src/repro_torch/kernels/csrc/ffip_gemm.cu",
     "flash_fwd": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+    "flash_paged": "src/repro_torch/kernels/csrc/flash_paged.cu",
 }
+# K5 checks: (label, B, H, KV, Sq, d, dv, page size, max_pages, window,
+# scale). Decode lengths are drawn from 17-256 with the first set to 0 (its
+# rows must be exact zeros); the prefill chunk is a prompt's second 64-row
+# chunk (q_start 64, lengths 128).
+PAGED_CASES = (
+    ("decode", 4, 36, 36, 1, 64, 64, 16, 16, 0, None),
+    ("decode Sq 4", 4, 36, 36, 4, 64, 64, 16, 16, 0, None),
+    ("prefill chunk", 1, 36, 36, 64, 64, 64, 16, 16, 0, None),
+    ("GQA group 4", 4, 36, 9, 1, 64, 64, 16, 16, 0, None),
+    ("window 40", 4, 36, 36, 4, 64, 64, 16, 16, 40, None),
+    ("MLA-like", 4, 16, 1, 1, 576, 512, 16, 16, 0, 192 ** -0.5),
+)
+HEADLINE_PAGED = ("decode", "bf16")
+# The paged workload: 4 slots, max_len 256 in pages of 16, prefill chunks of
+# 64; 8 prompts of 16-128 tokens, the even ones behind a shared 64-token
+# prefix, the last a copy of the first.
+PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
+# Depth of the paged identity runs (chunk widths, gather vs contiguous): the
+# first layers of the same weights, to keep the whole run short.
+IDENTITY_LAYERS = 8
 
 _flush_buf = None
 
@@ -109,6 +151,18 @@ def time_ms(fn, reps: int, warm: bool = True) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def timed(fn):
+    """(fn's result, its device ms): one call between CUDA events, for the
+    plain versions, whose checking call is also their timing."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
 
 
 def reps_for(ms: float) -> int:
@@ -207,8 +261,7 @@ def check_gemms(dev):
                 for name, (kern, plain) in calls.items():
                     got = kern()
                     torch.cuda.synchronize()
-                    want = plain()
-                    torch.cuda.synchronize()
+                    want, plain_ms = timed(plain)
                     abs_err, rel_err = _err(got, want)
                     if dtype == "int8":
                         ok, tol = torch.equal(got, want), "exact"
@@ -218,7 +271,6 @@ def check_gemms(dev):
                         tol = f"rtol 1e-4 atol {atol:g}"
                     one = time_ms(kern, 1)
                     ms = time_ms(kern, reps_for(one), warm=False)
-                    plain_ms = time_ms(plain, 1, warm=False)
                     bound_ms, bound_by = gemm_bound(name, m, k, n, dtype)
                     rec = dict(kernel=name, m=m, k=k, n=n, dtype=dtype,
                                fold_beta=fold, ok=ok, max_abs_err=abs_err,
@@ -251,18 +303,17 @@ def check_flash(dev):
             torch.bfloat16) for _ in range(3))
         o, lse = _flash_fwd(q, k, v, 0, causal=True)
         torch.cuda.synchronize()
-        o_ref, lse_ref = _flash_fwd_plain(q, k, v, 0, causal=True)
-        torch.cuda.synchronize()
+        plain = lambda: _flash_fwd_plain(q, k, v, 0, causal=True)  # noqa: E731
+        plain()                                   # warm: first-use set-up
+        (o_ref, lse_ref), plain_ms = timed(plain)
         o_err, _ = _err(o, o_ref)
         lse_err, _ = _err(lse, lse_ref)
         ok = (_allclose(o, o_ref, 2 ** -7, 2 ** -7)
               and _allclose(lse, lse_ref, 2e-3, 2e-3))
         kern = lambda: _flash_fwd(q, k, v, 0, causal=True)      # noqa: E731
-        plain = lambda: _flash_fwd_plain(q, k, v, 0, causal=True)  # noqa: E731
         lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
             q[None], k[None], v[None], is_causal=True)
         ms = time_ms(kern, 20)
-        plain_ms = time_ms(plain, 3)
         lib_ms = time_ms(lib, 20)
         pairs = s * (s + 1) // 2                  # causal (q, k) pairs per head
         t_ops = 4.0 * bh * pairs * d / PEAK_OPS_S["bf16"] * 1e3
@@ -279,6 +330,108 @@ def check_flash(dev):
               f"lse_err={lse_err:.3g}  {ms:.4f} ms  plain {plain_ms:.3f} ms  "
               f"sdpa {lib_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})",
               flush=True)
+    return records
+
+
+def paged_bound(q, k_pool, v_pool, page_table, lengths, q_start, window):
+    """(bound_ms, bound_by) of one K5 call on this call's data: bytes are the
+    valid K/V rows (each read once), q, o, the table and the two length
+    vectors; operations are 2 (d + dv) per kept (q, k) pair and head (the QK
+    and PV products), at the peak for the input type (bf16 tensor cores, or
+    the f32 CUDA cores)."""
+    b, h, sq, d = q.shape
+    _, ps, kv, _ = k_pool.shape
+    dv = v_pool.shape[-1]
+    elt = q.element_size()
+    rows = torch.clamp(lengths.cpu(), max=page_table.shape[1] * ps)
+    q_pos = q_start.cpu()[:, None, None] + torch.arange(sq)[None, :, None]
+    k_pos = torch.arange(int(rows.max()))[None, None, :]
+    kept = (k_pos < rows[:, None, None]) & (q_pos >= k_pos)
+    if window > 0:
+        kept &= (q_pos - k_pos) < window
+    nbytes = (int(rows.sum()) * kv * (d + dv) * elt + b * h * sq * (d + dv)
+              * elt + page_table.numel() * 4 + 2 * b * 4)
+    ops = 2.0 * (d + dv) * h * int(kept.sum())
+    peak = PEAK_OPS_S["bf16" if q.dtype == torch.bfloat16 else "cuda_core"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_paged(dev):
+    """K5 against its plain version at the paged path's shapes, bf16 and
+    f32, under K4's bar (2**-7); rows with no valid key must be exact
+    zeros. The yardstick is the page gather (``_paged_view``) of K and V
+    plus ``scaled_dot_product_attention`` under a boolean mask: PyTorch has
+    no single call for paged attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_paged import (flash_attention_paged,
+                                                 flash_attention_paged_plain)
+    from repro_torch.models.attention import _paged_view
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(2)
+    for (label, b, h, kv, sq, d, dv, ps, mp, window,
+         scale) in PAGED_CASES:
+        for dtype, dname in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            n_pages = b * mp
+            q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+            kp = torch.randn((n_pages, ps, kv, d), generator=g,
+                             device=dev).to(dtype)
+            vp = torch.randn((n_pages, ps, kv, dv), generator=g,
+                             device=dev).to(dtype)
+            pt = torch.randperm(n_pages, generator=g, device=dev).reshape(
+                b, mp).to(torch.int32)
+            if label == "prefill chunk":
+                lengths = torch.full((b,), 128, device=dev)
+                q_start = torch.full((b,), 64, device=dev)
+            else:
+                lengths = torch.randint(17, ps * mp + 1, (b,), generator=g,
+                                        device=dev)
+                lengths[0] = 0
+                q_start = (lengths - sq).clamp_min(0)
+            args = (q, kp, vp, pt, lengths, q_start, window)
+            kern = lambda: flash_attention_paged(    # noqa: E731
+                *args, scale=scale)
+            plain = lambda: flash_attention_paged_plain(  # noqa: E731
+                *args, scale=scale)
+            o = kern()
+            torch.cuda.synchronize()
+            plain()                               # warm: first-use set-up
+            want, plain_ms = timed(plain)
+            abs_err, _ = _err(o, want)
+            ok = _allclose(o, want, 2 ** -7, 2 ** -7)
+            zeros = "n/a"
+            if label != "prefill chunk":
+                zeros = bool(torch.count_nonzero(o[0]) == 0)
+                ok = ok and zeros
+            k_pos = torch.arange(mp * ps, device=dev)
+            q_pos = q_start[:, None] + torch.arange(sq, device=dev)
+            diff = q_pos[:, :, None] - k_pos[None, None, :]
+            mask = (k_pos[None, None, :] < lengths[:, None, None]) & (diff >= 0)
+            if window > 0:
+                mask &= diff < window
+            mask = mask[:, None]
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, _paged_view(kp, pt).transpose(1, 2),
+                _paged_view(vp, pt).transpose(1, 2), attn_mask=mask,
+                scale=scale, enable_gqa=h != kv)
+            ms = time_ms(kern, 20)
+            lib_ms = yardstick_ms(lib)
+            bound_ms, bound_by = paged_bound(*args)
+            records.append(dict(
+                kernel="flash_paged", case=label, dtype=dname, b=b, h=h, kv=kv,
+                sq=sq, d=d, dv=dv, ps=ps, max_pages=mp, window=window, ok=ok,
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tol="2**-7; rows with no valid key exactly 0"))
+            print(f"  flash_paged   {label:13s} B={b} H={h} KV={kv} Sq={sq} "
+                  f"d={d} dv={dv} w={window} {dname:4s} "
+                  f"{'ok ' if ok else 'BAD'} max_abs={abs_err:.3g} zero rows "
+                  f"{zeros}  {ms:.4f} ms  plain {plain_ms:.3f} ms  gather+sdpa "
+                  f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
+                  f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+            del q, kp, vp, o, want
     return records
 
 
@@ -304,6 +457,7 @@ class PlainPath:
                        else params)
         self.lens = [len(p) for p in prompts]
         self.first, self.caches = [], []
+        self._second = {}
         with self._scope():
             for prompt in prompts:
                 tok = torch.as_tensor(prompt, device=model.device)[None]
@@ -323,13 +477,17 @@ class PlainPath:
 
     def second(self, rid: int, first_tok: int) -> torch.Tensor:
         """Plain logits after the prompt and ``first_tok`` (its K/V row is
-        the cache's last, rewritten by each call)."""
-        tok = torch.tensor([[first_tok]], device=self.model.device)
-        with self._scope():
-            _, logits = self.model.decode_step(self.params, tok,
-                                               self.caches[rid],
-                                               self.lens[rid])
-        return logits[0].float()
+        the cache's last, rewritten by each call), kept per (request,
+        token): the served runs mostly agree on first tokens."""
+        key = (rid, first_tok)
+        if key not in self._second:
+            tok = torch.tensor([[first_tok]], device=self.model.device)
+            with self._scope():
+                _, logits = self.model.decode_step(self.params, tok,
+                                                   self.caches[rid],
+                                                   self.lens[rid])
+            self._second[key] = logits[0].float()
+        return self._second[key]
 
 
 def shortfall(logits: torch.Tensor, tok: int) -> float:
@@ -436,7 +594,8 @@ def drive_main_path(model, params, prompts, max_new: int):
 KERNEL_GROUPS = (("ffip_kernel", "ffip_gemm_y"), ("fip_kernel", "fip_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
                  ("reduce_splits", "split-K reduce"),
-                 ("flash_fwd_kernel", "flash_fwd"))
+                 ("flash_fwd_kernel", "flash_fwd"),
+                 ("flash_paged_kernel", "flash_paged"))
 
 
 def _group(kernel_name: str) -> str:
@@ -446,29 +605,17 @@ def _group(kernel_name: str) -> str:
     return "torch ops"
 
 
-def profile_dispatches(model, params, prompt_len: int):
-    """One bucketed prefill dispatch (4 slots x ``prompt_len``) and one
-    decode step under FFIP through the kernels: launches counted, host wall
-    time, and device time by kernel from ``torch.profiler`` (busy = the sum
-    of kernel times; "not measured" where the profiler saw no device
-    activity)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(steps):
+    """Each of ``steps`` (name -> callable) under FFIP through the kernels,
+    once to warm up and once profiled: launches counted, host wall time, and
+    device time by kernel from ``torch.profiler`` (busy = the sum of kernel
+    times; "not measured" where the profiler saw no device activity)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
     from repro_torch.core.gemm import GemmConfig, use_gemm
     from repro_torch.kernels import compat
 
-    dev = model.device
-    cache = model.init_cache(4, 256)
-    tokens = torch.zeros((4, prompt_len), dtype=torch.long, device=dev)
-    lengths = torch.full((4,), prompt_len, dtype=torch.long, device=dev)
-    mask = torch.ones((4,), dtype=torch.bool, device=dev)
-    pos = torch.full((4,), prompt_len, dtype=torch.long, device=dev)
-    steps = {
-        "prefill": lambda: model.prefill_sample(params, tokens, cache,
-                                                lengths, mask),
-        "decode_step": lambda: model.sample_step(params, tokens[:, :1],
-                                                 cache, pos),
-    }
     out = {}
     with use_gemm(GemmConfig(algo="ffip", impl="cuda")), torch.no_grad(), \
             compat.use_derived(compat.DerivedCache()):
@@ -476,8 +623,8 @@ def profile_dispatches(model, params, prompt_len: int):
             fn()
             torch.cuda.synchronize()
             compat.reset_counters()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -495,6 +642,117 @@ def profile_dispatches(model, params, prompt_len: int):
                                   device_ms.items(), key=lambda kv: -kv[1])),
                               busy_ms=busy)
     return out
+
+
+def contiguous_steps(model, params, prompt_len: int):
+    """One bucketed prefill dispatch (4 slots x ``prompt_len``) and one
+    decode step over the contiguous cache."""
+    dev = model.device
+    cache = model.init_cache(4, 256)
+    tokens = torch.zeros((4, prompt_len), dtype=torch.long, device=dev)
+    lengths = torch.full((4,), prompt_len, dtype=torch.long, device=dev)
+    mask = torch.ones((4,), dtype=torch.bool, device=dev)
+    pos = torch.full((4,), prompt_len, dtype=torch.long, device=dev)
+    return {
+        "prefill": lambda: model.prefill_sample(params, tokens, cache,
+                                                lengths, mask),
+        "decode_step": lambda: model.sample_step(params, tokens[:, :1],
+                                                 cache, pos),
+    }
+
+
+def paged_steps(model, params):
+    """One paged decode step (4 slots at 128 cached rows) and one 64-row
+    prefill chunk (a prompt's second) through K5 over the paged pool."""
+    dev = model.device
+    mp = PAGED_MAX_LEN // PAGE_SIZE
+    cache = model.init_paged_cache(PAGED_SLOTS * mp, PAGE_SIZE)
+    table = torch.arange(PAGED_SLOTS * mp, dtype=torch.int32,
+                         device=dev).reshape(PAGED_SLOTS, mp)
+    tok = torch.zeros((PAGED_SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((PAGED_SLOTS,), 128, dtype=torch.long, device=dev)
+    chunk = torch.zeros((1, PREFILL_CHUNK), dtype=torch.long, device=dev)
+    return {
+        "paged decode_step": lambda: model.sample_step(
+            params, tok, cache, pos, page_table=table, paged_impl="flash"),
+        "paged prefill chunk": lambda: model.prefill_chunk_paged(
+            params, chunk, cache, table[:1], PREFILL_CHUNK, PREFILL_CHUNK,
+            PREFILL_CHUNK, paged_impl="flash"),
+    }
+
+
+def _first_layers(tree, n: int):
+    """The first ``n`` layers of a stacked parameter tree, as views."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n) for k, v in tree.items()}
+    return tree[:n]
+
+
+def _same(a: dict, b: dict) -> str:
+    """'identical', or the requests whose tokens differ and where first."""
+    diff = {rid: next((i for i, (x, y) in enumerate(zip(toks, other))
+                       if x != y), min(len(toks), len(other)))
+            for rid, toks in a["tokens"].items()
+            for other in [b["tokens"].get(rid, [])] if toks != other}
+    return "identical" if not diff else f"differ (request: first index) {diff}"
+
+
+def serve_paged(model, params, prompts, max_new: int, label: str, **kw):
+    """One paged serve of ``prompts`` (launch counts zeroed just before and
+    read just after) and the page-ledger checks every paged run must pass.
+    Returns (record, problems)."""
+    from repro_torch.kernels import compat
+    from repro_torch.launch.serve import serve
+
+    torch.cuda.reset_peak_memory_stats()
+    compat.reset_counters()
+    srv, done, wall = serve(model, params, prompts, max_new=max_new,
+                            batch_slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN,
+                            gemm_impl="cuda", paged=True,
+                            page_size=PAGE_SIZE, **kw)
+    counts = compat.launch_counts()
+    st = dict(srv.stats)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_layers = model.cfg.n_layers
+    ledger = dict(reserved=srv._reserved, free=srv.alloc.free_count,
+                  in_use=srv.alloc.in_use, num_pages=srv.alloc.num_pages,
+                  contiguous_pages=srv.b * srv.max_pages)
+    problems = []
+    if (len(done) != len(prompts)
+            or any(len(r.out_tokens) != max_new for r in done)):
+        problems.append(f"{label}: a request missed its token budget")
+    if st["prefix_hit_tokens"] <= 0 or st["cow_copies"] < 1:
+        problems.append(f"{label}: no prefix hit or no copy on write")
+    if ledger["reserved"] or ledger["free"] + ledger["in_use"] != \
+            ledger["num_pages"]:
+        problems.append(f"{label}: the page ledger does not balance {ledger}")
+    if st["pages_peak"] >= ledger["contiguous_pages"]:
+        problems.append(f"{label}: pages_peak {st['pages_peak']} not below "
+                        f"slots x max_pages")
+    want_k5 = 0
+    if srv.paged_attention == "flash":
+        want_k5 = n_layers * (st["prefill_chunks"]
+                              + st["decode_dispatches"] * srv.decode_chunk)
+    if counts["flash_paged"] != want_k5 or counts["flash_fwd"] != 0:
+        problems.append(f"{label}: flash_paged launched "
+                        f"{counts['flash_paged']} times (want {want_k5}), "
+                        f"flash_fwd {counts['flash_fwd']} (want 0)")
+    steps_ms = 1e3 * st["decode_s"] / max(1, st["steps"])
+    print(f"  [{label}] {len(done)}/{len(prompts)} requests; prefill "
+          f"{st['prefill_s']:.3f} s ({st['prefill_tokens']} tok / "
+          f"{st['prefill_chunks']} chunks), decode {st['decode_s']:.3f} s "
+          f"({st['decode_tokens']} tok / {st['steps']} steps / "
+          f"{st['decode_dispatches']} dispatches, {steps_ms:.1f} ms/step); "
+          f"peak memory {peak:.2f} GiB; pages_peak {st['pages_peak']} of "
+          f"{ledger['num_pages']} (contiguous equivalent "
+          f"{ledger['contiguous_pages']}), prefix_hit_tokens "
+          f"{st['prefix_hit_tokens']}, cow_copies {st['cow_copies']}; "
+          f"ledger {ledger}; launches {counts}", flush=True)
+    rec = dict(label=label, done=done, counts=counts, stats=st, wall_s=wall,
+               peak_gib=peak, ms_per_step=steps_ms,
+               tokens={r.rid: list(r.out_tokens) for r in done})
+    del srv
+    return rec, problems
 
 
 def main(argv=None) -> int:
@@ -535,9 +793,11 @@ def main(argv=None) -> int:
     print("phase kernels: hand-written kernel vs plain version", flush=True)
     gemm_recs = check_gemms(dev)
     flash_recs = check_flash(dev)
-    bad = [r for r in gemm_recs + flash_recs if not r["ok"]]
-    print(f"phase kernels: {len(gemm_recs) + len(flash_recs)} checks, "
-          f"{len(bad)} failed, {time.perf_counter() - t0:.1f} s", flush=True)
+    paged_recs = check_paged(dev)
+    recs = gemm_recs + flash_recs + paged_recs
+    bad = [r for r in recs if not r["ok"]]
+    print(f"phase kernels: {len(recs)} checks, {len(bad)} failed, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}",
               file=sys.stderr)
@@ -545,7 +805,7 @@ def main(argv=None) -> int:
     compat.derived.clear()
     torch.cuda.empty_cache()
 
-    # 3. the main path: minicpm-2b served at full width
+    # 3. the main path: minicpm-2b served at full width, contiguous cache
     t0 = time.perf_counter()
     full = configs.get_config("minicpm-2b")
     cfg = dataclasses.replace(full, n_layers=args.layers)
@@ -555,29 +815,27 @@ def main(argv=None) -> int:
           f"(published {full.n_layers})", flush=True)
     model = Model(cfg)
     params = model.init(args.seed)
+    naive = Model(dataclasses.replace(cfg, attention_impl="naive"))
     prompts = make_prompts(cfg.vocab, 8, np.random.default_rng(args.seed),
                            16, 129)
     runs = drive_main_path(model, params, prompts, args.max_new)
-    totals = {name: sum(r["counts"][name] for r in runs)
-              for name in compat.launch_counts()}
     expect = {"ffip": "ffip_gemm_y", "fip": "fip_gemm",
               "baseline": "baseline_gemm"}
     problems = [f"{r['label']}: {expect[r['algo']]} never launched"
                 for r in runs if r["counts"][expect[r["algo"]]] == 0]
-    problems += [f"{name} never launched on the main path"
-                 for name, n in totals.items() if n == 0]
     problems += [f"{r['label']}: a request missed its token budget"
                  for r in runs if not r["budget_ok"]]
-    print(f"phase serve: {time.perf_counter() - t0:.1f} s; launches over the "
-          f"served runs {totals}", flush=True)
+    print(f"phase serve: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. first and second tokens against the plain path; for int8, the
     # readings that set its bar: a served run without the flash kernel, and
     # served runs with planted faults
     t0 = time.perf_counter()
     plain = {q: PlainPath(model, params, prompts, q) for q in (False, True)}
+    print(f"  plain paths built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
-    def read(label, done, quantized, bar, must_pass=True):
+    def read(label, done, quantized, bar, plain, must_pass=True):
         exact, first, second = token_readings(done, plain[quantized])
         worst = max(first, second)
         print(f"  [{label}] first token = plain-path argmax for {exact}/"
@@ -591,17 +849,16 @@ def main(argv=None) -> int:
     sound = {}
     for r in runs:
         worst = read(r["label"], r["done"], r["quantized"],
-                     INT8_BAR_SD if r["quantized"] else FLOAT_BAR_SD)
+                     INT8_BAR_SD if r["quantized"] else FLOAT_BAR_SD, plain)
         if r["quantized"]:
             sound[r["label"]] = worst
     # the int8 run once more without the flash kernel: plain attention on
     # both sides, so only the GEMM kernels and the batching differ
-    naive = Model(dataclasses.replace(cfg, attention_impl="naive"))
     _, done, _ = serve(naive, params, prompts, max_new=2, batch_slots=4,
                        max_len=256, quantized=True, gemm_algo="ffip",
                        gemm_impl="cuda")
     sound["int8-ffip, plain attention"] = read(
-        "int8-ffip, plain attention", done, True, FLOAT_BAR_SD)
+        "int8-ffip, plain attention", done, True, FLOAT_BAR_SD, plain)
     seen = {}
     for label, (faulty, must_see) in planted_faults(
             params, cfg.n_layers).items():
@@ -609,9 +866,10 @@ def main(argv=None) -> int:
                            max_len=256, quantized=True, gemm_algo="ffip",
                            gemm_impl="cuda")
         worst = read(f"planted fault: {label}", done, True, INT8_BAR_SD,
-                     must_pass=False)
+                     plain, must_pass=False)
         if must_see:
             seen[label] = worst
+    del faulty
     print(f"  int8 bar {INT8_BAR_SD} sd: largest sound reading "
           f"{max(sound.values()):.4f}, smallest reading of a planted fault "
           f"the bar must see {min(seen.values()):.4f}", flush=True)
@@ -619,48 +877,133 @@ def main(argv=None) -> int:
                  for label, w in seen.items() if w <= INT8_BAR_SD]
     del plain
     print(f"phase check: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 5. paged serving through K5: the page pool, prefix sharing, copy on
+    # write and chunked prefill; the served runs and their token checks
+    t0 = time.perf_counter()
+    paged_prompts = make_prompts(cfg.vocab, 8,
+                                 np.random.default_rng(args.seed), 16, 65,
+                                 shared_prefix=64)
+    print(f"phase paged: {PAGED_SLOTS} slots, max_len {PAGED_MAX_LEN}, "
+          f"pages of {PAGE_SIZE}, prefill chunks of {PREFILL_CHUNK}; prompt "
+          f"lengths {[len(p) for p in paged_prompts]}", flush=True)
+    paged_runs = []
+
+    def run_paged(label, m, p, **kw):
+        rec, found = serve_paged(m, p, paged_prompts, args.max_new, label,
+                                 **kw)
+        problems.extend(found)
+        paged_runs.append(rec)
+        return rec
+
+    flash = dict(paged_attention="flash", prefill_chunk=PREFILL_CHUNK)
+    ffip = run_paged("paged flash ffip", model, params, gemm_algo="ffip",
+                     decode_chunk=4, **flash)
+    int8 = run_paged("paged flash int8-ffip", model, params,
+                     gemm_algo="ffip", quantized=True, decode_chunk=1,
+                     **flash)
+    plain = {q: PlainPath(model, params, paged_prompts, q)
+             for q in (False, True)}
+    read(ffip["label"], ffip["done"], False, FLOAT_BAR_SD, plain)
+    read(int8["label"], int8["done"], True, INT8_BAR_SD, plain)
+    del plain
+    # Identity runs, at IDENTITY_LAYERS (the first layers of the same
+    # weights). Chunking must not change a token: int8 with every prompt in
+    # one chunk must match int8 in chunks of 64 (exact integer GEMMs; K5 and
+    # the norms do a row's arithmetic the same way at any chunk width).
+    # Float is not held to this: the float GEMMs' split-K plan depends on
+    # the rows of a dispatch, so their sums round differently (ROADMAP
+    # section 3). And the reference's bit-identity contract: gather-paged
+    # int8 with plain attention must give the contiguous server's tokens.
+    n_id = min(IDENTITY_LAYERS, cfg.n_layers)
+    cfg_id = dataclasses.replace(cfg, n_layers=n_id)
+    model_id = Model(cfg_id)
+    naive_id = Model(dataclasses.replace(cfg_id, attention_impl="naive"))
+    params_id = dict(params, layers=_first_layers(params["layers"], n_id))
+    same = _same(*[run_paged(f"paged flash int8-ffip, {n_id} layers, "
+                             f"prefill_chunk {c}", model_id, params_id,
+                             gemm_algo="ffip", quantized=True,
+                             decode_chunk=1, paged_attention="flash",
+                             prefill_chunk=c)
+                   for c in (PREFILL_CHUNK, PAGED_MAX_LEN)])
+    print(f"  prefill_chunk {PREFILL_CHUNK} vs {PAGED_MAX_LEN} ({n_id} "
+          f"layers): int8 tokens {same}", flush=True)
+    if same != "identical":
+        problems.append("int8 tokens change with the prefill chunk")
+    gather = run_paged(f"paged gather int8-ffip, plain attention, {n_id} "
+                       f"layers", naive_id, params_id, gemm_algo="ffip",
+                       quantized=True, decode_chunk=1,
+                       paged_attention="gather", prefill_chunk=PREFILL_CHUNK)
+    _, done, _ = serve(naive_id, params_id, paged_prompts,
+                       max_new=args.max_new, batch_slots=PAGED_SLOTS,
+                       max_len=PAGED_MAX_LEN, quantized=True,
+                       gemm_algo="ffip", gemm_impl="cuda")
+    contiguous = dict(tokens={r.rid: list(r.out_tokens) for r in done})
+    print(f"  gather-paged vs contiguous (int8, plain attention, {n_id} "
+          f"layers): tokens {_same(gather, contiguous)}", flush=True)
+    if gather["tokens"] != contiguous["tokens"]:
+        problems.append("gather-paged tokens differ from the contiguous "
+                        "cache's")
+    print(f"phase paged: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    totals = {name: sum(r["counts"][name] for r in runs + paged_runs)
+              for name in compat.launch_counts()}
+    problems += [f"{name} never launched on the main path"
+                 for name, n in totals.items() if n == 0]
+    print(f"launches over the served runs {totals}", flush=True)
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 5. one prefill dispatch and one decode step, counted and profiled
-    for phase, rec in profile_dispatches(model, params, 128).items():
+    # 6. one dispatch of each kind, counted and profiled
+    steps = contiguous_steps(model, params, 128)
+    steps.update(paged_steps(model, params))
+    for phase, rec in profile(steps).items():
         top = ", ".join(f"{k} {v:.3f}" for k, v in rec["device_ms"].items())
-        print(f"phase profile {phase} (ffip, 4 slots x 128): wall "
-              f"{rec['wall_ms']:.3f} ms, device busy {rec['busy_ms']} ms; "
-              f"device ms by kernel: {top or 'not measured'}; launches "
-              f"{rec['launches']}", flush=True)
-        # 7 projections per layer plus the unembed; flash once per layer
-        # in prefill only
+        print(f"phase profile {phase} (ffip, 4 slots x 128 / a 64-row "
+              f"chunk): wall {rec['wall_ms']:.3f} ms, device busy "
+              f"{rec['busy_ms']} ms; device ms by kernel: "
+              f"{top or 'not measured'}; launches {rec['launches']}",
+              flush=True)
+        # 7 projections per layer plus the unembed; attention once per
+        # layer: K4 in the contiguous prefill, K5 in either paged dispatch
         want = {"ffip_gemm_y": 7 * cfg.n_layers + 1,
-                "flash_fwd": cfg.n_layers if phase == "prefill" else 0}
+                "flash_fwd": cfg.n_layers if phase == "prefill" else 0,
+                "flash_paged": cfg.n_layers if "paged" in phase else 0}
         got = {k: rec["launches"][k] for k in want}
         if got != want:
             print(f"FAIL: {phase} launched {got}, expected {want}",
                   file=sys.stderr)
             return 1
 
-    # 6. the kernels line and the result line
+    # 7. the kernels line and the result line
     kernels = []
-    for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y", "flash_fwd"):
-        recs = [r for r in gemm_recs + flash_recs if r["kernel"] == name]
+    for name in SOURCES:
+        recs_k = [r for r in recs if r["kernel"] == name]
         if name == "flash_fwd":
-            head = next(r for r in recs if r["s"] == HEADLINE_FLASH_S)
+            head = next(r for r in recs_k if r["s"] == HEADLINE_FLASH_S)
             shape = f"BH={head['bh']} S={head['s']} d={head['d']} causal bf16"
+        elif name == "flash_paged":
+            head = next(r for r in recs_k if (r["case"], r["dtype"])
+                        == HEADLINE_PAGED)
+            shape = (f"B={head['b']} H={head['h']} KV={head['kv']} "
+                     f"Sq={head['sq']} d={head['d']} ps={head['ps']} "
+                     f"max_pages={head['max_pages']} bf16 decode; library: "
+                     f"page gather + scaled_dot_product_attention")
         else:
             m, k, n, dt = HEADLINE_GEMM
-            head = next(r for r in recs if (r["m"], r["k"], r["n"],
-                                            r["dtype"]) == (m, k, n, dt))
+            head = next(r for r in recs_k if (r["m"], r["k"], r["n"],
+                                              r["dtype"]) == (m, k, n, dt))
             shape = f"M={m} K={k} N={n} {dt}"
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": totals[name],
-            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "max_abs_err": max(r["max_abs_err"] for r in recs_k),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": shape,
             "per_shape": [{k: v for k, v in r.items()
-                           if k not in ("kernel", "ok")} for r in recs]})
+                           if k not in ("kernel", "ok")} for r in recs_k]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,11 @@
 ``repro/models/attention.py``: projections through the GEMM provider, the
 prompt through the flash kernel (K4), decode through plain attention over the
 per-slot contiguous cache (the reference leaves decode attention to XLA).
+Paged caches (shared page pools addressed through a page table) attend
+through the paged kernel (K5) or over a gathered contiguous view.
 
-``window`` is a Python int per layer; 0 means full attention. Paged caches,
-MLA and cross-attention are later slices.
+``window`` is a Python int per layer; 0 means full attention. MLA and
+cross-attention are later slices.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_paged import flash_attention_paged
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -65,6 +68,63 @@ def _cache_write(buf: Tensor, new: Tensor, cache_pos,
         new = torch.where(keep, new, buf[bidx, rows])
     buf[bidx, rows] = new
     return buf
+
+
+def _paged_write(pool: Tensor, new: Tensor, page_table: Tensor, cache_pos,
+                 write_mask: Optional[Tensor] = None) -> Tensor:
+    """Scatter ``new`` (B, s, ...) token rows into the page ``pool``
+    (P, ps, ...) at logical positions ``cache_pos`` through the page table,
+    IN PLACE, and return ``pool``.
+
+    Token ``t`` of sequence ``b`` lands in pool row
+    ``page_table[b, t // ps] * ps + t % ps``. ``write_mask``: None, (B,) or
+    (B, s) bool. Rows with a False mask, and rows whose position falls past
+    the page table, are DROPPED: frozen or inactive slots never touch the
+    shared pool (the reference pushes their index out of range and scatters
+    with ``mode="drop"``). torch indexing has no drop mode and a boolean
+    filter would stall the host on the card, so each dropped row is aimed at
+    the first kept row with that row's own value: every pool row then
+    receives one value, whatever order the scatter runs in. With no kept row
+    at all, every index rewrites one pool row with its current content.
+    """
+    new = new.to(pool.dtype)
+    n_pages, ps = pool.shape[:2]
+    b, s = new.shape[:2]
+    max_pages = page_table.shape[1]
+    dev = pool.device
+    pos = torch.as_tensor(cache_pos, dtype=torch.long,
+                          device=dev).reshape(-1).expand(b)
+    r = pos[:, None] + torch.arange(s, device=dev)[None, :]          # (B, s)
+    page = torch.gather(page_table.to(torch.long), 1,
+                        torch.clamp(r // ps, max=max_pages - 1))
+    rows = (page * ps + r % ps).reshape(-1)
+    keep = r // ps < max_pages
+    if write_mask is not None:
+        keep = keep & (write_mask if write_mask.dim() == 2
+                       else write_mask[:, None])
+    keep = keep.reshape(-1)
+    flat = pool.view((n_pages * ps,) + pool.shape[2:])
+    vals = new.reshape((b * s,) + new.shape[2:])
+    first = torch.argmax(keep.to(torch.int8))
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    dst0 = rows[first]
+    val0 = torch.where(keep.any(), vals[first], flat[dst0])
+    flat[torch.where(keep, rows, dst0)] = torch.where(keep.reshape(shape),
+                                                      vals, val0)
+    return pool
+
+
+def _paged_view(pool: Tensor, page_table: Tensor) -> Tensor:
+    """Gather pool pages into a (B, max_pages * ps, ...) contiguous view.
+    With ``max_pages * ps == max_len`` it has the contiguous cache's exact
+    shape, so the plain attention over it matches the contiguous decode
+    path; unallocated pages are masked by the caller's validity mask."""
+    n_pages, ps = pool.shape[:2]
+    b, max_pages = page_table.shape
+    flat = pool.view((n_pages * ps,) + pool.shape[2:])
+    rows = (page_table.to(torch.long)[:, :, None] * ps
+            + torch.arange(ps, device=pool.device)[None, None, :])
+    return flat[rows.reshape(b, max_pages * ps)]
 
 
 def _cache_end(cache_pos, s: int, device) -> Tensor:
@@ -120,10 +180,19 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
               window: int = 0, rope_theta=None, causal: bool = True,
               cache: Optional[dict] = None, cache_pos=None,
               cache_write_mask: Optional[Tensor] = None,
-              prefill: bool = False) -> Tuple[Tensor, Optional[dict]]:
+              prefill: bool = False, page_table: Optional[Tensor] = None,
+              paged_impl: str = "gather") -> Tuple[Tensor, Optional[dict]]:
     """Full sequence when ``cache`` is None; prefill into empty cache rows
     (flash) or single-step decode over the cache otherwise. cache =
-    {"k": (B, S_max, KV, hd), "v": ...}, written in place."""
+    {"k": (B, S_max, KV, hd), "v": ...}, written in place.
+
+    With ``page_table`` (B, max_pages) the cache leaves are page POOLS
+    (P, ps, KV, hd) shared across sequences: k/v rows scatter through the
+    table, and attention runs through the paged kernel
+    (``paged_impl="flash"``) or over the gathered contiguous view
+    (``"gather"``, the contiguous decode math). The paged branch serves
+    decode and chunked prefill alike: chunk rows attend the whole cache, so
+    chunk boundaries never change a row's arithmetic."""
     b, s, _ = x.shape
     hd = cfg.hd
     theta = cfg.rope_theta if rope_theta is None else rope_theta
@@ -141,6 +210,31 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
             keep = _mask(pos2, pos2, window, causal)
             out = _sdpa(q, k, v, keep)
         new_cache = None
+    elif page_table is not None:
+        k_pool = _paged_write(cache["k"], k, page_table, cache_pos,
+                              cache_write_mask)
+        v_pool = _paged_write(cache["v"], v, page_table, cache_pos,
+                              cache_write_mask)
+        pos = torch.as_tensor(cache_pos, dtype=torch.long,
+                              device=x.device).reshape(-1).expand(b)
+        if paged_impl == "flash":
+            out = flash_attention_paged(
+                q.permute(0, 2, 1, 3).contiguous(), k_pool, v_pool,
+                page_table, pos + s, pos, window or 0, causal=causal)
+            out = out.permute(0, 2, 1, 3)
+        elif paged_impl == "gather":
+            kg = _paged_view(k_pool, page_table)
+            vg = _paged_view(v_pool, page_table)
+            k_pos = torch.arange(kg.shape[1], device=x.device)
+            valid = k_pos[None, :] < _cache_end(pos, s, x.device)
+            q_pos = positions if positions.dim() == 2 else positions[None, :]
+            keep = (_mask(q_pos, k_pos[None, :], window, causal)
+                    & valid[:, None, :])
+            out = _sdpa(q, kg, vg, keep)
+        else:
+            raise ValueError(f"paged_impl must be 'gather' or 'flash', got "
+                             f"{paged_impl!r}")
+        new_cache = {"k": k_pool, "v": v_pool}
     elif prefill and cfg.attention_impl == "flash":
         # prefill into EMPTY cache rows: attention over the prompt is flash
         # self-attention; k/v land at the prompt's offset

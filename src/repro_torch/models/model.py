@@ -31,6 +31,13 @@ class Model:
     def init_cache(self, batch: int, max_len: int) -> dict:
         return T.init_cache(self.cfg, batch, max_len, device=self.device)
 
+    def init_paged_cache(self, num_pages: int, page_size: int) -> dict:
+        """Shared page pools instead of per-slot rows (see
+        transformer.init_paged_cache); sequences address them through a
+        (B, max_pages) page table owned by the serving layer."""
+        return T.init_paged_cache(self.cfg, num_pages, page_size,
+                                  device=self.device)
+
     # -- serving -----------------------------------------------------------
     def prefill(self, params, tokens: Tensor, cache: dict
                 ) -> Tuple[dict, Tensor]:
@@ -50,27 +57,41 @@ class Model:
                                          caches=cache, cache_pos=pos)
         return new_cache, T.logits_fn(params, hidden, self.cfg)[:, 0]
 
-    def sample_step(self, params, token: Tensor, cache: dict, pos
+    def sample_step(self, params, token: Tensor, cache: dict, pos, *,
+                    page_table: Optional[Tensor] = None,
+                    paged_impl: str = "gather",
+                    write_mask: Optional[Tensor] = None
                     ) -> Tuple[dict, Tensor]:
         """decode_step with greedy sampling on the device: (cache, (B,)
-        int32 ids)."""
-        hidden, _, new_cache = T.forward(params, token, self.cfg,
-                                         caches=cache, cache_pos=pos)
+        int32 ids). With ``page_table`` the cache leaves are page pools and
+        ``write_mask`` (B,) gates the pool writes: a masked-out slot must not
+        touch SHARED pool rows, unlike the harmless private-row rewrite of
+        the contiguous path."""
+        hidden, _, new_cache = T.forward(
+            params, token, self.cfg, caches=cache, cache_pos=pos,
+            cache_write_mask=write_mask, page_table=page_table,
+            paged_impl=paged_impl)
         return new_cache, T.sample_fn(params, hidden, self.cfg)[:, 0]
 
     def sample_steps(self, params, token: Tensor, cache: dict, pos: Tensor,
                      live: Tensor, remaining: Tensor, eos_id: Tensor, *,
-                     steps: int) -> Tuple[dict, Tensor]:
+                     steps: int, page_table: Optional[Tensor] = None,
+                     paged_impl: str = "gather") -> Tuple[dict, Tensor]:
         """``steps`` greedy decode steps feeding each sampled token back on
         the device; returns (cache, (steps, B) int32 ids).
 
         Per-slot freeze, as the reference's scan: a slot that hits EOS or
         exhausts its budget stops advancing its token and position, so each
         later step rewrites the same K/V into the same row and the cache
-        stays identical to one-step-at-a-time decode."""
+        stays identical to one-step-at-a-time decode. Paged, a frozen slot
+        writes nothing instead (``write_mask=live``): its rows may be
+        shared."""
         tok, toks = token, []
         for _ in range(steps):
-            cache, nxt = self.sample_step(params, tok[:, None], cache, pos)
+            cache, nxt = self.sample_step(
+                params, tok[:, None], cache, pos, page_table=page_table,
+                paged_impl=paged_impl,
+                write_mask=live if page_table is not None else None)
             remaining = torch.where(live, remaining - 1, remaining)
             finished = live & ((nxt == eos_id) | (remaining <= 0))
             live = live & ~finished
@@ -92,6 +113,33 @@ class Model:
             cache_write_mask=slot_mask, is_prefill=True)
         last = hidden[torch.arange(b, device=hidden.device), lengths - 1]
         return new_cache, T.sample_fn(params, last[:, None], self.cfg)[:, 0]
+
+    def prefill_chunk_paged(self, params, tokens: Tensor, cache: dict,
+                            page_table: Tensor, offset: int, valid_len: int,
+                            write_start: int, *, paged_impl: str = "gather"
+                            ) -> Tuple[dict, Tensor]:
+        """One page-aligned prefill chunk of a single sequence into the
+        pools. tokens: (1, C) chunk right-padded to the fixed width C;
+        page_table: (1, max_pages) this sequence's table; offset: logical
+        position of tokens[0, 0]; valid_len: real tokens in the chunk;
+        write_start: first logical row to WRITE (rows below it are already in
+        the pool as shared prefix pages; a fully shared prompt recomputes
+        only its last token and writes nothing). Returns (cache, () int32
+        greedy token at the chunk's last valid position, meaningful only on a
+        prompt's final chunk).
+
+        Chunking does not change a row's attention: the paged branch attends
+        over the whole cache, never a chunk-local window."""
+        dev = tokens.device
+        rows = offset + torch.arange(tokens.shape[1], device=dev)[None, :]
+        wm = (rows >= write_start) & (rows < offset + valid_len)
+        hidden, _, new_cache = T.forward(
+            params, tokens, self.cfg, caches=cache,
+            cache_pos=torch.tensor([offset], dtype=torch.long, device=dev),
+            cache_write_mask=wm, is_prefill=True, page_table=page_table,
+            paged_impl=paged_impl)
+        last = hidden[:, valid_len - 1]                       # (1, d)
+        return new_cache, T.sample_fn(params, last[:, None], self.cfg)[0, 0]
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -2,7 +2,8 @@
 ``repro/models/transformer.py``. Parameters keep the reference tree's layout
 (stacked ``(L, ...)`` leaves under ``"layers"``); the reference's
 ``lax.scan`` over layers is a Python loop over that leading axis. Caches are
-stacked the same way and written in place."""
+stacked the same way and written in place; a paged cache stacks page pools
+(:func:`init_paged_cache`)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -43,7 +44,8 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                 positions: Tensor, window: int = 0, theta=None,
                 causal: bool = True, cache: Optional[dict] = None,
                 cache_pos=None, cache_write_mask: Optional[Tensor] = None,
-                prefill: bool = False) -> Tuple[Tensor, Optional[dict]]:
+                prefill: bool = False, page_table: Optional[Tensor] = None,
+                paged_impl: str = "gather") -> Tuple[Tensor, Optional[dict]]:
     """Pre-norm attention + gated MLP block. Returns (x, new_cache)."""
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
@@ -51,7 +53,7 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
         p["attn"], norm_apply(x, p["ln1"], cfg), cfg=cfg, positions=positions,
         window=window, rope_theta=theta, causal=causal, cache=cache,
         cache_pos=cache_pos, cache_write_mask=cache_write_mask,
-        prefill=prefill)
+        prefill=prefill, page_table=page_table, paged_impl=paged_impl)
     x = x + h
     f = L.mlp(norm_apply(x, p["ln2"], cfg), p["ffn"], cfg.act)
     return x + f, new_cache
@@ -111,10 +113,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
 def forward(params, tokens: Tensor, cfg: ModelConfig, *,
             caches: Optional[dict] = None, cache_pos=None,
             cache_write_mask: Optional[Tensor] = None,
-            is_prefill: bool = False) -> Tuple[Tensor, Tensor, Optional[dict]]:
+            is_prefill: bool = False, page_table: Optional[Tensor] = None,
+            paged_impl: str = "gather"
+            ) -> Tuple[Tensor, Tensor, Optional[dict]]:
     """Token ids -> final hidden states; returns (hidden, aux_loss,
     caches). ``cache_pos``: scalar (shared offset) or (B,) per-slot
-    positions; ``cache_write_mask``: (B,) bool rows allowed to write."""
+    positions; ``cache_write_mask``: (B,) bool rows allowed to write, or with
+    a page table (B, S) per-token masks (a padded prefill chunk's tail).
+    ``page_table``: (B, max_pages) pool page ids; the caches then hold page
+    POOLS (:func:`init_paged_cache`) and ``paged_impl`` picks "gather" or
+    "flash" (the paged kernel)."""
     x = L.embed(tokens, params["embed"])
     b, s = tokens.shape[:2]
     dev = tokens.device
@@ -138,7 +146,8 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
                 cache=(tree_index(grp_cache, i) if grp_cache is not None
                        else None),
                 cache_pos=cache_pos, cache_write_mask=cache_write_mask,
-                prefill=is_prefill)
+                prefill=is_prefill, page_table=page_table,
+                paged_impl=paged_impl)
         offset += n
     x = norm_apply(x, params["final_norm"], cfg)
     return x, torch.zeros((), dtype=torch.float32, device=dev), caches
@@ -162,6 +171,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     caches = {}
     for name, _kind, n in layer_plan(cfg):
         shp = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
+                        "v": torch.zeros(shp, dtype=dtype, device=device)}
+    return caches
+
+
+def paged_cache_supported(cfg: ModelConfig) -> bool:
+    """True iff every cached layer is a (GQA or MLA) attention layer: SSM
+    states and encoder cross-KV have no per-token rows to page."""
+    if cfg.family in ("ssm", "hybrid") or cfg.encoder is not None:
+        return False
+    return all(kind not in ("ssm1", "ssm2") for _, kind, _ in layer_plan(cfg))
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     dtype=None, *, device) -> dict:
+    """Zero page POOLS, stacked per layer group: the (batch, max_len) row
+    plane of :func:`init_cache` becomes one shared (num_pages, page_size)
+    pool, which serves the decode batch and batch-1 prefill chunks alike and
+    lets sequences share pages. Zeros, as the reference's: masked keys of a
+    valid page still meet p = 0 in the plain PV product."""
+    dtype = dtype or cfg.dtype
+    if not paged_cache_supported(cfg):
+        raise ValueError("paged KV cache requires a pure-attention decoder "
+                         f"stack (family={cfg.family!r})")
+    caches = {}
+    for name, _kind, n in layer_plan(cfg):
+        shp = (n, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
                         "v": torch.zeros(shp, dtype=dtype, device=device)}
     return caches

@@ -23,8 +23,21 @@ hand-written kernels; with ``gemm_algo="ffip"`` the Eq. 9 y-deltas of every
 weight are computed once when serving starts, not per step, and the server
 holds them: they are freed with it.
 
-Paged caches, meshes, prepared artifacts and the ``repro.obs`` hooks come in
-later slices; asking for one raises ``NotImplementedError``.
+**Paged mode** (``paged=True``): the per-slot ``slots x max_len`` cache is
+replaced by a shared page POOL per cache leaf (``num_pages`` pages of
+``page_size`` tokens) addressed through a per-slot ``(B, max_pages)`` page
+table. Pages are allocated as a sequence grows; full prompt pages are keyed
+by a chained hash and SHARED across requests with identical prefixes
+(refcounted, copied on write when a shared page would be written); prompts
+prefill in page-aligned CHUNKS, one chunk per mid-prefill slot per step,
+interleaved with the decode dispatch. ``paged_attention="flash"`` attends
+through the paged kernel (K5); ``"gather"`` runs the contiguous decode math
+over a gathered view, so its tokens match ``paged=False``.
+
+Meshes, prepared artifacts and the ``repro.obs`` hooks come in later slices;
+asking for one raises ``NotImplementedError``. Until the obs port,
+:attr:`BatchServer.events` is a bounded list of dispatch tuples instead of
+a view of the span ring.
 """
 from __future__ import annotations
 
@@ -42,10 +55,16 @@ from repro_torch.core.quant import attach_quantized_weights
 from repro_torch.kernels import compat, ffip_gemm
 from repro_torch.kernels.compat import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import paged_cache_supported
 from repro_torch.serve.lifecycle import (AdmissionImpossibleError,
                                          ServeStallError)
+from repro_torch.serve.paged import (PageAllocator, PrefixIndex, page_keys,
+                                     partial_key)
+
+Tensor = torch.Tensor
 
 _MIN_BUCKET = 4
+_EVENT_CAPACITY = 4096   # the reference tracer's default ring capacity
 
 
 def _ffip_weights(node, quantized: bool):
@@ -76,29 +95,48 @@ class Request:
 
 
 @dataclasses.dataclass
+class _PagedSeq:
+    """Paged-mode bookkeeping for one in-flight request."""
+    n: int                        # prompt length
+    pages: List[int]              # pool page ids for logical pages 0..k-1
+    keys: List[bytes]             # chain keys of the FULL prompt pages
+    pkey: Optional[bytes]         # key of the terminal partial page (if any)
+    filled: int                   # leading prompt rows already in the pool
+    compute_next: int             # next prompt token index to run
+    shared_tail: bool             # pages[-1] attached shared -> COW on write
+    reserve: int                  # pages reserved (admission) not yet alloc'd
+    registered: int = 0           # full prompt pages published to the index
+
+
+@dataclasses.dataclass
 class _Slot:
     req: Optional[Request] = None
     pos: int = 0                  # tokens currently in this slot's cache rows
     remaining: int = 0
+    seq: Optional[_PagedSeq] = None   # paged mode only
 
 
 class BatchServer:
-    """Single-device continuous batcher over the contiguous slot cache."""
+    """Single-device continuous batcher over the contiguous slot cache or,
+    with ``paged=True``, a shared page pool."""
 
     def __init__(self, model: Model, *, batch_slots: int, max_len: int,
                  greedy: bool = True, quantized: bool = False,
                  gemm_algo: str = "ffip", gemm_impl: Optional[str] = None,
                  decode_chunk: int = 1,
-                 device=None, paged: bool = False, mesh=None, prepared=None,
+                 device=None, paged: bool = False, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 paged_attention: str = "gather",
+                 prefix_sharing: bool = True, mesh=None, prepared=None,
                  registry=None, tracer=None,
                  clock: Optional[Callable[[], float]] = None):
-        for name, val in (("paged", paged), ("mesh", mesh),
-                          ("prepared", prepared), ("registry", registry),
-                          ("tracer", tracer)):
+        for name, val in (("mesh", mesh), ("prepared", prepared),
+                          ("registry", registry), ("tracer", tracer)):
             if val:
                 raise NotImplementedError(
                     f"BatchServer({name}=...) is not ported yet "
-                    f"(contiguous single-device serving only)")
+                    f"(single-device serving only)")
         if not greedy:
             raise NotImplementedError("only greedy decoding is implemented")
         if decode_chunk < 1:
@@ -111,6 +149,7 @@ class BatchServer:
         self.b = batch_slots
         self.max_len = max_len
         self.decode_chunk = decode_chunk
+        self.paged = paged
         self.quantized = quantized
         self.tier = "int8" if quantized else "float"
         self._clock = clock if clock is not None else time.perf_counter
@@ -125,7 +164,41 @@ class BatchServer:
         self._result_cache_size = 1024
         self._dup_waiters: Dict[int, List[Request]] = {}
         self._cached_hits: List[Request] = []
-        self.cache = model.init_cache(batch_slots, max_len)
+        # dispatch order: ("prefill_chunk", rid, start, end) and
+        # ("decode", (rids...)) tuples, bounded like the reference's ring
+        self._events: "collections.deque[Tuple]" = collections.deque(
+            maxlen=_EVENT_CAPACITY)
+        if paged:
+            if page_size < 1 or (page_size & (page_size - 1)):
+                raise ValueError(f"page_size must be a power of two, "
+                                 f"got {page_size}")
+            if max_len % page_size:
+                raise ValueError(f"max_len ({max_len}) must be a multiple of "
+                                 f"page_size ({page_size})")
+            if not paged_cache_supported(model.cfg):
+                raise ValueError("paged=True requires a pure-attention "
+                                 f"decoder (family={model.cfg.family!r})")
+            if paged_attention not in ("gather", "flash"):
+                raise ValueError(f"paged_attention must be 'gather' or "
+                                 f"'flash', got {paged_attention!r}")
+            self.page_size = page_size
+            self.max_pages = max_len // page_size
+            self.num_pages = (num_pages if num_pages is not None
+                              else batch_slots * self.max_pages)
+            self.prefill_chunk = prefill_chunk or max_len
+            if (self.prefill_chunk % page_size
+                    or not 0 < self.prefill_chunk <= max_len):
+                raise ValueError(
+                    f"prefill_chunk ({self.prefill_chunk}) must be a "
+                    f"page-aligned length in (0, max_len]")
+            self.paged_attention = paged_attention
+            self.prefix_sharing = prefix_sharing
+            self.alloc = PageAllocator(self.num_pages)
+            self.prefix = PrefixIndex(self.alloc)
+            self._reserved = 0          # pages promised to admitted requests
+            self.cache = model.init_paged_cache(self.num_pages, page_size)
+        else:
+            self.cache = model.init_cache(batch_slots, max_len)
         if quantized or gemm_impl is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):
@@ -149,7 +222,19 @@ class BatchServer:
         return {"prefill_s": 0.0, "decode_s": 0.0, "steps": 0,
                 "prefill_tokens": 0, "decode_tokens": 0,
                 "prefill_dispatches": 0, "decode_dispatches": 0,
-                "host_bytes_prefill": 0, "host_bytes_decode": 0}
+                "host_bytes_prefill": 0, "host_bytes_decode": 0,
+                # paged-mode extras (zero in contiguous mode); page-table
+                # uploads have their own byte counter
+                "host_bytes_page_tables": 0, "prefill_chunks": 0,
+                "prefix_hit_tokens": 0, "cow_copies": 0,
+                "pages_in_use": 0, "pages_peak": 0}
+
+    @property
+    def events(self) -> List[Tuple]:
+        """Dispatch interleaving, oldest first: ``("prefill_chunk", rid,
+        start, end)`` and ``("decode", (rids...))`` tuples, the last 4096
+        of the server's life (not reset per drain)."""
+        return list(self._events)
 
     # -- GEMM scope and run-ready params ------------------------------------
     def _gemm_scope(self):
@@ -223,6 +308,15 @@ class BatchServer:
                 f"max_new_tokens ({req.max_new_tokens}) needs {rows} cache "
                 f"rows (the last sampled token is never written) but "
                 f"max_len is {self.max_len}")
+        if self.paged:
+            # worst-case pages beyond the whole pool can never be admitted,
+            # however many slots drain
+            pages = -(-rows // self.page_size)
+            if pages > self.num_pages:
+                raise AdmissionImpossibleError(
+                    f"request {req.rid}: needs {pages} pages worst-case "
+                    f"({rows} rows / page_size {self.page_size}) but the "
+                    f"pool holds only {self.num_pages}")
         req.t_submit = self._clock()
         key = self._req_key(req)
         inflight = self._find_inflight(req.rid)
@@ -270,12 +364,63 @@ class BatchServer:
         done, self._completed = self._completed, []
         return done
 
+    def abort(self, rid: int) -> bool:
+        """Remove a request wherever it lives (queue, slot, or the result
+        cache), releasing what it held. A paged request's pages are
+        decref'd and its admission reservation returned; prefix pages are
+        published only up to the rows actually computed, so an aborted
+        prefill never poisons the prefix index. Duplicates waiting on it are
+        queued in its place. Returns True if anything was removed."""
+        found = self._results.pop(rid, None) is not None
+        for i, r in enumerate(self._queue):
+            if r.rid == rid:
+                del self._queue[i]
+                found = True
+                break
+        else:
+            for slot in self.slots:
+                if slot.req is not None and slot.req.rid == rid:
+                    if slot.seq is not None:
+                        self._release_seq(slot, upto=slot.seq.filled)
+                    slot.req = None
+                    slot.pos = 0
+                    slot.remaining = 0
+                    found = True
+                    break
+        for w in self._dup_waiters.pop(rid, []):
+            self._queue.appendleft(w)
+        return found
+
+    def page_headroom(self) -> Optional[int]:
+        """Upper bound on pages a NEW request could still claim: free pages
+        minus outstanding reservations, plus prefix-index entries that
+        admission may evict. None in contiguous mode."""
+        if not self.paged:
+            return None
+        return self.alloc.free_count - self._reserved + len(self.prefix)
+
+    def request_phase(self, rid: int) -> Optional[str]:
+        """'queued' | 'prefilling' | 'decoding' for an inflight rid, None if
+        unknown. Contiguous prefill is atomic inside a step, so contiguous
+        requests are never seen 'prefilling'."""
+        for r in self._queue:
+            if r.rid == rid:
+                return "queued"
+        for s in self.slots:
+            if s.req is not None and s.req.rid == rid:
+                if s.seq is not None and s.seq.compute_next < s.seq.n:
+                    return "prefilling"
+                return "decoding"
+        return None
+
     def _place(self, slot_i: int, req: Request, first: int):
         req.out_tokens.append(first)
         req.t_first = self._clock()
         slot = self.slots[slot_i]
         if req.max_new_tokens <= 1 or first == req.eos_id:
             self._finish(req)          # done at prefill: slot stays free
+            if slot.seq is not None:
+                self._release_seq(slot)
             slot.req = None
             return
         slot.req = req
@@ -283,6 +428,9 @@ class BatchServer:
         slot.remaining = req.max_new_tokens - 1
 
     def _admit(self, params):
+        if self.paged:
+            self._admit_paged()
+            return
         while self._queue:
             free = [i for i, s in enumerate(self.slots) if s.req is None]
             if not free:
@@ -328,20 +476,217 @@ class BatchServer:
         for slot_i, req in zip(free, batch):
             self._place(slot_i, req, int(first_h[slot_i]))
 
+    # -- paged mode --------------------------------------------------------
+    def _admit_paged(self):
+        """Admission is host bookkeeping only: the prompt runs later, one
+        page-aligned chunk per :meth:`step`, via :meth:`_prefill_tick`.
+        Strict FIFO: a head-of-queue request that cannot reserve its
+        worst-case pages blocks the queue until running requests release
+        pages."""
+        while self._queue:
+            free = [i for i, s in enumerate(self.slots) if s.req is None]
+            if not free:
+                return
+            if not self._try_admit_paged(free[0], self._queue[0]):
+                if (all(s.req is None for s in self.slots)
+                        and not len(self.prefix)):
+                    req = self._queue[0]
+                    raise RuntimeError(
+                        f"request {req.rid} needs more pages than the pool "
+                        f"holds ({self.alloc.num_pages}) even with every "
+                        f"slot idle: raise num_pages or lower "
+                        f"max_new_tokens")
+                return
+            self._queue.popleft()
+
+    def _try_admit_paged(self, slot_i: int, req: Request) -> bool:
+        """Plan a request: attach shared prefix pages from the index
+        (refcounted), then reserve worst-case fresh pages, evicting LRU index
+        entries under pressure. All or nothing: on failure every attached
+        page is released and the queue head stays put."""
+        ps = self.page_size
+        n = len(req.prompt)
+        pages_needed = -(-self.cache_rows(n, req.max_new_tokens) // ps)
+        keys = page_keys(req.prompt, ps) if self.prefix_sharing else []
+        pkey = partial_key(req.prompt, ps) if self.prefix_sharing else None
+        attached: List[int] = []
+        hit = 0
+        shared_tail = False
+        for k in keys:                   # chained keys: the walk stops at
+            page = self.prefix.get(k)    # the first miss
+            if page is None:
+                break
+            self.alloc.incref(page)
+            attached.append(page)
+            hit += ps
+        if pkey is not None and len(attached) == len(keys):
+            page = self.prefix.get(pkey)
+            if page is not None:         # whole-prompt match incl. tail
+                self.alloc.incref(page)
+                attached.append(page)
+                shared_tail = True
+                hit = n
+        # worst-case fresh pages: everything not attached, plus one COW
+        # copy when the shared tail page will be decoded into
+        worst = (pages_needed - len(attached)
+                 + (1 if shared_tail and req.max_new_tokens > 1 else 0))
+        while (self.alloc.free_count - self._reserved < worst
+               and len(self.prefix)):
+            self.prefix.evict_lru(1)
+        if self.alloc.free_count - self._reserved < worst:
+            for p in attached:
+                self.alloc.decref(p)
+            return False
+        self._reserved += worst
+        self.stats["prefix_hit_tokens"] += hit
+        seq = _PagedSeq(
+            n=n, pages=attached, keys=keys, pkey=pkey, filled=hit,
+            # a fully shared prompt still recomputes its LAST token (the
+            # first sample needs its hidden state) and writes nothing
+            compute_next=min(hit, n - 1), shared_tail=shared_tail,
+            reserve=worst, registered=min(len(attached), len(keys)))
+        slot = self.slots[slot_i]
+        slot.req = req
+        slot.seq = seq
+        slot.pos = 0
+        slot.remaining = 0               # set by _place on the final chunk
+        return True
+
+    def _alloc_page(self, seq: _PagedSeq) -> int:
+        page = self.alloc.alloc()
+        assert seq.reserve > 0, "page allocated beyond admission reservation"
+        seq.reserve -= 1
+        self._reserved -= 1
+        return page
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy pool page ``src`` to ``dst`` in every layer's K and V."""
+        for group in self.cache.values():
+            for leaf in group.values():
+                leaf[:, dst] = leaf[:, src]
+
+    def _ensure_pages(self, slot: _Slot, first_row: int, end_row: int):
+        """Make rows [first_row, end_row) WRITABLE: allocate missing pages
+        and copy on write any shared page in the range (refcount > 1: the
+        prefix index or another sequence still reads it)."""
+        if first_row >= end_row:
+            return
+        seq = slot.seq
+        ps = self.page_size
+        for li in range(first_row // ps, -(-end_row // ps)):
+            if li >= len(seq.pages):
+                seq.pages.append(self._alloc_page(seq))
+            elif self.alloc.refcount(seq.pages[li]) > 1:
+                old = seq.pages[li]
+                new = self._alloc_page(seq)
+                self._copy_page(old, new)
+                self.alloc.decref(old)
+                seq.pages[li] = new
+                self.stats["cow_copies"] += 1
+
+    def _register_prefix(self, seq: _PagedSeq, upto_rows: int):
+        """Publish every FULL prompt page whose rows are all filled."""
+        if not self.prefix_sharing:
+            return
+        while (seq.registered < len(seq.keys)
+               and (seq.registered + 1) * self.page_size <= upto_rows):
+            self.prefix.register(seq.keys[seq.registered],
+                                 seq.pages[seq.registered])
+            seq.registered += 1
+
+    def _release_seq(self, slot: _Slot, *, upto: Optional[int] = None):
+        """Drop a finished request's page references. Prompt pages stay
+        resident through the prefix index (which holds its own reference)
+        until LRU eviction; the terminal partial page is published here,
+        keyed by the whole prompt, so an identical prompt skips prefill.
+        ``upto`` caps publication at the prompt rows actually computed (an
+        aborted prefill publishes only its finished pages)."""
+        seq = slot.seq
+        upto = seq.n if upto is None else min(upto, seq.n)
+        self._register_prefix(seq, upto)
+        tail_li = seq.n // self.page_size
+        if (self.prefix_sharing and seq.pkey is not None and upto >= seq.n
+                and len(seq.pages) > tail_li):
+            self.prefix.register(seq.pkey, seq.pages[tail_li])
+        for p in seq.pages:
+            self.alloc.decref(p)
+        self._reserved -= seq.reserve
+        seq.reserve = 0
+        slot.seq = None
+
+    def _page_table(self, rows: int, seqs) -> Tensor:
+        """Zero-filled (rows, max_pages) int32 table on the device, its
+        upload counted in ``host_bytes_page_tables``: every entry is in
+        range, and the unused ones are masked by length."""
+        pt = np.zeros((rows, self.max_pages), np.int32)
+        for i, seq in seqs:
+            pt[i, :len(seq.pages)] = seq.pages
+        self.stats["host_bytes_page_tables"] += int(pt.nbytes)
+        return torch.from_numpy(pt).to(self.device)
+
+    def _prefill_tick(self, params) -> int:
+        """Dispatch at most ONE page-aligned prefill chunk per mid-prefill
+        slot, then return: the decode dispatch runs next, so a long prompt
+        stalls active slots for one chunk at most. Returns the number of
+        chunks dispatched."""
+        work = 0
+        chunk = self.prefill_chunk
+        for slot_i, slot in enumerate(self.slots):
+            seq = slot.seq
+            if slot.req is None or seq is None or seq.compute_next >= seq.n:
+                continue
+            start = seq.compute_next
+            end = min(seq.n, (start // chunk + 1) * chunk)
+            self._ensure_pages(slot, max(start, seq.filled), end)
+            tokens = np.zeros((1, chunk), np.int64)
+            tokens[0, :end - start] = slot.req.prompt[start:end]
+            self._events.append(("prefill_chunk", slot.req.rid, start, end))
+            t0 = self._clock()
+            pt = self._page_table(1, [(0, seq)])
+            with self._gemm_scope():
+                self.cache, tok = self.model.prefill_chunk_paged(
+                    params, torch.from_numpy(tokens).to(self.device),
+                    self.cache, pt, start, end - start, seq.filled,
+                    paged_impl=self.paged_attention)
+            last_chunk = end >= seq.n
+            if last_chunk:                 # the token means something here
+                first = int(tok)
+                self.stats["host_bytes_prefill"] += 4
+            self.stats["prefill_s"] += self._clock() - t0
+            self.stats["prefill_tokens"] += end - start
+            self.stats["prefill_dispatches"] += 1
+            self.stats["prefill_chunks"] += 1
+            seq.compute_next = end
+            seq.filled = max(seq.filled, end)
+            self._register_prefix(seq, seq.filled)
+            work += 1
+            if last_chunk:
+                self._place(slot_i, slot.req, first)
+        return work
+
+    def _refresh_page_stats(self):
+        self.stats["pages_in_use"] = self.alloc.in_use
+        self.stats["pages_peak"] = self.alloc.peak_in_use
+
     # -- decode ------------------------------------------------------------
     def step(self, params) -> int:
-        """Admit what fits, then one fused decode dispatch
-        (``decode_chunk`` lockstep steps) over all active slots. Returns the
-        number of active decode slots."""
+        """Admit what fits, then (paged) at most one prefill chunk per
+        mid-prefill slot, then one fused decode dispatch (``decode_chunk``
+        lockstep steps) over all active slots. Returns the number of active
+        decode slots plus prefill chunks dispatched."""
         if self._cached_hits:
             self._completed.extend(self._cached_hits)
             self._cached_hits.clear()
         params = self._params_for(params)
         self._admit(params)
+        prefill_work = self._prefill_tick(params) if self.paged else 0
+        # mid-prefill paged slots hold remaining == 0 and sit out decode
         active = [i for i, s in enumerate(self.slots)
                   if s.req is not None and s.remaining > 0]
         if not active:
-            return 0
+            if self.paged:
+                self._refresh_page_stats()
+            return prefill_work
         last = np.zeros((self.b,), np.int64)
         pos = np.zeros((self.b,), np.int64)
         live = np.zeros((self.b,), bool)
@@ -355,15 +700,29 @@ class BatchServer:
             rem[i] = slot.remaining
             eos[i] = slot.req.eos_id
         # per-slot positions: slot i writes K/V at row pos[i]; inactive and
-        # frozen slots rewrite their own row with unchanged values.
+        # frozen slots rewrite their own row with unchanged values
+        # (contiguous) or write nothing (paged: pool rows may be shared).
         dev = self.device
+        self._events.append(("decode",
+                             tuple(self.slots[i].req.rid for i in active)))
+        pt = None
+        if self.paged:
+            for i in active:
+                slot = self.slots[i]
+                self._ensure_pages(slot, slot.pos,
+                                   slot.pos + min(self.decode_chunk,
+                                                  slot.remaining))
         t0 = self._clock()
+        if self.paged:
+            pt = self._page_table(self.b, [(i, self.slots[i].seq)
+                                           for i in active])
         with self._gemm_scope():
             self.cache, toks = self.model.sample_steps(
                 params, torch.from_numpy(last).to(dev), self.cache,
                 torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev),
                 torch.from_numpy(rem).to(dev), torch.from_numpy(eos).to(dev),
-                steps=self.decode_chunk)
+                steps=self.decode_chunk, page_table=pt,
+                paged_impl=self.paged_attention if self.paged else "gather")
         toks_h = toks.cpu().numpy().astype(np.int32)     # (chunk, B)
         dt = self._clock() - t0
         self.stats["decode_s"] += dt
@@ -387,11 +746,15 @@ class BatchServer:
                 emitted += 1
                 if slot.remaining <= 0 or nxt == slot.req.eos_id:
                     self._finish(slot.req)
+                    if slot.seq is not None:
+                        self._release_seq(slot)
                     slot.req = None
             if emitted:
                 self.stats["steps"] += 1
                 self.stats["decode_tokens"] += emitted
-        return len(active)
+        if self.paged:
+            self._refresh_page_stats()
+        return len(active) + prefill_work
 
     def run_until_drained(self, params, *, max_steps: int = 10_000
                           ) -> List[Request]:
@@ -409,7 +772,8 @@ class BatchServer:
                 stuck[r.rid] = "queued (never admitted)"
             for i, s in enumerate(self.slots):
                 if s.req is not None:
-                    stuck[s.req.rid] = (f"slot {i}: pos={s.pos} "
+                    phase = self.request_phase(s.req.rid) or "decoding"
+                    stuck[s.req.rid] = (f"slot {i} ({phase}): pos={s.pos} "
                                         f"remaining={s.remaining}")
             if stuck:
                 raise ServeStallError(

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K4) against their plain PyTorch versions, on
+"""Hand-written CUDA kernels (K1-K5) against their plain PyTorch versions, on
 the card. Marked ``cuda``; they skip where there is no card. This file
 imports no JAX (the machine with the card has none).
 
@@ -9,7 +9,8 @@ in another order than the plain tile loop (split-K partials, FMA
 contraction), so they use the reference's f32 GEMM bar from
 tests/test_kernels.py (rtol 1e-4, atol 1e-3 * max(1, K // 64)); flash uses
 the reference flash bar (rtol = atol = 2e-3) on f32 o/lse, and the bf16
-output rounding (2**-8 relative) on bf16 o.
+output rounding (2**-8 relative) on bf16 o; the paged kernel K5 the same
+bars, with rows that have no valid key exactly 0.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,8 @@ from repro_torch.kernels.baseline_gemm import baseline_gemm, baseline_gemm_plain
 from repro_torch.kernels.ffip_gemm import ffip_gemm_y, ffip_gemm_y_plain, y_for
 from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
 from repro_torch.kernels.flash_attention import _flash_fwd, _flash_fwd_plain
+from repro_torch.kernels.flash_paged import (flash_attention_paged,
+                                             flash_attention_paged_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -99,6 +102,46 @@ def test_flash_kernel_matches_plain(dev, dtype, sq, window, causal):
                                o_ref.float().cpu().numpy(), rtol=tol, atol=tol)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
                                rtol=2e-3, atol=2e-3)
+
+
+# (B, H, KV, Sq, d, dv, ps, max_pages, window, scale)
+PAGED_CASES = [
+    (4, 36, 36, 1, 64, 64, 16, 16, 0, None),        # decode
+    (4, 36, 36, 4, 64, 64, 16, 16, 0, None),
+    (1, 36, 36, 64, 64, 64, 16, 16, 0, None),       # prefill chunk
+    (3, 16, 4, 5, 64, 64, 8, 8, 0, None),           # GQA group 4
+    (3, 8, 8, 7, 64, 64, 16, 8, 20, None),          # window
+    (2, 16, 1, 2, 576, 512, 16, 4, 0, 192 ** -0.5),  # absorbed-MLA shape
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,d,dv,ps,mp,window,scale", PAGED_CASES)
+def test_paged_kernel_matches_plain(dev, dtype, b, h, kv, sq, d, dv, ps, mp,
+                                    window, scale):
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_pages = b * mp + 3
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((n_pages, ps, kv, dv), generator=g, device=dev).to(dtype)
+    pt = torch.randperm(n_pages, generator=g, device=dev)[:b * mp]
+    pt = pt.reshape(b, mp).to(torch.int32)
+    lengths = torch.randint(sq, ps * mp + 1, (b,), generator=g, device=dev)
+    lengths[0] = 0                          # no valid key: exact zeros
+    q_start = (lengths - sq).clamp_min(0)
+    if sq == 64:
+        lengths[:], q_start[:] = 128, 64    # the second chunk of a prompt
+    o = flash_attention_paged(q, kp, vp, pt, lengths, q_start, window,
+                              scale=scale)
+    want = flash_attention_paged_plain(q, kp, vp, pt, lengths, q_start,
+                                       window, scale=scale)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    if sq != 64:
+        assert torch.count_nonzero(o[0]) == 0
 
 
 def test_launch_counters_count_kernel_launches(dev):

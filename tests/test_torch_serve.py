@@ -141,7 +141,8 @@ def test_launch_serve_cli_on_cpu(capsys):
 def test_unported_options_raise():
     cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
     m = Model(cfg, device="cpu")
-    for kw in ({"paged": True}, {"mesh": object()}, {"prepared": object()}):
+    for kw in ({"mesh": object()}, {"prepared": object()},
+               {"registry": object()}, {"tracer": object()}):
         with pytest.raises(NotImplementedError):
             BatchServer(m, batch_slots=1, max_len=8, device="cpu", **kw)
     assert torch.device("cpu") == m.device
