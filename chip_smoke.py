@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 1. Print the card's name and power limit (``nvidia-smi``), then build every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all started together) and print the build time.
-2. Hold each kernel against its plain PyTorch version at the main path's
+2. Hold each kernel against its plain PyTorch version at the main paths'
    shapes: the GEMMs K1-K3 at M in {4, 512} x (K, N) in {(2304, 2304),
    (2304, 5760), (5760, 2304), (2304, 122753)}, in bf16 (beta unfolded) and
    int8 (beta folded, as the int8 dense layer calls them); the flash kernel
@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    64, 128}; the paged kernel K5 at decode (B 4, H = KV = 36, Sq 1 and 4,
    d 64, pages of 16, 16 pages a sequence, lengths 17-256 and one of 0), a
    64-row prefill chunk, GQA group 4, a window of 40 and an MLA-like d 576,
-   dv 512, in bf16 and f32. Tolerances: int8 exact; bf16 GEMMs the
+   dv 512, in bf16 and f32; the fused conv K7 at seven ResNet-50 / AlexNet
+   convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
+   (beta folded). Tolerances: int8 exact; bf16 and f32 GEMMs and K7 the
    reference's f32 GEMM bar (rtol 1e-4, atol 1e-3 * max(1, K // 64)), both
    sides summing the same products in f32 in another order; flash o at 2**-7
    (one bf16 rounding of o) and lse at 2e-3; K5 at 2**-7, with exact zeros
@@ -24,13 +26,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flushed between launches, beside its plain version (timed on the call
    that checks it, after a warm call for the cheap K4/K5 ones), its library
    yardstick and its bound.
-3. Serve minicpm-2b at its published widths (random weights from --seed)
+3. Batch invariance, bit for bit: rows 0-3 of an M = 512 K1/K2/K3 call
+   against the same rows at M = 4, 64 and 256 (f32 and bf16), and image 0
+   of a batch-8 K7 call against the batch-1 call.
+4. Serve minicpm-2b at its published widths (random weights from --seed)
    through ``BatchServer(gemm_impl="cuda")``: 4 slots, 8 requests of 16-128
    prompt tokens, 16 new tokens each, once each with gemm_algo ffip, fip and
    baseline and once int8 (quantized, ffip). Launch counts are zeroed just
    before each run and read just after. Every request must complete with its
    exact budget.
-4. Check the tokens against the plain path (torch.matmul / the plain int8
+5. Check the tokens against the plain path (torch.matmul / the plain int8
    algebra, plain attention, one prompt at a time): each served first token
    against a plain prefill of its prompt, each second token against a plain
    decode step fed the served first token. A token must be the plain argmax
@@ -39,23 +44,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    taken in the same run: the int8 run once more with plain attention (no
    flash kernel; it must pass the float bar) and int8 runs with planted
    faults (each must fail the int8 bar).
-5. Serve minicpm-2b paged (``paged=True``, K5 for all attention): 4 slots,
+6. Serve minicpm-2b paged (``paged=True``, K5 for all attention): 4 slots,
    max_len 256 in pages of 16, prefill chunks of 64, 8 prompts of 16-128
    tokens (the even ones behind a shared 64-token prefix, the last a copy of
    the first), 16 new tokens each: flash ffip at decode_chunk 4 and flash
    int8 at decode_chunk 1, their first and second tokens held to the plain
    path under the same bars. Then, at the first IDENTITY_LAYERS layers:
-   int8 with every prompt in one chunk must give the tokens of int8 in
-   chunks of 64 (float is not held to this: its split-K sums depend on the
-   rows of a dispatch), and gather-paged int8 with plain attention the
+   int8 and float FFIP with every prompt in one chunk must give the tokens
+   they give in chunks of 64, and gather-paged int8 with plain attention the
    contiguous server's tokens. Every paged run must hit the
    prefix index, copy on write, drain its page reservations, balance the
    allocator, peak below slots x max_pages pages, and launch K5 exactly
    n_layers x (prefill chunks + decode dispatches x decode_chunk) times and
-   K4 never.
-6. Count and profile one contiguous prefill dispatch and decode step, one
-   paged decode step and one paged prefill chunk.
-7. Print the kernels line (JSON), then the result line.
+   K4 never. K7 must never launch on the LM paths.
+7. The CNN path (VISION_RUNS): ResNet-50 (224) in float ffip, fip and
+   baseline and int8 ffip, AlexNet (227) in float ffip and int8 ffip, batch
+   8, published widths, 1000 classes, f32 weights from --seed, through
+   ``repro_torch.vision`` with ``GemmConfig(impl="cuda")``. Each forward
+   must launch K7 once per conv (53 / 5) and its FC kernel once per FC
+   (1 / 3) and nothing else; float logits within a relative L2 error of
+   1e-3 of the plain path's (F.conv2d with TF32 off, torch.matmul), or for
+   FIP/FFIP, where the plain path's own FIP/FFIP algebra misses that, no
+   further off than it; int8 logits equal to the plain int8 path's bit for
+   bit and within 0.35 of the plain float logits.
+8. Count and profile one contiguous prefill dispatch and decode step, one
+   paged decode step, one paged prefill chunk and one ResNet-50 forward.
+9. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -99,6 +113,7 @@ REPLACES = {
     "ffip_gemm_y": "src/repro/kernels/ffip_gemm.py:92",
     "flash_fwd": "src/repro/kernels/flash_attention.py:81",
     "flash_paged": "src/repro/kernels/flash_attention.py:335",
+    "conv_gemm": "src/repro/kernels/conv_gemm.py:172",
 }
 SOURCES = {
     "baseline_gemm": "src/repro_torch/kernels/csrc/baseline_gemm.cu",
@@ -106,7 +121,37 @@ SOURCES = {
     "ffip_gemm_y": "src/repro_torch/kernels/csrc/ffip_gemm.cu",
     "flash_fwd": "src/repro_torch/kernels/csrc/flash_fwd.cu",
     "flash_paged": "src/repro_torch/kernels/csrc/flash_paged.cu",
+    "conv_gemm": "src/repro_torch/kernels/csrc/conv_gemm.cu",
 }
+# K7 checks at batch 8: (label, h, w, cin, cout, kh, kw, stride, pad,
+# groups), ResNet-50's and AlexNet's convs at their published widths
+CONV_BATCH = 8
+CONV_CASES = (
+    ("resnet50 conv1", 224, 224, 3, 64, 7, 7, 2, 3, 1),
+    ("resnet50 s2b1.c2", 56, 56, 64, 64, 3, 3, 1, 1, 1),
+    ("resnet50 s3b1.c1", 56, 56, 256, 128, 1, 1, 2, 0, 1),
+    ("resnet50 s4b2.c2", 14, 14, 256, 256, 3, 3, 1, 1, 1),
+    ("resnet50 s5b3.c3", 7, 7, 512, 2048, 1, 1, 1, 0, 1),
+    ("alexnet conv1", 227, 227, 3, 96, 11, 11, 4, 0, 1),
+    ("alexnet conv2", 27, 27, 96, 256, 5, 5, 1, 2, 2),
+)
+HEADLINE_CONV = ("resnet50 s2b1.c2", "f32", "ffip")
+# The vision runs: (model, image size, [(label, algo, quantized)]), batch 8,
+# published widths, 1000 classes, f32 weights from --seed
+VISION_RUNS = (
+    ("resnet50", 224, (("ffip", "ffip", False), ("fip", "fip", False),
+                       ("baseline", "baseline", False),
+                       ("int8-ffip", "ffip", True))),
+    ("alexnet", 227, (("ffip", "ffip", False), ("int8-ffip", "ffip", True))),
+)
+# Relative L2 error of the logits against the plain float path (the
+# launcher's bars). A float FIP/FFIP run is held to the larger of 1e-3 and
+# the error of the plain path in its own algebra (the reference's float
+# FIP/FFIP, materialised): in f32 the pre-add (a + b) drops the low bits of
+# b when |a| >> |b|, and the BN-free random ResNet-50 grows its activations
+# block by block, so that algebra itself misses 1e-3 there.
+VISION_FLOAT_BAR = 1e-3
+VISION_INT8_BAR = 0.35
 # K5 checks: (label, B, H, KV, Sq, d, dv, page size, max_pages, window,
 # scale). Decode lengths are drawn from 17-256 with the first set to 0 (its
 # rows must be exact zeros); the prefill chunk is a prompt's second 64-row
@@ -435,6 +480,157 @@ def check_paged(dev):
     return records
 
 
+def conv_bound(algo: str, dtype: str, xp: torch.Tensor, stack: torch.Tensor,
+               m: int, k: int):
+    """(bound_ms, bound_by) of one K7 call: the padded input read once, the
+    weights (FFIP: their f32/int32 deltas) and the f32/int32 output once;
+    2 M N K operations (over all groups) at the CUDA-core peak (f32 without
+    TF32, and every FIP/FFIP body), or the int8 peak for int8 baseline."""
+    g, _, ng = stack.shape
+    w_elt = 4 if algo == "ffip" else stack.element_size()
+    nbytes = (xp.numel() * xp.element_size() + stack[:, :k].numel() * w_elt
+              + m * g * ng * 4)
+    peak = PEAK_OPS_S["int8" if (dtype, algo) == ("int8", "baseline")
+                      else "cuda_core"]
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 2.0 * m * g * ng * k / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_convs(dev):
+    """K7 against its plain version (A gathered through the Algorithm-1
+    indices, then the plain K1/K2/K3 per group in K7's blocks) at ResNet-50's
+    and AlexNet's conv shapes, batch 8; f32 at the GEMM bar, int8 exact
+    (FIP and FFIP with beta folded, as the int8 conv calls them). The
+    yardstick is F.conv2d in f32 with TF32 off; PyTorch has no CUDA int8
+    convolution, so int8 has none."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.kernels import ops
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(3)
+    for label, h, w, cin, cout, kh, kw, st, pad, groups in CONV_CASES:
+        geom = cg.ConvGeom(h=h + 2 * pad, w=w + 2 * pad, cin=cin, kh=kh,
+                           kw=kw, sh=st, sw=st, groups=groups,
+                           ng=cout // groups)
+        m = CONV_BATCH * geom.m
+        for dtype in ("f32", "int8"):
+            if dtype == "int8":
+                x = torch.randint(-128, 128, (CONV_BATCH, h, w, cin),
+                                  generator=g, device=dev).to(torch.int8)
+                kern = torch.randint(-128, 128, (kh, kw, cin // groups, cout),
+                                     generator=g, device=dev).to(torch.int8)
+                lib_ms = None
+            else:
+                x = torch.randn((CONV_BATCH, h, w, cin), generator=g,
+                                device=dev)
+                kern = torch.randn((kh, kw, cin // groups, cout), generator=g,
+                                   device=dev) / geom.k ** 0.5
+                lib_ms = yardstick_ms(lambda: F.conv2d(
+                    x.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1),
+                    stride=st, padding=pad, groups=groups))
+            xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+            stack = cg._kernel_to_stack(kern, groups)
+            bm, bn, bk = ops.choose_blocks(m, geom.ng, geom.k, "ffip")
+            for algo in ("baseline", "fip", "ffip"):
+                fold = dtype == "int8" and algo != "baseline"
+                bg = {"baseline": stack, "fip": cg._evenize_k(stack),
+                      "ffip": cg._y_even(stack)}[algo]
+                kern_fn = lambda: cg.fused_conv_raw(   # noqa: E731
+                    xp, stack, kh=kh, kw=kw, stride=st, groups=groups,
+                    algo=algo, fold_beta=fold)
+                got = kern_fn()
+                torch.cuda.synchronize()
+                want, plain_ms = timed(lambda: cg.fused_conv_plain(
+                    xp, bg, geom, algo=algo, bm=bm, bn=bn, bk=bk,
+                    fold_beta=fold))
+                abs_err, rel_err = _err(got, want)
+                if dtype == "int8":
+                    ok, tol = torch.equal(got, want), "exact"
+                else:
+                    atol = 1e-3 * max(1, geom.k // 64)
+                    ok = _allclose(got, want, 1e-4, atol)
+                    tol = f"rtol 1e-4 atol {atol:g}"
+                one = time_ms(kern_fn, 1)
+                ms = time_ms(kern_fn, reps_for(one), warm=False)
+                bound_ms, bound_by = conv_bound(algo, dtype, xp, bg, m,
+                                                geom.k)
+                records.append(dict(
+                    kernel="conv_gemm", case=label, algo=algo, dtype=dtype,
+                    batch=CONV_BATCH, m=m, k=geom.k, n=cout, groups=groups,
+                    fold_beta=fold, ok=ok, max_abs_err=abs_err,
+                    max_rel_err=rel_err, tol=tol, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
+                lib = ("none (no CUDA int8 conv)" if lib_ms is None
+                       else f"{lib_ms:.4f} ms")
+                print(f"  conv_gemm     {label:17s} M={m:<6d} K={geom.k:<4d} "
+                      f"N={cout:<4d} g{groups} {algo:8s} {dtype:4s} "
+                      f"{'ok ' if ok else 'BAD'} max_abs={abs_err:.3g} "
+                      f"({tol})  {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                      f"conv2d {lib}  bound {bound_ms:.4f} ms ({bound_by})",
+                      flush=True)
+                del got, want
+            del x, kern, xp, stack
+    return records
+
+
+def check_batch_invariance(dev):
+    """Bit for bit: rows 0-3 of an M = 512 K1/K2/K3 call against the same
+    rows at M = 4, 64 and 256 (f32 and bf16, at the served (K, N) pairs),
+    and image 0 of a batch-8 K7 call against the batch-1 call (f32, the
+    three algos, ResNet-50's s2b1.c2). Returns the failures."""
+    from repro_torch.kernels import conv_gemm as cg
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.baseline_gemm import baseline_gemm
+    from repro_torch.kernels.ffip_gemm import ffip_gemm_y, y_for
+    from repro_torch.kernels.fip_gemm import fip_gemm
+
+    bad = []
+    g = torch.Generator(device=dev).manual_seed(7)
+    for k, n in ((2304, 5760), (5760, 2304)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn((512, k), generator=g, device=dev).to(dtype)
+            b = (torch.randn((k, n), generator=g, device=dev)
+                 / k ** 0.5).to(dtype)
+            y = y_for(b)
+
+            def blk(rows):
+                return dict(zip(("bm", "bn", "bk"),
+                                ops.choose_blocks(rows, n, k, "ffip")))
+            fns = {"baseline_gemm": lambda a_: baseline_gemm(
+                       a_, b, **blk(len(a_))),
+                   "fip_gemm": lambda a_: fip_gemm(a_, b, **blk(len(a_))),
+                   "ffip_gemm_y": lambda a_: ffip_gemm_y(
+                       a_, y, **blk(len(a_)))}
+            for name, fn in fns.items():
+                full = fn(a)[:4]
+                same = {m: torch.equal(fn(a[:m].contiguous())[:4], full)
+                        for m in (4, 64, 256)}
+                print(f"  batch invariance {name:13s} K={k} N={n} "
+                      f"{str(dtype)[6:]:8s} rows 0-3 at M=512 vs M=4/64/256: "
+                      f"{'identical' if all(same.values()) else same}",
+                      flush=True)
+                if not all(same.values()):
+                    bad.append(f"{name} K={k} N={n} {dtype}: {same}")
+            del a, b, y
+    label, h, w, cin, cout, kh, kw, st, pad, groups = CONV_CASES[1]
+    x = torch.randn((CONV_BATCH, h, w, cin), generator=g, device=dev)
+    kern = torch.randn((kh, kw, cin, cout), generator=g, device=dev) / 24.0
+    for algo in ("baseline", "fip", "ffip"):
+        full = cg.conv_gemm_fused(x, kern, stride=st, pad=pad, algo=algo)
+        one = cg.conv_gemm_fused(x[:1].contiguous(), kern, stride=st,
+                                 pad=pad, algo=algo)
+        same = torch.equal(full[:1], one)
+        print(f"  batch invariance conv_gemm     {label} {algo:8s} f32 image 0 "
+              f"of batch {CONV_BATCH} vs batch 1: "
+              f"{'identical' if same else 'DIFFER'}", flush=True)
+        if not same:
+            bad.append(f"conv_gemm {label} {algo}: image 0 differs")
+    return bad
+
+
 class PlainPath:
     """The plain path on one prompt set: torch.matmul (float) or the plain
     int8 algebra, and plain attention, one prompt at a time. It keeps each
@@ -488,6 +684,27 @@ class PlainPath:
                                                    self.lens[rid])
             self._second[key] = logits[0].float()
         return self._second[key]
+
+
+def kernel_deviation(model, params, prompts, plain: PlainPath,
+                     algo: str):
+    """Per prompt, max |logit| difference between a prefill through the
+    kernels (the prompt alone) and the plain path, in standard deviations
+    of the plain logits: the noise a float token reading sits in."""
+    from repro_torch.core.gemm import GemmConfig, use_gemm
+    from repro_torch.kernels import compat
+
+    out = []
+    with use_gemm(GemmConfig(algo=algo, impl="cuda")), torch.no_grad(), \
+            compat.use_derived(compat.DerivedCache()):
+        for i, prompt in enumerate(prompts):
+            tok = torch.as_tensor(prompt, device=model.device)[None]
+            _, logits = model.prefill(params, tok,
+                                      model.init_cache(1, len(prompt) + 1))
+            ref = plain.first[i]
+            out.append(float((logits[0].float() - ref).abs().max()
+                             / ref.std()))
+    return out
 
 
 def shortfall(logits: torch.Tensor, tok: int) -> float:
@@ -591,9 +808,10 @@ def drive_main_path(model, params, prompts, max_new: int):
     return runs
 
 
-KERNEL_GROUPS = (("ffip_kernel", "ffip_gemm_y"), ("fip_kernel", "fip_gemm"),
+KERNEL_GROUPS = (("ConvA", "conv_gemm"),
+                 ("ffip_kernel", "ffip_gemm_y"), ("fip_kernel", "fip_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
-                 ("reduce_splits", "split-K reduce"),
+                 ("reduce_units", "split-K reduce"),
                  ("flash_fwd_kernel", "flash_fwd"),
                  ("flash_paged_kernel", "flash_paged"))
 
@@ -755,6 +973,115 @@ def serve_paged(model, params, prompts, max_new: int, label: str, **kw):
     return rec, problems
 
 
+def run_vision(dev, seed: int):
+    """ResNet-50 and AlexNet at their published widths, batch 8, through
+    ``repro_torch.vision`` with ``GemmConfig(impl="cuda")`` (every conv
+    through K7, the FCs through K1-K3), each forward's launch counts zeroed
+    before and read after, against the plain path (F.conv2d with TF32 off
+    and torch.matmul for float; the materialising int8 reference and the
+    plain int8 dense for int8; the materialised FIP/FFIP algebra for the
+    bar of a float FIP/FFIP run). Returns (records, problems)."""
+    from repro_torch.core.gemm import GemmConfig, use_gemm
+    from repro_torch.kernels import compat
+    from repro_torch.launch.vision import rel_err
+    from repro_torch.vision import models as vm
+
+    fc_kernel = {"ffip": "ffip_gemm_y", "fip": "fip_gemm",
+                 "baseline": "baseline_gemm"}
+    records, problems = [], []
+    for name, size, runs in VISION_RUNS:
+        model = vm.build(name, num_classes=1000, image_size=size)
+        n_convs = len(vm.conv_layers(model))
+        n_fcs = sum(isinstance(layer, vm.FC) for layer in model)
+        params = vm.init_params(model, seed, device=dev)
+        qparams = vm.attach_quantized(model, params)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        x = torch.randn((CONV_BATCH, size, size, 3), generator=gen,
+                        device=dev)
+
+        def forward(cfg, p):
+            """(logits, host wall ms, device ms, peak GiB, launches)."""
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            compat.reset_counters()
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            with use_gemm(cfg), torch.no_grad():
+                t0 = time.perf_counter()
+                s_ev.record()
+                out = vm.apply(model, p, x)
+                e_ev.record()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = {k: v for k, v in compat.launch_counts().items() if v}
+            return (out, wall, s_ev.elapsed_time(e_ev),
+                    torch.cuda.max_memory_allocated() / 2 ** 30, counts)
+
+        plain_cfgs = {"float": GemmConfig(algo="baseline", impl="torch"),
+                      "int8": GemmConfig(algo="ffip", impl="torch",
+                                         quantized=True, k_chunk=16)}
+        plain_cfgs.update({algo: GemmConfig(algo=algo, impl="torch")
+                           for _, algo, q in runs
+                           if not q and algo != "baseline"})
+        plain = {key: forward(cfg, qparams if key == "int8" else params)[0]
+                 for key, cfg in plain_cfgs.items()}
+        float_ref = plain["float"]
+        algebra_err = {key: rel_err(out, float_ref)
+                       for key, out in plain.items() if key in ("fip", "ffip")}
+        print(f"  [{name} plain] top1 {float_ref.argmax(-1).tolist()}; "
+              f"max |logit| {float(float_ref.abs().max()):.4g}; the plain "
+              f"FIP/FFIP algebra's own rel_err vs plain float "
+              f"{ {k: round(v, 6) for k, v in algebra_err.items()} }",
+              flush=True)
+        for label, algo, quantized in runs:
+            cfg = GemmConfig(algo=algo, impl="cuda", quantized=quantized)
+            p = qparams if quantized else params
+            forward(cfg, p)                          # warm: first-use set-up
+            out, wall, dev_ms, peak, counts = forward(cfg, p)
+            err = rel_err(out, float_ref)
+            want = {"conv_gemm": n_convs, fc_kernel[algo]: n_fcs}
+            got = {k: counts.get(k, 0) for k in want}
+            other = {k: v for k, v in counts.items() if k not in want}
+            line = (f"  [{name} {label}] wall {wall:.1f} ms, device "
+                    f"{dev_ms:.1f} ms, peak {peak:.2f} GiB, top1 "
+                    f"{out.argmax(-1).tolist()}, rel_err vs plain float "
+                    f"{err:.3g}")
+            if quantized:
+                same = torch.equal(out, plain["int8"])
+                line += f", logits = plain int8: {same}"
+                if not same:
+                    problems.append(f"{name} {label}: logits differ from the "
+                                    f"plain int8 path")
+            bar = (VISION_INT8_BAR if quantized
+                   else max(VISION_FLOAT_BAR, algebra_err.get(algo, 0.0)))
+            line += f" (bar {bar:.4g})"
+            if not (bool(torch.isfinite(out).all()) and err <= bar):
+                problems.append(f"{name} {label}: rel_err {err:.3g} > {bar} "
+                                f"(or logits not finite)")
+            if got != want or other:
+                problems.append(f"{name} {label}: launches {counts}, want "
+                                f"{want} and nothing else")
+            print(f"{line}; launches {counts}", flush=True)
+            records.append(dict(model=name, label=label, wall_ms=wall,
+                                device_ms=dev_ms, peak_gib=peak,
+                                rel_err=err, bar=bar, counts=counts,
+                                top1=out.argmax(-1).tolist()))
+        del params, qparams, plain, float_ref
+        torch.cuda.empty_cache()
+    return records, problems
+
+
+def vision_step(dev, seed: int):
+    """One ResNet-50 forward at batch 8, for the profile."""
+    from repro_torch.vision import models as vm
+
+    model = vm.build("resnet50", num_classes=1000, image_size=224)
+    params = vm.init_params(model, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((CONV_BATCH, 224, 224, 3), generator=gen, device=dev)
+    return lambda: vm.apply(model, params, x)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -794,12 +1121,24 @@ def main(argv=None) -> int:
     gemm_recs = check_gemms(dev)
     flash_recs = check_flash(dev)
     paged_recs = check_paged(dev)
-    recs = gemm_recs + flash_recs + paged_recs
+    conv_recs = check_convs(dev)
+    recs = gemm_recs + flash_recs + paged_recs + conv_recs
     bad = [r for r in recs if not r["ok"]]
     print(f"phase kernels: {len(recs)} checks, {len(bad)} failed, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if bad:
         print(f"FAIL: kernels disagree with their plain versions: {bad}",
+              file=sys.stderr)
+        return 1
+    compat.derived.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print("phase invariance: a row's bits must not depend on the rows "
+          "beside it", flush=True)
+    varying = check_batch_invariance(dev)
+    print(f"phase invariance: {time.perf_counter() - t0:.1f} s", flush=True)
+    if varying:
+        print(f"FAIL: results depend on the batch: {varying}",
               file=sys.stderr)
         return 1
     compat.derived.clear()
@@ -852,6 +1191,14 @@ def main(argv=None) -> int:
                      INT8_BAR_SD if r["quantized"] else FLOAT_BAR_SD, plain)
         if r["quantized"]:
             sound[r["label"]] = worst
+        else:
+            dev_sd = kernel_deviation(model, params, prompts, plain[False],
+                                      r["algo"])
+            print(f"  [{r['label']}] kernel-path prefill logits vs plain, "
+                  f"max |diff| per request: "
+                  f"{[round(d, 4) for d in dev_sd]} sd (a reading, not a "
+                  f"gate: float tokens nearer than this to a tie can go "
+                  f"either way)", flush=True)
     # the int8 run once more without the flash kernel: plain attention on
     # both sides, so only the GEMM kernels and the batching differ
     _, done, _ = serve(naive, params, prompts, max_new=2, batch_slots=4,
@@ -908,13 +1255,12 @@ def main(argv=None) -> int:
     read(int8["label"], int8["done"], True, INT8_BAR_SD, plain)
     del plain
     # Identity runs, at IDENTITY_LAYERS (the first layers of the same
-    # weights). Chunking must not change a token: int8 with every prompt in
-    # one chunk must match int8 in chunks of 64 (exact integer GEMMs; K5 and
-    # the norms do a row's arithmetic the same way at any chunk width).
-    # Float is not held to this: the float GEMMs' split-K plan depends on
-    # the rows of a dispatch, so their sums round differently (ROADMAP
-    # section 3). And the reference's bit-identity contract: gather-paged
-    # int8 with plain attention must give the contiguous server's tokens.
+    # weights). Chunking must not change a token: with every prompt in one
+    # chunk, int8 and float FFIP must give the tokens they give in chunks of
+    # 64 (the GEMMs' k-split plans do not depend on the rows of a dispatch,
+    # and K5 and the norms do a row's arithmetic the same way at any chunk
+    # width). And the reference's bit-identity contract: gather-paged int8
+    # with plain attention must give the contiguous server's tokens.
     n_id = min(IDENTITY_LAYERS, cfg.n_layers)
     cfg_id = dataclasses.replace(cfg, n_layers=n_id)
     model_id = Model(cfg_id)
@@ -930,6 +1276,15 @@ def main(argv=None) -> int:
           f"layers): int8 tokens {same}", flush=True)
     if same != "identical":
         problems.append("int8 tokens change with the prefill chunk")
+    same = _same(*[run_paged(f"paged flash ffip, {n_id} layers, "
+                             f"prefill_chunk {c}", model_id, params_id,
+                             gemm_algo="ffip", decode_chunk=1,
+                             paged_attention="flash", prefill_chunk=c)
+                   for c in (PREFILL_CHUNK, PAGED_MAX_LEN)])
+    print(f"  prefill_chunk {PREFILL_CHUNK} vs {PAGED_MAX_LEN} ({n_id} "
+          f"layers): float ffip tokens {same}", flush=True)
+    if same != "identical":
+        problems.append("float tokens change with the prefill chunk")
     gather = run_paged(f"paged gather int8-ffip, plain attention, {n_id} "
                        f"layers", naive_id, params_id, gemm_algo="ffip",
                        quantized=True, decode_chunk=1,
@@ -948,39 +1303,69 @@ def main(argv=None) -> int:
 
     totals = {name: sum(r["counts"][name] for r in runs + paged_runs)
               for name in compat.launch_counts()}
-    problems += [f"{name} never launched on the main path"
-                 for name, n in totals.items() if n == 0]
+    problems += [f"{name} never launched on the served path"
+                 for name, n in totals.items()
+                 if n == 0 and name != "conv_gemm"]
+    if totals["conv_gemm"]:
+        problems.append(f"conv_gemm launched {totals['conv_gemm']} times on "
+                        f"the LM paths")
     print(f"launches over the served runs {totals}", flush=True)
+
+    # 6. the CNN path: ResNet-50 and AlexNet through K7 (convs) and K1-K3
+    # (FCs), against the plain path
+    t0 = time.perf_counter()
+    print(f"phase vision: ResNet-50 (224) and AlexNet (227), batch "
+          f"{CONV_BATCH}, published widths, 1000 classes, f32 weights from "
+          f"seed {args.seed}", flush=True)
+    vision_recs, found = run_vision(dev, args.seed)
+    problems += found
+    totals["conv_gemm"] = sum(r["counts"].get("conv_gemm", 0)
+                              for r in vision_recs)
+    print(f"phase vision: {time.perf_counter() - t0:.1f} s", flush=True)
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 6. one dispatch of each kind, counted and profiled
+    # 7. one dispatch of each kind, counted and profiled
     steps = contiguous_steps(model, params, 128)
     steps.update(paged_steps(model, params))
+    steps["resnet50 forward"] = vision_step(dev, args.seed)
     for phase, rec in profile(steps).items():
         top = ", ".join(f"{k} {v:.3f}" for k, v in rec["device_ms"].items())
-        print(f"phase profile {phase} (ffip, 4 slots x 128 / a 64-row "
-              f"chunk): wall {rec['wall_ms']:.3f} ms, device busy "
-              f"{rec['busy_ms']} ms; device ms by kernel: "
-              f"{top or 'not measured'}; launches {rec['launches']}",
-              flush=True)
-        # 7 projections per layer plus the unembed; attention once per
-        # layer: K4 in the contiguous prefill, K5 in either paged dispatch
-        want = {"ffip_gemm_y": 7 * cfg.n_layers + 1,
-                "flash_fwd": cfg.n_layers if phase == "prefill" else 0,
-                "flash_paged": cfg.n_layers if "paged" in phase else 0}
+        busy = rec["busy_ms"]
+        share = ("not measured" if isinstance(busy, str)
+                 else f"{busy / rec['wall_ms']:.3f}")
+        print(f"phase profile {phase} (ffip; LM: 4 slots x 128 / a 64-row "
+              f"chunk; vision: batch {CONV_BATCH}): wall "
+              f"{rec['wall_ms']:.3f} ms, device busy {busy} ms (share "
+              f"{share}); device ms by kernel: {top or 'not measured'}; "
+              f"launches {rec['launches']}", flush=True)
+        # LM: 7 projections per layer plus the unembed; attention once per
+        # layer: K4 in the contiguous prefill, K5 in either paged dispatch.
+        # Vision: K7 for each of the 53 convs, K3 for the FC.
+        want = ({"conv_gemm": 53, "ffip_gemm_y": 1}
+                if phase == "resnet50 forward" else
+                {"ffip_gemm_y": 7 * cfg.n_layers + 1,
+                 "flash_fwd": cfg.n_layers if phase == "prefill" else 0,
+                 "flash_paged": cfg.n_layers if "paged" in phase else 0})
         got = {k: rec["launches"][k] for k in want}
         if got != want:
             print(f"FAIL: {phase} launched {got}, expected {want}",
                   file=sys.stderr)
             return 1
 
-    # 7. the kernels line and the result line
+    # 8. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]
-        if name == "flash_fwd":
+        if name == "conv_gemm":
+            head = next(r for r in recs_k if (r["case"], r["dtype"],
+                                              r["algo"]) == HEADLINE_CONV)
+            shape = (f"{head['case']} batch {head['batch']} (M={head['m']} "
+                     f"K={head['k']} N={head['n']}) f32 ffip; library: "
+                     f"F.conv2d f32, TF32 off (none for int8: no CUDA int8 "
+                     f"conv in PyTorch)")
+        elif name == "flash_fwd":
             head = next(r for r in recs_k if r["s"] == HEADLINE_FLASH_S)
             shape = f"BH={head['bh']} S={head['s']} d={head['d']} causal bf16"
         elif name == "flash_paged":

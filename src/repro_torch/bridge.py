@@ -24,7 +24,11 @@ def _leaf(arr, device) -> torch.Tensor:
 
 def params_from_numpy(tree, device="cpu"):
     """Nested dicts / lists / tuples of numpy arrays -> the same structure of
-    torch tensors on ``device`` (int8 ``"q"`` entries included)."""
+    torch tensors on ``device`` (int8 ``"q"`` entries included). ``None``
+    (a vision model's parameterless layer) and Python ints (a conv ``"q"``
+    entry's ``k_real``, ``kh``, ``kw``, ``groups``) cross unchanged."""
+    if tree is None or isinstance(tree, int):
+        return tree
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

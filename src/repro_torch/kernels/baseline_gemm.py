@@ -5,11 +5,13 @@ CUDA C++ kernel ``csrc/baseline_gemm.cu``.
 What bounds it on the H100: at decode (M = slots) the weight bytes, which
 each serve only M rows; at prefill the operations, here on the CUDA cores
 (f32 FMA, never TF32; int32 for int8 operands). The kernel tiles through
-shared memory and splits K across CTAs when M x N alone cannot fill the 132
-SMs, summing the splits in a second deterministic pass.
+shared memory and sums all of K in one in-order sweep of k-tiles, as the
+reference's Pallas kernel does whatever M is: a row's f32 sum never depends
+on how many rows share its launch (batch invariance), and no workspace or
+second pass is needed. At decode only N / 64 CTAs run.
 
 Also home of the pad-run-slice contract shared by K1-K3
-(:func:`pad_to_blocks`) and of the split-K plan (:func:`split_plan`).
+(:func:`pad_to_blocks`).
 """
 from __future__ import annotations
 
@@ -29,13 +31,8 @@ counter = compat.launch_counter("baseline_gemm")
 KERNEL_BN = 64
 KERNEL_BK = 32
 KERNEL_BMS = (16, 64)
-# Enough CTAs for two waves over the 132 SMs.
-TARGET_CTAS = 264
-# Bound on the split-K partials buffer.
-WORKSPACE_BYTES = 512 * 1024 * 1024
-
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def acc_dtype_of(dtype: torch.dtype) -> torch.dtype:
@@ -65,16 +62,6 @@ def kernel_tm(bm: int, bn: int, bk: int) -> int:
             f"the CUDA GEMM kernels are compiled for bm in {KERNEL_BMS}, "
             f"bn={KERNEL_BN}, bk={KERNEL_BK}; got ({bm}, {bn}, {bk})")
     return bm // 16
-
-
-def split_plan(m: int, n: int, k: int, ctas: int, acc_bytes: int = 4):
-    """(tiles_per_split, splits): split the K tiles so that ``ctas`` output
-    CTAs times the splits reach TARGET_CTAS, within WORKSPACE_BYTES."""
-    k_tiles = -(-k // KERNEL_BK)
-    splits = max(1, min(-(-TARGET_CTAS // ctas), k_tiles))
-    splits = max(1, min(splits, WORKSPACE_BYTES // max(1, m * n * acc_bytes)))
-    per = -(-k_tiles // splits)
-    return per, -(-k_tiles // per)
 
 
 def int_mm(a: Tensor, b: Tensor) -> Tensor:
@@ -118,14 +105,11 @@ def baseline_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
     compat.require_cuda(a, b)
     tm = kernel_tm(bm, bn, bk)
     acc = acc_dtype_of(a.dtype)
-    per, splits = split_plan(m, n, k, -(-n // bn) * -(-m // bm))
     out = torch.empty((m, n), dtype=acc, device=a.device)
-    ws = (torch.empty((splits, m, n), dtype=acc, device=a.device)
-          if splits > 1 else out)
     lib = compat.load("baseline_gemm", {"baseline_gemm_launch": _SIG})
     err = lib.baseline_gemm_launch(
-        a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
-        per, _DTYPE_CODES[a.dtype], tm, compat.stream_ptr(a))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        _DTYPE_CODES[a.dtype], tm, compat.stream_ptr(a))
     counter.bump()
     compat.check(err, "baseline_gemm")
     return out

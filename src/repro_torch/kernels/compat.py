@@ -110,8 +110,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library of ``src``, named by a digest of the source, the shared
+    headers it may include and the flags: an edit to any of them rebuilds."""
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    text += " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha1(text).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 

@@ -1,6 +1,6 @@
-// Shared pieces of the port's hand-written Hopper GEMM kernels (K1-K3):
-// operand conversion into the accumulation type and the deterministic
-// split-K reduction pass.
+// Shared pieces of the port's hand-written Hopper GEMM kernels (K1-K3, K7):
+// operand conversion into the accumulation type, the dense tile loads and the
+// deterministic split-K reduction pass.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -31,26 +31,34 @@ __device__ __forceinline__ int cvt<int, int8_t>(int8_t v) { return (int)v; }
 template <>
 __device__ __forceinline__ int cvt<int, int>(int v) { return v; }
 
-// out[i] = sum over splits of ws[s][i], in split order (deterministic: no
-// atomics, so a float result does not change from run to run).
+// The split-K reduction, in the order the plan fixes (gemm_kernels.cuh):
+// the partials of each group of `gsz` consecutive slots are summed in slot
+// order, then the group totals in group order. No atomics, so a float result
+// does not change from run to run; and a CTA that summed a whole group
+// itself (gsz = 1 here) leaves the same bits.
 template <typename Acc>
-__global__ void reduce_splits(const Acc* __restrict__ ws, Acc* __restrict__ out,
-                              int splits, long long mn) {
+__global__ void reduce_units(const Acc* __restrict__ ws, Acc* __restrict__ out,
+                             int units, int gsz, long long mn) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
-  Acc s = ws[i];
-  for (int p = 1; p < splits; ++p) s += ws[(long long)p * mn + i];
-  out[i] = s;
+  Acc total = Acc(0);
+  for (int g0 = 0; g0 < units; g0 += gsz) {
+    Acc t = ws[(long long)g0 * mn + i];
+    const int g1 = min(g0 + gsz, units);
+    for (int p = g0 + 1; p < g1; ++p) t += ws[(long long)p * mn + i];
+    total = g0 == 0 ? t : total + t;
+  }
+  out[i] = total;
 }
 
 template <typename Acc>
-inline void launch_reduce(const Acc* ws, Acc* out, int splits, long long mn,
-                          cudaStream_t stream) {
-  if (splits <= 1) return;
+inline void launch_reduce(const Acc* ws, Acc* out, int units, int gsz,
+                          long long mn, cudaStream_t stream) {
+  if (units <= 1) return;
   int threads = 256;
   long long blocks = (mn + threads - 1) / threads;
-  reduce_splits<Acc><<<(unsigned)blocks, threads, 0, stream>>>(ws, out, splits,
-                                                               mn);
+  reduce_units<Acc><<<(unsigned)blocks, threads, 0, stream>>>(ws, out, units,
+                                                              gsz, mn);
 }
 
 // Load a (ROWS x BK) tile of a row-major (M, K) operand into shared memory in

@@ -6,50 +6,80 @@ The kernel consumes the weight deltas y (Eq. 9) instead of B and rebuilds B
 by a column prefix sum carried across the N sweep, as the FFIP PE chain
 does. Pallas carries the prefix in VMEM scratch and leans on the TPU's
 in-order grid; on the card one CTA owns the whole N sweep of an (m-block,
-k-split) stripe and keeps the carry in shared memory, and the k-split
-partials are summed by a second deterministic pass. Bound on the H100: the
+unit) stripe and keeps the carry in shared memory, and partials of several
+units are summed by a second deterministic pass. Bound on the H100: the
 bytes of y at decode (f32 y for bf16 weights: twice their bytes), the
 CUDA-core operations at prefill. At decode the serial N sweep sets a CTA's
-time, so the k-split may shrink to half a tile (:func:`split_rows`) to put
-more CTAs on the card.
+time, so K is split in half tiles (:func:`split_rows`) to put K / 16 CTAs on
+the card; the plan depends on K only, so a row's sums do not depend on M.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import fip
 from repro_torch.kernels import compat
-from repro_torch.kernels.baseline_gemm import (KERNEL_BK, TARGET_CTAS,
-                                               WORKSPACE_BYTES, _DTYPE_CODES,
+from repro_torch.kernels.baseline_gemm import (KERNEL_BK, _DTYPE_CODES,
                                                acc_dtype_of, kernel_tm,
-                                               pad_to_blocks, split_plan)
+                                               pad_to_blocks)
 from repro_torch.kernels.fip_gemm import fip_tile
 
 Tensor = torch.Tensor
 
 counter = compat.launch_counter("ffip_gemm_y")
 
-_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 # Per-weight y-delta memo tag (§4.4: y is precomputed and stored in place of
 # B); keyed on the weight's storage, see compat.DerivedCache.
 Y_TAG = "y"
 
 
-def split_rows(m: int, n: int, k: int, ctas: int) -> int:
-    """Rows of K each CTA sweeps N with: whole k-tiles as :func:`split_plan`
-    gives them, or half a tile (still whole pairs) when one tile per split
-    leaves fewer than TARGET_CTAS CTAs. That is decode (M = slots), where a
-    CTA's time is its serial N sweep, so only more CTAs fill the card."""
-    per, splits = split_plan(m, n, k, ctas)
-    half = KERNEL_BK // 2
-    if (per == 1 and ctas * splits < TARGET_CTAS
-            and -(-k // half) * m * n * 4 <= WORKSPACE_BYTES):
-        return half
-    return per * KERNEL_BK
+SMS = 132
+# Groups of half-tile splits that one CTA sums itself at large M.
+FFIP_GROUPS = 24
+# Bound on the split partials buffer.
+WORKSPACE_BYTES = 512 * 1024 * 1024
+
+
+def split_rows(k: int) -> Tuple[int, int]:
+    """K3's (and K7's FFIP) k-split plan, from K only: ``(rows per split,
+    splits per group)``. Splits are half a k-tile (16 rows, whole pairs), so
+    decode (M = slots, one row block) has K / 16 CTAs to fill the card with,
+    its time being each CTA's serial N sweep; the splits form at most
+    FFIP_GROUPS groups, which one CTA each sums at large M."""
+    rows = KERNEL_BK // 2
+    splits = -(-k // rows)
+    return rows, -(-splits // FFIP_GROUPS)
+
+
+def unit_plan(k: int, rows: int, group: int, ctas_per_unit: int,
+              slot_bytes: int) -> Tuple[int, int, int]:
+    """How a launch runs the k-split plan: ``(splits per CTA, units, slots
+    per reduction group)``. Either each CTA takes one split (while the card
+    would otherwise hold fewer than SMS CTAs and the partials fit the
+    workspace) and the reduction sums each group's slots, then the group
+    totals; or each CTA sums one whole group itself and the reduction sums
+    the group totals. Both sum in the plan's order: the same bits. Only
+    this choice depends on M (through ``ctas_per_unit``, the CTAs one unit
+    along K takes, and ``slot_bytes``, one partial's size)."""
+    splits = -(-k // rows)
+    groups = -(-splits // group)
+    if (groups < splits and ctas_per_unit * groups < SMS
+            and splits * slot_bytes <= WORKSPACE_BYTES):
+        return 1, splits, group
+    return group, groups, 1
+
+
+def workspace(units: int, shape, dtype, device) -> Tensor:
+    """The (units, *shape) partials buffer, or an empty stand-in when one
+    unit writes the output directly."""
+    if units <= 1:
+        return torch.empty((0,), dtype=dtype, device=device)
+    return torch.empty((units, *shape), dtype=dtype, device=device)
 
 
 def y_for(b: Tensor) -> Tensor:
@@ -106,17 +136,24 @@ def ffip_gemm_y(a: Tensor, y: Tensor, *, bm: int = 64, bn: int = 64,
                          f"{y.shape} {y.dtype}")
     compat.require_cuda(a, y)
     tm = kernel_tm(bm, bn, bk)
-    rows = split_rows(m, n, k, -(-m // bm))
-    splits = -(-k // rows)
+    rows, group = split_rows(k)
+    spu, units, red = unit_plan(k, rows, group, -(-m // bm), m * n * 4)
+    # partials past the workspace bound run in row chunks: each row's sums
+    # are the same in any chunk
+    chunk = m
+    if units > 1 and units * m * n * 4 > WORKSPACE_BYTES:
+        chunk = max(bm, WORKSPACE_BYTES // (units * n * 4) // bm * bm)
     out = torch.empty((m, n), dtype=acc, device=a.device)
-    ws = (torch.empty((splits, m, n), dtype=acc, device=a.device)
-          if splits > 1 else out)
+    ws = workspace(units, (min(chunk, m), n), acc, a.device)
     lib = compat.load("ffip_gemm", {"ffip_gemm_launch": _SIG})
-    err = lib.ffip_gemm_launch(
-        a.data_ptr(), y.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
-        rows, _DTYPE_CODES[a.dtype], tm, int(fold_beta), compat.stream_ptr(a))
-    counter.bump()
-    compat.check(err, "ffip_gemm_y")
+    for r0 in range(0, m, chunk):
+        rc = min(chunk, m - r0)
+        err = lib.ffip_gemm_launch(
+            a[r0:].data_ptr(), y.data_ptr(), ws.data_ptr(),
+            out[r0:].data_ptr(), rc, n, k, rows, spu, red,
+            _DTYPE_CODES[a.dtype], tm, int(fold_beta), compat.stream_ptr(a))
+        counter.bump()
+        compat.check(err, "ffip_gemm_y")
     return out
 
 

@@ -8,7 +8,8 @@ Pallas kernel runs on the VPU): the kernel runs on the CUDA cores, walks the
 pairs in registers and never builds the (bm, bk/2, bn) cross tensor. It is
 bound by those CUDA-core operations at prefill and by the weight bytes at
 decode. Per k-tile it keeps ``fip_tile``'s order, ``part = cross - alpha
-(- beta)`` then ``out += part``.
+(- beta)`` then ``out += part``, over all of K in one in-order sweep, as K1
+(batch-invariant).
 """
 from __future__ import annotations
 
@@ -19,14 +20,13 @@ import torch
 from repro_torch.core.fip import _sum
 from repro_torch.kernels import compat
 from repro_torch.kernels.baseline_gemm import (_DTYPE_CODES, acc_dtype_of,
-                                               kernel_tm, pad_to_blocks,
-                                               split_plan)
+                                               kernel_tm, pad_to_blocks)
 
 Tensor = torch.Tensor
 
 counter = compat.launch_counter("fip_gemm")
 
-_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def fip_tile(a: Tensor, b: Tensor, *, fold_beta: bool,
@@ -86,14 +86,11 @@ def fip_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
     compat.require_cuda(a, b)
     tm = kernel_tm(bm, bn, bk)
     acc = acc_dtype_of(a.dtype)
-    per, splits = split_plan(m, n, k, -(-n // bn) * -(-m // bm))
     out = torch.empty((m, n), dtype=acc, device=a.device)
-    ws = (torch.empty((splits, m, n), dtype=acc, device=a.device)
-          if splits > 1 else out)
     lib = compat.load("fip_gemm", {"fip_gemm_launch": _SIG})
     err = lib.fip_gemm_launch(
-        a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(), m, n, k,
-        per, _DTYPE_CODES[a.dtype], tm, int(fold_beta), compat.stream_ptr(a))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        _DTYPE_CODES[a.dtype], tm, int(fold_beta), compat.stream_ptr(a))
     counter.bump()
     compat.check(err, "fip_gemm")
     return out

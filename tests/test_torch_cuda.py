@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels (K1-K5) against their plain PyTorch versions, on
-the card. Marked ``cuda``; they skip where there is no card. This file
+"""Hand-written CUDA kernels (K1-K5, K7) against their plain PyTorch versions,
+on the card. Marked ``cuda``; they skip where there is no card. This file
 imports no JAX (the machine with the card has none).
 
 Run there:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -10,13 +10,16 @@ contraction), so they use the reference's f32 GEMM bar from
 tests/test_kernels.py (rtol 1e-4, atol 1e-3 * max(1, K // 64)); flash uses
 the reference flash bar (rtol = atol = 2e-3) on f32 o/lse, and the bf16
 output rounding (2**-8 relative) on bf16 o; the paged kernel K5 the same
-bars, with rows that have no valid key exactly 0.
+bars, with rows that have no valid key exactly 0. The fused conv K7 takes the
+GEMM bars (its K is KH*KW*Cin_g). Batch invariance is bit for bit
+(``torch.equal``): a row's sums must not depend on the rows beside it.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import compat, ops
+from repro_torch.core.im2col import conv2d_via_gemm
+from repro_torch.kernels import compat, conv_gemm, ops
 from repro_torch.kernels.baseline_gemm import baseline_gemm, baseline_gemm_plain
 from repro_torch.kernels.ffip_gemm import ffip_gemm_y, ffip_gemm_y_plain, y_for
 from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
@@ -153,3 +156,92 @@ def test_launch_counters_count_kernel_launches(dev):
     assert compat.launch_counts()["baseline_gemm"] == 1
     ops.matmul(a.cpu(), b.cpu(), algo="fip")
     assert compat.launch_counts()["fip_gemm"] == 1
+
+
+# (label, batch, h, w, cin, cout, kh, kw, stride, pad, groups): ResNet-50
+# and AlexNet convs at their published widths
+CONV_CASES = [
+    ("resnet conv1", 1, 224, 224, 3, 64, 7, 7, 2, 3, 1),
+    ("resnet s2b1.c2", 2, 56, 56, 64, 64, 3, 3, 1, 1, 1),
+    ("resnet s5b3.c3", 2, 7, 7, 512, 2048, 1, 1, 1, 0, 1),
+    ("alexnet conv2", 2, 27, 27, 96, 256, 5, 5, 1, 2, 2),
+]
+
+
+def _conv_operands(b, h, w, cin, cout, kh, kw, groups, dtype, dev, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.int8:
+        x = torch.randint(-128, 128, (b, h, w, cin), generator=g, device=dev)
+        k = torch.randint(-128, 128, (kh, kw, cin // groups, cout),
+                          generator=g, device=dev)
+        return x.to(torch.int8), k.to(torch.int8)
+    x = torch.randn((b, h, w, cin), generator=g, device=dev)
+    k = torch.randn((kh, kw, cin // groups, cout), generator=g, device=dev)
+    return x, k / (kh * kw * cin // groups) ** 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("case", CONV_CASES, ids=[c[0] for c in CONV_CASES])
+def test_conv_kernel_matches_plain(dev, case, dtype):
+    _, b, h, w, cin, cout, kh, kw, stride, pad, groups = case
+    x, kern = _conv_operands(b, h, w, cin, cout, kh, kw, groups, dtype, dev)
+    xp = torch.nn.functional.pad(x, (0, 0, pad, pad, pad, pad))
+    stack = conv_gemm._kernel_to_stack(kern, groups)
+    geom = conv_gemm.ConvGeom(h=h + 2 * pad, w=w + 2 * pad, cin=cin, kh=kh,
+                              kw=kw, sh=stride, sw=stride, groups=groups,
+                              ng=cout // groups)
+    blocks = ops.choose_blocks(b * geom.m, geom.ng, geom.k, "ffip")
+    bm, bn, bk = blocks
+    for algo in ("baseline", "fip", "ffip"):
+        fold = dtype == torch.int8 and algo != "baseline"
+        bg = {"baseline": stack, "fip": conv_gemm._evenize_k(stack),
+              "ffip": conv_gemm._y_even(stack)}[algo]
+        got = conv_gemm.fused_conv_raw(xp, stack, kh=kh, kw=kw,
+                                       stride=stride, groups=groups,
+                                       algo=algo, fold_beta=fold)
+        want = conv_gemm.fused_conv_plain(xp, bg, geom, algo=algo, bm=bm,
+                                          bn=bn, bk=bk, fold_beta=fold)
+        torch.cuda.synchronize()
+        _compare(got, want, dtype, geom.k)
+
+
+@pytest.mark.parametrize("algo", ["baseline", "fip", "ffip"])
+def test_conv_kernel_equals_gemm_on_materialised_a(dev, algo):
+    """K7 sums what K1-K3 sum over the materialised A, in the same order."""
+    x, kern = _conv_operands(2, 14, 14, 36, 72, 3, 3, 2, torch.float32, dev)
+    got = conv_gemm.conv_gemm_fused(x, kern, stride=1, pad=1, groups=2,
+                                    algo=algo)
+    ref = conv2d_via_gemm(x, kern, stride=1, pad=1, groups=2,
+                          gemm_fn=lambda a, b: ops.matmul(a, b, algo=algo))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(2304, 5760), (5760, 2304)])
+def test_gemm_batch_invariant(dev, k, n, dtype):
+    """Rows 0-3 of an M = 512 call equal the same rows at M = 4, 64, 256."""
+    a, b = _operands(512, k, n, dtype, dev, seed=7)
+    y = y_for(b)
+
+    def blocks(m):
+        return dict(zip(("bm", "bn", "bk"), ops.choose_blocks(m, n, k,
+                                                              "ffip")))
+    kernels = {"baseline": lambda a_: baseline_gemm(a_, b, **blocks(len(a_))),
+               "fip": lambda a_: fip_gemm(a_, b, **blocks(len(a_))),
+               "ffip": lambda a_: ffip_gemm_y(a_, y, **blocks(len(a_)))}
+    for name, fn in kernels.items():
+        full = fn(a)[:4]
+        for m in (4, 64, 256):
+            part = fn(a[:m].contiguous())[:4]
+            assert torch.equal(part, full), (name, m)
+
+
+def test_conv_batch_invariant(dev):
+    """Image 0 of a batch-8 K7 call equals the batch-1 call (s2b1.c2)."""
+    x, kern = _conv_operands(8, 56, 56, 64, 64, 3, 3, 1, torch.float32, dev)
+    for algo in ("baseline", "fip", "ffip"):
+        full = conv_gemm.conv_gemm_fused(x, kern, pad=1, algo=algo)[:1]
+        one = conv_gemm.conv_gemm_fused(x[:1].contiguous(), kern, pad=1,
+                                        algo=algo)
+        assert torch.equal(full, one), algo

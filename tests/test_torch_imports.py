@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of repro_torch pulls in
-neither JAX nor the reference package, and its entry points default to the
-card, raising (not falling back to the CPU) when there is none."""
+neither JAX nor the reference package, and its entry points (the LM model
+and server, the vision models and launcher) default to the card, raising
+(not falling back to the CPU) when there is none."""
 import os
 import pathlib
 import subprocess
@@ -24,14 +25,19 @@ assert len(names) >= 20, names
 import torch
 from repro_torch import configs
 from repro_torch.kernels import compat
+from repro_torch.launch import vision as launch_vision
 from repro_torch.models.model import Model
 from repro_torch.serve.batcher import BatchServer
+from repro_torch.vision import models as vm
 assert not torch.cuda.is_available()
 assert compat.device_kind() == "cpu"
 cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
+alexnet = vm.build("alexnet", num_classes=10, image_size=67, width_div=8)
 for make in (lambda: Model(cfg), lambda: compat.resolve_device(None),
              lambda: BatchServer(Model(cfg, device="cpu"), batch_slots=1,
-                                 max_len=8)):
+                                 max_len=8),
+             lambda: vm.init_params(alexnet, 0),
+             lambda: launch_vision.main(["--model", "alexnet", "--smoke"])):
     try:
         make()
     except RuntimeError as e:

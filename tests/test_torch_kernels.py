@@ -103,14 +103,41 @@ def test_fold_beta_matches_pallas(algo, dtype):
     _check(got, want, dtype, k)
 
 
+def _sum_tree(k, rows, spu, units, red):
+    """The nesting a K3 launch sums a row's k range in: a tuple of groups
+    (summed in order), each the k ranges of its splits (summed in order).
+    A CTA sums ``spu`` splits itself; the reduction sums ``red`` slots a
+    group, then the group totals."""
+    splits = -(-k // rows)
+    per_unit = [[(s * rows, min((s + 1) * rows, k))
+                 for s in range(u * spu, min((u + 1) * spu, splits))]
+                for u in range(units)]
+    return tuple(tuple(r for unit in per_unit[g:g + red] for r in unit)
+                 for g in range(0, units, red))
+
+
 def test_ffip_split_rows_fill_the_card_at_decode():
-    """K3's k-split plan: half-tile splits where whole tiles leave the card
-    short of CTAs (decode), whole tiles otherwise (prefill)."""
-    from repro_torch.kernels.ffip_gemm import split_rows
-    assert split_rows(4, 5760, 2304, 1) == 16            # 144 CTAs, not 72
-    assert split_rows(4, 122753, 2304, 1) == 16
-    assert split_rows(512, 5760, 2304, 8) == 96          # 3 whole tiles
-    assert split_rows(4, 64, 32, 1) == 16
+    """K3's k-split plan depends on K only: at each (K, N) of the served
+    path every M sums a row's k range in the same nesting, whichever launch
+    grouping ``unit_plan`` picks for that M (one split a CTA, or one group
+    a CTA; both are taken); and decode still puts at least one CTA on each
+    of the 132 SMs at (4, 2304, 5760). (K1 and K2 never split K.)"""
+    from repro_torch.kernels.ffip_gemm import SMS, split_rows, unit_plan
+    for k, n in [(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753)]:
+        trees, modes = set(), set()
+        for m in (1, 4, 16, 64, 256, 512):
+            bm = ops.choose_blocks(m, n, k, "ffip")[0]
+            rows, group = split_rows(k)
+            spu, units, red = unit_plan(k, rows, group, -(-m // bm),
+                                        m * n * 4)
+            trees.add(_sum_tree(k, rows, spu, units, red))
+            modes.add(spu)
+        assert len(trees) == 1, (k, n, trees)
+        assert len(modes) == 2, (k, n)
+    rows, group = split_rows(2304)
+    spu, units, red = unit_plan(2304, rows, group, 1, 4 * 5760 * 4)
+    assert (rows, spu, units, red) == (16, 1, 144, group)
+    assert units >= SMS
 
 
 def test_matmul_batch_dims():
