@@ -1,8 +1,9 @@
 """Architecture registry + reduced (smoke) config derivation.
 
 The port carries the archs whose path it has ported so far (the dense
-minicpm-2b); ``smoke_config`` is a copy of the reference's, so a smoke
-config here has the same widths as its counterpart there."""
+minicpm-2b and the Mamba1 falcon-mamba-7b); ``smoke_config`` is a copy of
+the reference's, so a smoke config here has the same widths as its
+counterpart there."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +12,11 @@ from repro_torch.configs.base import (EncoderConfig, MLAConfig,  # noqa: F401
                                       MoEConfig, ModelConfig, SHAPES,
                                       SHAPE_BY_NAME, ShapeConfig, SSMConfig,
                                       shape_supported)
+from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 
 ARCHS = {
+    "falcon-mamba-7b": _falcon_mamba,
     "minicpm-2b": _minicpm,
 }
 

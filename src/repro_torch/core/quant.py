@@ -63,7 +63,15 @@ def prepare_quantized_dense(w: Tensor, *, dtype=torch.int8,
     """Offline weight quantization for serving. ``w``: (..., K, N); leading
     dims are stacked layer groups, each layer calibrating on its own.
     Returns qw, scale, zp (per output channel), ``neg_beta`` (Eq. 15) and
-    ``colsum`` (the za-side zero-point term)."""
+    ``colsum`` (the za-side zero-point term). A stacked weight is prepared
+    one layer at a time (the same numbers): the f32 temporaries of a whole
+    group (16 GiB for falcon-mamba-7b's in_proj) need not fit beside the
+    model."""
+    if w.dim() > 2:
+        per = [prepare_quantized_dense(wi, dtype=dtype, symmetric=symmetric)
+               for wi in w.reshape(-1, *w.shape[-2:])]
+        return {key: torch.stack([p[key] for p in per]).reshape(
+                    *w.shape[:-2], *per[0][key].shape) for key in per[0]}
     qmin, qmax = _INT_INFO[dtype]
     w = w.to(torch.float32)
     if symmetric:

@@ -7,7 +7,9 @@ the card unless ``--device cpu`` is given.
       --slots 4 --requests 8 --max-len 256 --max-new 16 --gemm-impl cuda
 
 ``--layers N`` cuts the depth and keeps the published widths. Weights are
-random, from ``--seed``.
+random, from ``--seed``. ``--arch falcon-mamba-7b`` serves the Mamba1 stack
+(prefill through the selective-scan kernel); its prompts take the per-slot
+scatter prefill, as ``--no-prefill-buckets`` makes every model do.
 
 ``--paged`` serves from the block-paged cache (page pool and page tables,
 prefix sharing, chunked prefill); ``--paged-attention flash`` attends through
@@ -80,6 +82,9 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--decode-chunk", type=int, default=1)
+    ap.add_argument("--no-prefill-buckets", action="store_true",
+                    help="prefill one prompt at a time into its slot "
+                         "(SSM models always do)")
     ap.add_argument("--quantized", action="store_true",
                     help="int8 (F)FIP serving path")
     ap.add_argument("--gemm-algo", choices=["baseline", "fip", "ffip"],
@@ -128,7 +133,8 @@ def main(argv=None):
                            shared_prefix=16 if args.shared_prefix else 0)
     server_kw = dict(batch_slots=args.slots, max_len=args.max_len,
                      quantized=args.quantized, gemm_algo=args.gemm_algo,
-                     gemm_impl=args.gemm_impl, decode_chunk=args.decode_chunk)
+                     gemm_impl=args.gemm_impl, decode_chunk=args.decode_chunk,
+                     prefill_buckets=not args.no_prefill_buckets)
     paged_kw = dict(paged=True, page_size=args.page_size,
                     num_pages=args.num_pages,
                     prefill_chunk=args.prefill_chunk,

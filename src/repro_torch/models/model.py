@@ -85,7 +85,10 @@ class Model:
         later step rewrites the same K/V into the same row and the cache
         stays identical to one-step-at-a-time decode. Paged, a frozen slot
         writes nothing instead (``write_mask=live``): its rows may be
-        shared."""
+        shared. An SSM state is a running summary, not a row: a frozen
+        slot's state goes on changing, which is harmless, since the slot's
+        tokens are no longer read and its next admission overwrites the
+        whole slot."""
         tok, toks = token, []
         for _ in range(steps):
             cache, nxt = self.sample_step(

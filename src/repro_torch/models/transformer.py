@@ -1,5 +1,5 @@
-"""Dense decoder stack, counterpart of the dense family of
-``repro/models/transformer.py``. Parameters keep the reference tree's layout
+"""Model stacks, counterpart of ``repro/models/transformer.py``: the dense
+decoder and the Mamba1 SSM stack. Parameters keep the reference tree's layout
 (stacked ``(L, ...)`` leaves under ``"layers"``); the reference's
 ``lax.scan`` over layers is a Python loop over that leading axis. Caches are
 stacked the same way and written in place; a paged cache stacks page pools
@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
 
@@ -31,9 +32,14 @@ def norm_apply(x, p, cfg: ModelConfig):
 
 def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
                lead=()) -> dict:
+    """kind: "dense" (attention + gated MLP) or "ssm1" (a Mamba1 mixer, no
+    FFN)."""
+    kw = dict(device=device, lead=lead)
+    if kind == "ssm1":
+        return {"ln1": norm_init(cfg, dtype, **kw),
+                "ssm": S.mamba1_init(gen, cfg, dtype, **kw)}
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    kw = dict(device=device, lead=lead)
     return {"ln1": norm_init(cfg, dtype, **kw),
             "attn": A.gqa_init(gen, cfg, dtype, **kw),
             "ln2": norm_init(cfg, dtype, **kw),
@@ -46,7 +52,15 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                 cache_pos=None, cache_write_mask: Optional[Tensor] = None,
                 prefill: bool = False, page_table: Optional[Tensor] = None,
                 paged_impl: str = "gather") -> Tuple[Tensor, Optional[dict]]:
-    """Pre-norm attention + gated MLP block. Returns (x, new_cache)."""
+    """Pre-norm block with a residual: attention + gated MLP ("dense"), or
+    a Mamba1 mixer alone ("ssm1"). Returns (x, new_cache)."""
+    if kind == "ssm1":
+        if page_table is not None:
+            raise ValueError("paged KV cache requires attention layers; "
+                             f"got layer kind {kind!r}")
+        h, new_cache = S.mamba1_apply(p["ssm"], norm_apply(x, p["ln1"], cfg),
+                                      cfg=cfg, cache=cache, prefill=prefill)
+        return x + h, new_cache
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     h, new_cache = A.gqa_apply(
@@ -61,9 +75,15 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
 
 def layer_plan(cfg: ModelConfig):
     """(group_name, kind, n_layers) per stacked group."""
+    if cfg.family == "ssm":
+        if cfg.ssm.version != 1:
+            raise NotImplementedError(S.MAMBA2_TODO)
+        return [("layers", "ssm1", cfg.n_layers)]
+    if cfg.family == "hybrid":
+        raise NotImplementedError(S.MAMBA2_TODO)
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
     return [("layers", "dense", cfg.n_layers)]
 
 
@@ -166,10 +186,21 @@ def sample_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device) -> dict:
-    """Zero K/V caches stacked per layer group."""
+    """Zero caches stacked per layer group: K/V rows for attention, the
+    streaming state (conv inputs in ``dtype``, the scan state in f32) for
+    Mamba1."""
     dtype = dtype or cfg.dtype
     caches = {}
-    for name, _kind, n in layer_plan(cfg):
+    for name, kind, n in layer_plan(cfg):
+        if kind == "ssm1":
+            s = cfg.ssm
+            di = s.expand * cfg.d_model
+            caches[name] = {
+                "conv": torch.zeros((n, batch, s.d_conv - 1, di),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((n, batch, di, s.d_state),
+                                   dtype=torch.float32, device=device)}
+            continue
         shp = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
         caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
                         "v": torch.zeros(shp, dtype=dtype, device=device)}

@@ -11,7 +11,10 @@ positions (a ``(B,)`` position vector). Finished slots refill from the queue.
   own row with identical values, so tokens match one-step-at-a-time decode.
 * **Bucketed batched prefill**: prompts pad to power-of-2 buckets and
   same-bucket requests prefill together, straight into the shared slot cache
-  under a row mask.
+  under a row mask. An SSM state has no sequence axis, so it cannot take a
+  masked prefill; an SSM model, or ``prefill_buckets=False``, takes the
+  per-slot scatter prefill instead: a batch-1 forward into a fresh cache,
+  copied into the slot (axis 1 of every cache leaf).
 
 The K/V cache is updated IN PLACE (``models.attention._cache_write``): the
 server only ever holds the newest cache, so no per-dispatch copy is kept.
@@ -54,8 +57,8 @@ from repro_torch.core.gemm import GemmConfig, use_gemm
 from repro_torch.core.quant import attach_quantized_weights
 from repro_torch.kernels import compat, ffip_gemm
 from repro_torch.kernels.compat import resolve_device
+from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import paged_cache_supported
 from repro_torch.serve.lifecycle import (AdmissionImpossibleError,
                                          ServeStallError)
 from repro_torch.serve.paged import (PageAllocator, PrefixIndex, page_keys,
@@ -79,6 +82,12 @@ def _ffip_weights(node, quantized: bool):
         return
     for val in node.values():
         yield from _ffip_weights(val, quantized)
+
+
+def _leaves(tree) -> List[Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for val in tree.values() for leaf in _leaves(val)]
+    return [tree]
 
 
 @dataclasses.dataclass
@@ -123,7 +132,7 @@ class BatchServer:
     def __init__(self, model: Model, *, batch_slots: int, max_len: int,
                  greedy: bool = True, quantized: bool = False,
                  gemm_algo: str = "ffip", gemm_impl: Optional[str] = None,
-                 decode_chunk: int = 1,
+                 decode_chunk: int = 1, prefill_buckets: bool = True,
                  device=None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
@@ -175,7 +184,7 @@ class BatchServer:
             if max_len % page_size:
                 raise ValueError(f"max_len ({max_len}) must be a multiple of "
                                  f"page_size ({page_size})")
-            if not paged_cache_supported(model.cfg):
+            if not T.paged_cache_supported(model.cfg):
                 raise ValueError("paged=True requires a pure-attention "
                                  f"decoder (family={model.cfg.family!r})")
             if paged_attention not in ("gather", "flash"):
@@ -197,8 +206,11 @@ class BatchServer:
             self.prefix = PrefixIndex(self.alloc)
             self._reserved = 0          # pages promised to admitted requests
             self.cache = model.init_paged_cache(self.num_pages, page_size)
+            self._bucketed = False
         else:
             self.cache = model.init_cache(batch_slots, max_len)
+            self._bucketed = prefill_buckets and all(
+                kind == "dense" for _, kind, _ in T.layer_plan(model.cfg))
         if quantized or gemm_impl is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):
@@ -435,7 +447,10 @@ class BatchServer:
             free = [i for i, s in enumerate(self.slots) if s.req is None]
             if not free:
                 return
-            self._admit_bucket(params, free)
+            if self._bucketed:
+                self._admit_bucket(params, free)
+            else:
+                self._admit_one(params, free[0])
 
     def _admit_bucket(self, params, free: List[int]):
         """One batched prefill dispatch: the head-of-queue request's bucket
@@ -475,6 +490,28 @@ class BatchServer:
         self.stats["host_bytes_prefill"] += int(first_h.nbytes)
         for slot_i, req in zip(free, batch):
             self._place(slot_i, req, int(first_h[slot_i]))
+
+    def _admit_one(self, params, slot_i: int):
+        """The per-slot scatter prefill: one prompt through a batch-1
+        forward into a fresh cache, copied into slot ``slot_i`` (every cache
+        leaf is ``(L, B, ...)``); the argmax stays on the device."""
+        req = self._queue.popleft()
+        dev = self.device
+        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                 device=dev)[None]
+        t0 = self._clock()
+        with self._gemm_scope():
+            one, logits = self.model.prefill(
+                params, tokens, self.model.init_cache(1, self.max_len))
+            for full, part in zip(_leaves(self.cache), _leaves(one)):
+                full[:, slot_i].copy_(part[:, 0])
+            first = torch.argmax(logits[0]).to(torch.int32)
+        first_h = int(first)
+        self.stats["prefill_s"] += self._clock() - t0
+        self.stats["prefill_tokens"] += len(req.prompt)
+        self.stats["prefill_dispatches"] += 1
+        self.stats["host_bytes_prefill"] += 4
+        self._place(slot_i, req, first_h)
 
     # -- paged mode --------------------------------------------------------
     def _admit_paged(self):

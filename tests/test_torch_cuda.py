@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K5, K7) against their plain PyTorch versions,
+"""Hand-written CUDA kernels (K1-K7) against their plain PyTorch versions,
 on the card. Marked ``cuda``; they skip where there is no card. This file
 imports no JAX (the machine with the card has none).
 
@@ -11,7 +11,10 @@ tests/test_kernels.py (rtol 1e-4, atol 1e-3 * max(1, K // 64)); flash uses
 the reference flash bar (rtol = atol = 2e-3) on f32 o/lse, and the bf16
 output rounding (2**-8 relative) on bf16 o; the paged kernel K5 the same
 bars, with rows that have no valid key exactly 0. The fused conv K7 takes the
-GEMM bars (its K is KH*KW*Cin_g). Batch invariance is bit for bit
+GEMM bars (its K is KH*KW*Cin_g). The selective scan K6 holds h_final and
+h_starts within rtol = atol = 1e-4 of the plain f32 values (the reference
+kernel's bar in tests/test_selective_scan.py) and y within one bf16 ulp
+(the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
 """
 import numpy as np
@@ -26,6 +29,8 @@ from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
 from repro_torch.kernels.flash_attention import _flash_fwd, _flash_fwd_plain
 from repro_torch.kernels.flash_paged import (flash_attention_paged,
                                              flash_attention_paged_plain)
+from repro_torch.kernels.selective_scan import (selective_scan,
+                                                selective_scan_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -66,7 +71,7 @@ def _compare(got, want, dtype, k):
 
 
 SHAPES = [(4, 2304, 2304), (4, 5760, 2304), (100, 60, 36), (1, 130, 257),
-          (64, 2304, 5760)]
+          (64, 2304, 5760), (4, 8192, 288), (128, 256, 8192)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -245,3 +250,88 @@ def test_conv_batch_invariant(dev):
         one = conv_gemm.conv_gemm_fused(x[:1].contiguous(), kern, pad=1,
                                         algo=algo)
         assert torch.equal(full, one), algo
+
+
+def _scan_operands(bt, s, di, n, dtype, dev, seed=11, h0_scale=0.1):
+    """Mamba1's distributions: softplus dt, A = -exp(normal * 0.3)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    x = rnd(bt, s, di).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(bt, s, di) - 1).to(dtype)
+    b, c = rnd(bt, s, n).to(dtype), rnd(bt, s, n).to(dtype)
+    a = -torch.exp(rnd(di, n) * 0.3)
+    h0 = rnd(bt, di, n) * h0_scale
+    return x, dt, b, c, a, h0
+
+
+def _bf16_ulp(w):
+    """The spacing of bf16 numbers at each value of ``w`` (8 significant
+    bits: 2**(e - 7) for |w| in [2**e, 2**(e + 1)))."""
+    _, e = torch.frexp(w.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+
+
+def _scan_close(got, want):
+    y, h, starts = got
+    y_ref, h_ref, starts_ref = want
+    if y.dtype == torch.bfloat16:
+        ulps = (y.float() - y_ref.float()).abs() / _bf16_ulp(y_ref)
+        assert float(ulps.max()) <= 1.0, float(ulps.max())
+    else:
+        np.testing.assert_allclose(y.cpu().numpy(), y_ref.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    for a_, b_ in ((h, h_ref), (starts, starts_ref)):
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,s,di,n,chunk,h0_scale", [
+    (1, 128, 8192, 16, 128, 0.0),     # falcon prefill, fresh state
+    (2, 256, 8192, 16, 128, 0.1),     # two chunks, a running state
+    (2, 32, 16, 8, 8, 0.1),           # the reference test's shapes
+    (1, 40, 100, 4, 8, 0.1),          # ragged channel block, N 4
+])
+def test_selective_scan_matches_plain(dev, dtype, bt, s, di, n, chunk,
+                                      h0_scale):
+    args = _scan_operands(bt, s, di, n, dtype, dev, h0_scale=h0_scale)
+    got = selective_scan(*args, chunk=chunk)
+    want = selective_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got[2].shape == (bt, s // chunk, di, n)
+    _scan_close(got, want)
+
+
+def test_selective_scan_state_carries_across_calls(dev):
+    """Two calls, the second from the first's h_final, equal one call."""
+    x, dt, b, c, a, h0 = _scan_operands(1, 256, 8192, 16, torch.bfloat16,
+                                        dev)
+    y, h, starts = selective_scan(x, dt, b, c, a, h0)
+    y1, h1, s1 = selective_scan(x[:, :128].contiguous(),
+                                dt[:, :128].contiguous(),
+                                b[:, :128].contiguous(),
+                                c[:, :128].contiguous(), a, h0)
+    y2, h2, s2 = selective_scan(x[:, 128:].contiguous(),
+                                dt[:, 128:].contiguous(),
+                                b[:, 128:].contiguous(),
+                                c[:, 128:].contiguous(), a, h1)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([y1, y2], 1), y)
+    assert torch.equal(h2, h)
+    assert torch.equal(torch.cat([s1, s2], 1), starts)
+
+
+def test_selective_scan_counts_and_refuses(dev):
+    args = _scan_operands(1, 16, 64, 16, torch.bfloat16, dev)
+    compat.reset_counters()
+    selective_scan(*args)
+    assert compat.launch_counts()["selective_scan"] == 1
+    selective_scan(*(t.cpu() for t in args))
+    assert compat.launch_counts()["selective_scan"] == 1
+    x, dt, b, c, a, h0 = args
+    with pytest.raises(ValueError):
+        selective_scan(x, dt, b[..., :12].contiguous(),
+                       c[..., :12].contiguous(), a[:, :12].contiguous(),
+                       h0[..., :12].contiguous())

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of repro_torch pulls in
-neither JAX nor the reference package, and its entry points (the LM model
-and server, the vision models and launcher) default to the card, raising
+neither JAX nor the reference package, and its entry points (the LM models,
+dense and SSM, and the server, the vision models and launcher) default to
+the card, raising
 (not falling back to the CPU) when there is none."""
 import os
 import pathlib
@@ -32,8 +33,10 @@ from repro_torch.vision import models as vm
 assert not torch.cuda.is_available()
 assert compat.device_kind() == "cpu"
 cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
+ssm = configs.smoke_config(configs.get_config("falcon-mamba-7b"))
 alexnet = vm.build("alexnet", num_classes=10, image_size=67, width_div=8)
-for make in (lambda: Model(cfg), lambda: compat.resolve_device(None),
+for make in (lambda: Model(cfg), lambda: Model(ssm),
+             lambda: compat.resolve_device(None),
              lambda: BatchServer(Model(cfg, device="cpu"), batch_slots=1,
                                  max_len=8),
              lambda: vm.init_params(alexnet, 0),
