@@ -22,9 +22,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
    (beta folded); the selective scan K6 at falcon-mamba-7b's prefill (B 1, S
    16 / 64 / 128, di 8192, N 16, bf16), two chunks at B 2, f32, a nonzero
-   h0, and a state carried across two calls (SCAN_CASES). Tolerances: int8
+   h0, and a state carried across two calls (SCAN_CASES); the flash backward
+   K8 at BH 144, d 64, S 256 / 128 / 200, a window of 32 and non-causal,
+   bf16 and f32 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
+   widths, B 2 S 256 (two chunks), B 1 S 128 and S 64, f32
+   (SCAN_BWD_CASES). Tolerances: int8
    exact; K6's h_final and h_starts rtol = atol = 1e-4 of the plain f32
-   values and bf16 y one ulp, the carried state bit for bit; bf16 and f32
+   values and bf16 y one ulp, the carried state bit for bit; K8's f32
+   dq/dk/dv rtol 1e-4, atol 1e-4 * max|plain|, cast to bf16 one ulp beyond
+   that atol; K9's five gradients rtol = atol = 1e-4; bf16 and f32
    GEMMs and K7 the
    reference's f32 GEMM bar (rtol 1e-4, atol 1e-3 * max(1, K // 64)), both
    sides summing the same products in f32 in another order; flash o at 2**-7
@@ -87,7 +93,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the plain path (plain selective scan included) under the same bars, with
    ssm.out_proj taken from the next layer as the planted fault; then one
    128-token prefill and one decode step profiled.
-10. Print the kernels line (JSON), then the result line.
+10. The training path (phase train, TRAIN_RUNS): minicpm-2b at its
+   published widths and 40 layers (batch 4 x 256) and falcon-mamba-7b at its
+   widths and 48 of 64 layers (batch 2 x 256; 64 layers' bf16 params, grads
+   and f32 moments would pass the card's 80 GB), bf16, random weights from
+   --seed, 8 AdamW steps (lr TRAIN_LR, WSD, 2 warmup steps) through
+   ``train.loop.train`` on batches of the port's data pipeline. Every step
+   must launch K4 and K8 (K6 and K9) once per layer and none of K1-K3, K5,
+   K7; losses and gradient norms finite, the last loss below the first.
+   ms per step, tokens/s, peak memory and one profiled step are printed.
+   Then one step's gradients through the kernels against the plain path
+   (plain attention; autograd through the plain f32 recurrence) at the
+   first IDENTITY_LAYERS layers: the largest per-leaf relative L2 error
+   must lie below GRAD_BAR and a planted fault's (a middle layer's output
+   projection taken from the next layer) above it. minicpm-2b is trained
+   once more at AdamWConfig's default learning rate through the kernels and
+   through the plain path: where the plain path's last loss falls below its
+   first, the kernels' must too.
+11. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -176,6 +199,8 @@ REPLACES = {
     "flash_paged": "src/repro/kernels/flash_attention.py:335",
     "conv_gemm": "src/repro/kernels/conv_gemm.py:172",
     "selective_scan": "src/repro/kernels/selective_scan.py:72",
+    "flash_bwd": "src/repro/kernels/flash_attention.py:191",
+    "selective_scan_bwd": "src/repro/kernels/selective_scan.py:196",
 }
 SOURCES = {
     "baseline_gemm": "src/repro_torch/kernels/csrc/baseline_gemm.cu",
@@ -185,6 +210,8 @@ SOURCES = {
     "flash_paged": "src/repro_torch/kernels/csrc/flash_paged.cu",
     "conv_gemm": "src/repro_torch/kernels/csrc/conv_gemm.cu",
     "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
+    "flash_bwd": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+    "selective_scan_bwd": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
 }
 # K7 checks at batch 8: (label, h, w, cin, cout, kh, kw, stride, pad,
 # groups), ResNet-50's and AlexNet's convs at their published widths
@@ -235,6 +262,53 @@ PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
 # Depth of the paged identity runs (chunk widths, gather vs contiguous): the
 # first layers of the same weights, to keep the whole run short.
 IDENTITY_LAYERS = 8
+# K8 checks at BH = 4 x 36, d 64 (minicpm-2b's attention at training batch
+# 4): (label, S, window, causal), each in bf16 and f32. S 256 is the trained
+# sequence; S 200 leaves a ragged last block.
+FLASH_BWD_CASES = (
+    ("S 256", 256, 0, True),
+    ("S 128", 128, 0, True),
+    ("S 200", 200, 0, True),
+    ("window 32", 256, 32, True),
+    ("non-causal", 128, 0, False),
+)
+HEADLINE_FLASH_BWD = ("S 256", "bf16")
+# K9 checks at falcon-mamba-7b's widths, f32 as the Function passes them:
+# (label, B, S, di, N, chunk); the trained shape walks two chunks' h_starts,
+# S 64 lies below the chunk.
+SCAN_BWD_CASES = (
+    ("train B 2 S 256", 2, 256, 8192, 16, 128),
+    ("B 1 S 128", 1, 128, 8192, 16, 128),
+    ("B 1 S 64", 1, 64, 8192, 16, 128),
+)
+HEADLINE_SCAN_BWD = "train B 2 S 256"
+# phase train: (arch, layers, batch, seq). minicpm-2b at its published 40
+# layers; falcon-mamba-7b at 48 of its 64: bf16 params and grads and f32
+# AdamW moments take 12 B a parameter, 88 GB at 64 layers (7.3 B params),
+# more than the card's 80 GB; 48 layers (5.3 B params, ~64 GB) leave room
+# for the activations and AdamW's f32 slices.
+TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
+TRAIN_STEPS = 8
+# AdamW's peak learning rate in phase train (WSD, 2 warmup steps of 8, as
+# the launcher schedules minicpm-2b). At AdamWConfig's default (3e-4) the
+# random 40-layer minicpm-2b's loss rises over the 8 steps; every run
+# repeats that run through the kernels and through the plain path
+# (attention_impl="naive") as the witness that the rise is the model's and
+# the schedule's, not the kernels' (lr_witness). Eight steps leave no room
+# for the thousands of warmup steps a real run takes.
+TRAIN_LR = 1e-4
+# Gradient bar: the largest per-leaf relative L2 error of one step's
+# gradients through the kernels (K4 + K8, K6 + K9) against the plain path
+# (plain attention; autograd through the plain f32 recurrence), on the first
+# IDENTITY_LAYERS layers of the same weights and batch. Every run prints the
+# largest sound reading and the reading of a planted fault (a middle layer's
+# output projection taken from the next layer, on the kernel side only) and
+# fails if the bar no longer lies between them. Sound readings: up to 0.0200
+# (minicpm-2b, attn.wq: bf16 attention rounded in other places) and 0.0221
+# (falcon-mamba-7b, ssm.x_proj: K6's y rounded to bf16 where the plain
+# recurrence keeps f32); planted faults 0.950 (minicpm) and 1.138 (falcon)
+# (H100 readings).
+GRAD_BAR = 0.1
 
 _flush_buf = None
 
@@ -653,12 +727,16 @@ def check_convs(dev):
     return records
 
 
-def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest |got - want| in units of the bf16 spacing at ``want``
-    (2**(e - 7) for |want| in [2**e, 2**(e + 1)))."""
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              atol: float = 0.0) -> float:
+    """Largest |got - want| beyond ``atol`` in units of the bf16 spacing at
+    ``want`` (2**(e - 7) for |want| in [2**e, 2**(e + 1))). K8 passes its f32
+    bar's atol: a gradient that cancels to near 0 is noise at that floor in
+    either type."""
     _, e = torch.frexp(want.float().abs().clamp_min(2.0 ** -126))
     ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32), e - 8)
-    return float(((got.float() - want.float()).abs() / ulp).max())
+    excess = ((got.float() - want.float()).abs() - atol).clamp_min(0)
+    return float((excess / ulp).max())
 
 
 def scan_bound(bt: int, s: int, di: int, n: int, chunk: int, elt: int):
@@ -759,6 +837,197 @@ def check_scan(dev, served_lengths):
                         s=256, di=8192, n=16, chunk=128, dtype="bf16",
                         ok=same, max_abs_err=0.0 if same else float("nan"),
                         tol="bit for bit"))
+    return records
+
+
+def flash_bwd_bound(bh: int, s: int, d: int, pairs: int, elt: int):
+    """(bound_ms, bound_by) of one K8 call: q, k, v, o and do read once in
+    their type and lse in f32; dq, dk, dv written once in f32; against 10 d
+    flops per kept (q, k) pair (s, dp, dv, dk, dq: a multiply and an add
+    each) at the bf16 tensor-core peak."""
+    nbytes = bh * s * d * (5 * elt + 3 * 4) + bh * s * 4
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 10.0 * d * pairs * bh / PEAK_OPS_S["bf16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash_bwd(dev):
+    """K8 against its plain version (FLASH_BWD_CASES, bf16 and f32): the
+    f32 dq, dk, dv within rtol 1e-4, atol 1e-4 * max|plain| (the same
+    products summed in another block order); the outputs cast to bf16, as
+    the Function casts them for bf16 inputs, within one bf16 ulp beyond that
+    atol (a row that keeps one key has dp - delta = 0 up to the order of two
+    sums: its dq is ~1e-8 in the plain version and 0 in the kernel). o and lse
+    come from K4. K8 and the library yardstick (``sdpa_backward``) are both
+    timed by CUDA-graph replay."""
+    from repro_torch.kernels.flash_attention import (_flash_bwd,
+                                                     _flash_bwd_plain,
+                                                     _flash_fwd)
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(11)
+    bh, d = 4 * 36, 64
+    for label, s, window, causal in FLASH_BWD_CASES:
+        pos = torch.arange(s, device=dev)
+        keep = torch.ones((s, s), dtype=torch.bool, device=dev)
+        if causal:
+            keep &= pos[:, None] >= pos[None, :]
+        if window > 0:
+            keep &= (pos[:, None] - pos[None, :]) < window
+        pairs = int(keep.sum())
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q, k, v, do = (torch.randn((bh, s, d), generator=g,
+                                       device=dev).to(dtype)
+                           for _ in range(4))
+            o, lse = _flash_fwd(q, k, v, window, causal=causal)
+            kern = lambda: _flash_bwd(q, k, v, o, lse, do, window,  # noqa
+                                      causal=causal)
+            got = kern()
+            torch.cuda.synchronize()
+            plain = lambda: _flash_bwd_plain(q, k, v, o, lse, do,   # noqa
+                                             window, causal=causal)
+            plain()                               # warm: first-use set-up
+            want, plain_ms = timed(plain)
+            errs = [_err(a, b)[0] for a, b in zip(got, want)]
+            atols = [1e-4 * float(b.abs().max()) for b in want]
+            ok = all(_allclose(a, b, 1e-4, t)
+                     for a, b, t in zip(got, want, atols))
+            ulps = max(bf16_ulps(a.to(torch.bfloat16), b.to(torch.bfloat16),
+                                 atol=t)
+                       for a, b, t in zip(got, want, atols))
+            ok = ok and ulps <= 1.0
+            call_ms = time_ms(kern, 20)
+            ms = graph_ms(kern)
+            bias = None
+            if window > 0:
+                bias = torch.zeros((s, s), dtype=dtype, device=dev)
+                bias = bias.masked_fill(~keep, float("-inf"))[None, None]
+                bias = bias.expand(1, bh, s, s)
+            lib_op, lib_ms, lib_err = sdpa_backward(
+                q, k, v, do, bias, causal and window <= 0, want[0])
+            bound_ms, bound_by = flash_bwd_bound(bh, s, d, pairs,
+                                                 q.element_size())
+            records.append(dict(kernel="flash_bwd", case=label, bh=bh, s=s,
+                                d=d, window=window, causal=causal,
+                                dtype=dname, ok=ok, max_abs_err=max(errs),
+                                bf16_ulps=ulps, ms=ms, call_ms=call_ms,
+                                plain_ms=plain_ms, library_ms=lib_ms,
+                                library_op=lib_op, bound_ms=bound_ms,
+                                bound_by=bound_by, kept_pairs=pairs * bh,
+                                tol="rtol 1e-4, atol 1e-4 max|plain|; bf16 "
+                                    "cast 1 ulp beyond that atol"))
+            print(f"  flash_bwd     {label:10s} BH={bh} S={s:<3d} d={d} "
+                  f"{dname:4s} {'ok ' if ok else 'BAD'} dq/dk/dv max_abs "
+                  f"{max(errs):.3g}, bf16 cast {ulps:.2f} ulp  {ms:.4f} ms "
+                  f"(graph replay; {call_ms:.4f} ms around the call)  plain "
+                  f"{plain_ms:.3f} ms  {lib_op} {lib_ms} ms (its dq off the "
+                  f"plain by {lib_err})  bound {bound_ms:.5f} ms "
+                  f"({bound_by})", flush=True)
+            del q, k, v, do, o, lse, got, want, bias
+    return records
+
+
+def sdpa_backward(q, k, v, do, bias, is_causal: bool, plain_dq):
+    """(op, ms, max |dq - plain dq|) of scaled_dot_product_attention's own
+    backward kernel, called directly on the saved outputs of its forward at
+    (1, BH, S, d), as SDPA picks them: flash attention's for bf16 with no
+    mask, memory-efficient attention's for f32 or a mask (an additive bias).
+    Timed alone by CUDA-graph replay; (op, None, None) where the call is
+    refused."""
+    aten = torch.ops.aten
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    try:
+        if q.dtype == torch.bfloat16 and bias is None:
+            op = "flash_attention_backward"
+            o, lse, cq, ck, mq, mk, seed, off = \
+                aten._scaled_dot_product_flash_attention(
+                    q4, k4, v4, 0.0, is_causal)[:8]
+
+            def bwd():
+                return aten._scaled_dot_product_flash_attention_backward(
+                    do4, q4, k4, v4, o, lse, cq, ck, mq, mk, 0.0, is_causal,
+                    seed, off)
+        else:
+            op = "efficient_attention_backward"
+            o, lse, seed, off = aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, bias, True, 0.0, is_causal)
+
+            def bwd():
+                return aten._scaled_dot_product_efficient_attention_backward(
+                    do4, q4, k4, v4, bias, o, lse, seed, off, 0.0,
+                    [True, True, True, False], is_causal)
+        dq = bwd()[0][0]
+        torch.cuda.synchronize()
+        err = float((dq.double() - plain_dq.double()).abs().max())
+        return op, graph_ms(bwd), err
+    except (RuntimeError, TypeError) as e:
+        print(f"  (no library yardstick: {str(e).splitlines()[0]})")
+        return "sdpa backward", None, None
+
+
+def scan_bwd_bound(bt: int, s: int, di: int, n: int, chunk: int):
+    """(bound_ms, bound_by) of one K9 call, all f32: x, dt, dy, B, C, A and
+    h_starts read once; dx, ddt, the summed dB, dC and dA written once;
+    against the S di N exponentials the function needs at SFU_EXP_S: one
+    exp(dt A) per (t, d, n) serves both the recomputed h_t and the adjoint's
+    dh_{t-1} (K9 itself takes each twice and more, see its source)."""
+    nbytes = 4 * (3 * bt * s * di + 2 * bt * s * n + di * n
+                  + bt * (s // chunk) * di * n
+                  + 2 * bt * s * di + 2 * bt * s * n + di * n)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = 1.0 * bt * s * di * n / SFU_EXP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_scan_bwd(dev):
+    """K9 against its plain version (SCAN_BWD_CASES): dx, ddt, dB, dC and
+    dA within rtol = atol = 1e-4 of the plain f32 values (both recompute h
+    from K6's h_starts and sum in the same orders, so 0 is the aim). No
+    PyTorch call computes a selective-scan backward: no library yardstick."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd,
+                                                    selective_scan_bwd_plain)
+
+    records = []
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for label, bt, s, di, n, chunk in SCAN_BWD_CASES:
+        x = rnd(bt, s, di)
+        dt = torch.nn.functional.softplus(rnd(bt, s, di) - 1)
+        b, c = rnd(bt, s, n), rnd(bt, s, n)
+        a = -torch.exp(rnd(di, n) * 0.3)
+        dy = rnd(bt, s, di)
+        h0 = torch.zeros((bt, di, n), device=dev)
+        _, _, starts = selective_scan(x, dt, b, c, a, h0, chunk=chunk)
+        args = (x, dt, b, c, a, starts, dy)
+        kern = lambda: selective_scan_bwd(*args, chunk=chunk)   # noqa: E731
+        got = kern()
+        torch.cuda.synchronize()
+        plain = lambda: selective_scan_bwd_plain(*args, chunk=chunk)  # noqa
+        plain()
+        want, plain_ms = timed(plain)
+        ok = all(_allclose(p, q, 1e-4, 1e-4) for p, q in zip(got, want))
+        exact = sum(int(torch.equal(p, q)) for p, q in zip(got, want))
+        abs_err = max(_err(p, q)[0] for p, q in zip(got, want))
+        call_ms = time_ms(kern, 20)
+        ms = graph_ms(kern)
+        bound_ms, bound_by = scan_bwd_bound(bt, s, di, n, chunk)
+        records.append(dict(kernel="selective_scan_bwd", case=label, b=bt,
+                            s=s, di=di, n=n, chunk=chunk, dtype="f32", ok=ok,
+                            exact_outputs=exact, max_abs_err=abs_err, ms=ms,
+                            call_ms=call_ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms,
+                            bound_by=bound_by, tol="rtol=atol=1e-4"))
+        print(f"  selective_scan_bwd {label:15s} B={bt} S={s:<3d} di={di} "
+              f"N={n} chunk {min(chunk, s)} f32 {'ok ' if ok else 'BAD'} "
+              f"dx/ddt/dB/dC/dA max_abs {abs_err:.3g}, {exact}/5 bit for bit "
+              f"(rtol=atol=1e-4)  {ms:.4f} ms (graph replay; {call_ms:.4f} "
+              f"ms around the call)  plain {plain_ms:.3f} ms  library none  "
+              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+        del x, dt, b, c, a, dy, starts, args, got, want
     return records
 
 
@@ -1076,6 +1345,8 @@ def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
 
 KERNEL_GROUPS = (("ConvA", "conv_gemm"),
                  ("selective_scan_kernel", "selective_scan"),
+                 ("selective_scan_bwd_kernel", "selective_scan_bwd"),
+                 ("flash_bwd_", "flash_bwd"),
                  ("ffip_kernel", "ffip_gemm_y"), ("fip_kernel", "fip_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
                  ("reduce_units", "split-K reduce"),
@@ -1463,6 +1734,301 @@ def run_ssm(args, readings: Readings, problems):
     return runs
 
 
+@contextlib.contextmanager
+def plain_recurrence():
+    """The Mamba1 mixer's fused scan replaced, while this is open, by
+    autograd through the plain f32 recurrence (``ssm._mamba1_scan``): the
+    plain side of the falcon gradient reading."""
+    from repro_torch.models import ssm
+
+    fused = ssm._selective_scan_fused
+
+    def plain(xs, dt, bmat, cmat, A, h0, chunk, *, trainable=False,
+              mesh=None):
+        f32 = torch.float32
+        no_d = torch.zeros(A.shape[0], dtype=f32, device=A.device)
+        y, h = ssm._mamba1_scan(xs.to(f32), dt.to(f32), bmat.to(f32),
+                                cmat.to(f32), A, no_d, h0, chunk)
+        return y, (None if trainable else h)
+
+    ssm._selective_scan_fused = plain
+    try:
+        yield
+    finally:
+        ssm._selective_scan_fused = fused
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in flatten order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def one_step_grads(model, params, batch):
+    """(loss, {leaf path: gradient}) of one training step's loss, on a copy
+    of ``params`` (the reference's value_and_grad)."""
+    from repro_torch.optim import adamw
+
+    p = adamw.tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                       params)
+    leaves = adamw.tree_leaves(p)
+    with torch.enable_grad():
+        loss = model.loss(p, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), dict(zip(_leaf_names(p), grads))
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
+    """One step's loss and per-stacked-leaf gradient relative L2 error
+    through the kernels against the plain path (plain attention, or
+    autograd through the plain f32 recurrence) at the first IDENTITY_LAYERS
+    layers, same weights and batch; then the same reading of a planted
+    fault on the kernel side. Returns (largest sound reading, the fault's
+    reading)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+
+    n_id = min(IDENTITY_LAYERS, cfg.n_layers)
+    cfg_id = dataclasses.replace(cfg, n_layers=n_id)
+    model = Model(cfg_id)
+    params = model.init(seed)
+    data = SyntheticLM(DataConfig(global_batch=batch_size, seq_len=seq,
+                                  vocab=cfg.vocab, seed=seed)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in data.items()}
+    if cfg.family == "ssm":
+        plain_model, scope = model, plain_recurrence()
+        group, name = "ssm", "out_proj"
+    else:
+        plain_model = Model(dataclasses.replace(cfg_id,
+                                                attention_impl="naive"))
+        scope, group, name = contextlib.nullcontext(), "attn", "wo"
+    loss_k, g_k = one_step_grads(model, params, batch)
+    with scope:
+        loss_p, g_p = one_step_grads(plain_model, params, batch)
+    sound = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
+    del g_k
+    label, faulty = wrong_layer(params, group, name, n_id)
+    loss_f, g_f = one_step_grads(model, faulty, batch)
+    fault = {k: _rel_l2(g_f[k], g_p[k]) for k in g_p}
+    top = max(sound, key=sound.get)
+    worst = max(fault, key=fault.get)
+    print(f"  [{arch} gradients, {n_id} layers, batch {batch_size} x {seq}] "
+          f"loss through the kernels {loss_k:.6f}, plain {loss_p:.6f} "
+          f"(rel {abs(loss_k - loss_p) / abs(loss_p):.3g}); per-leaf "
+          f"relative L2 error of the gradients: largest {sound[top]:.4g} "
+          f"({top}); all: "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in sound.items())}",
+          flush=True)
+    print(f"  [{arch} planted fault: {label}] loss {loss_f:.6f}; largest "
+          f"per-leaf gradient error {fault[worst]:.4g} ({worst})", flush=True)
+    del g_p, g_f, params, faulty, model, plain_model
+    return sound[top], fault[worst]
+
+
+TRAIN_OTHER_KERNELS = ("baseline_gemm", "fip_gemm", "ffip_gemm_y",
+                       "flash_paged", "conv_gemm")
+
+
+def profile_train_step(model, out, tcfg, batch):
+    """Device time by kernel of one more training step (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from repro_torch.train.step import make_train_step
+
+    step_fn = make_train_step(model, tcfg)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's device time is also its kernels', and
+    # autograd's backward thread makes the two overlap
+    device_ms: dict = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = (getattr(ev, "self_device_time_total", 0)
+              or getattr(ev, "device_time_total", 0) or 0)
+        if us > 0:
+            g = _group(ev.key)
+            device_ms[g] = device_ms.get(g, 0.0) + us / 1e3
+    busy = sum(device_ms.values())
+    top = ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+        device_ms.items(), key=lambda kv: -kv[1])[:8])
+    share = f"{busy / wall_ms:.3f}" if busy else "not measured"
+    print(f"  profiled step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms (share {share}); device ms by kernel: "
+          f"{top or 'not measured'}", flush=True)
+    return dict(wall_ms=wall_ms, busy_ms=busy, device_ms=device_ms)
+
+
+def run_train(args, problems):
+    """Train minicpm-2b and falcon-mamba-7b at full width (TRAIN_RUNS)
+    through ``train.loop.train``: AdamW with the launcher's minicpm choice
+    (WSD, 2 warmup steps over 8), batches from the port's pipeline. Every
+    step must launch K4 and K8 (K6 and K9) once per layer and nothing else
+    of the kernels; losses and gradient norms finite; the last loss below
+    the first. Then the gradient readings, and for attention models the lr
+    witness. Returns (records, readings)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import compat
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainConfig
+
+    records, readings = [], []
+    for arch, n_layers, batch_size, seq in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        model = Model(cfg)
+        n_params = cfg.param_count()
+        print(f"phase train: {arch} d_model {cfg.d_model}, vocab "
+              f"{cfg.vocab}, {cfg.param_dtype}; n_layers {n_layers} "
+              f"(published {full.n_layers}), {n_params / 1e9:.2f} B params; "
+              f"batch {batch_size} x seq {seq}, {TRAIN_STEPS} AdamW steps "
+              f"(lr {TRAIN_LR}, WSD, warmup 2), weights from seed "
+              f"{args.seed}", flush=True)
+        if cfg.family == "ssm":
+            want = {"selective_scan": n_layers, "selective_scan_bwd": n_layers,
+                    "flash_fwd": 0, "flash_bwd": 0}
+        else:
+            want = {"flash_fwd": n_layers, "flash_bwd": n_layers,
+                    "selective_scan": 0, "selective_scan_bwd": 0}
+        want.update({k: 0 for k in TRAIN_OTHER_KERNELS})
+        marks = []
+
+        def log(m):
+            marks.append((time.perf_counter(), compat.launch_counts(), m))
+
+        tcfg = TrainConfig(optimizer=AdamWConfig(
+            lr=TRAIN_LR, schedule="wsd", warmup_steps=2,
+            total_steps=TRAIN_STEPS))
+        torch.cuda.reset_peak_memory_stats()
+        compat.reset_counters()
+        t_start = time.perf_counter()
+        out = train(model, loop_cfg=LoopConfig(
+            total_steps=TRAIN_STEPS, global_batch=batch_size, seq_len=seq,
+            log_every=1, seed=args.seed), train_cfg=tcfg, log_fn=log)
+        counts = compat.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        times = [marks[0][0] - t_start] + [b[0] - a[0] for a, b in
+                                           zip(marks, marks[1:])]
+        prev: dict = {}
+        per_step = []
+        for _, c, _ in marks:
+            per_step.append({k: c.get(k, 0) - prev.get(k, 0) for k in want})
+            prev = c
+        bad_steps = [i for i, c in enumerate(per_step) if c != want]
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        norms = [h["grad_norm"] for h in hist]
+        finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+        falls = losses[-1] < losses[0]
+        steady = times[1:]
+        ms_step = 1e3 * sum(steady) / len(steady)
+        tok_s = batch_size * seq / (ms_step / 1e3)
+        lrs = ", ".join(f"{h['lr']:.3g}" for h in hist)
+        print(f"  losses {[round(v, 4) for v in losses]}; grad norms "
+              f"{[round(v, 3) for v in norms]}; lr [{lrs}]", flush=True)
+        step_ms = [round(1e3 * t, 1) for t in times]
+        print(f"  [{arch} train] {len(hist)} steps, finite {finite}, last "
+              f"loss below the first {falls}; step ms {step_ms} (the first "
+              f"includes init and first use); "
+              f"{ms_step:.1f} ms/step over steps 2-{TRAIN_STEPS}, "
+              f"{tok_s:.0f} tokens/s; peak memory {peak:.2f} GiB; launches "
+              f"per step {per_step[0]} (every step as wanted: "
+              f"{not bad_steps}); total {counts}", flush=True)
+        if not finite:
+            problems.append(f"{arch} train: a loss or gradient norm is not "
+                            f"finite")
+        if not falls:
+            problems.append(f"{arch} train: the last loss {losses[-1]} is not "
+                            f"below the first {losses[0]}")
+        if bad_steps or len(marks) != TRAIN_STEPS:
+            problems.append(f"{arch} train: steps {bad_steps} launched "
+                            f"{[per_step[i] for i in bad_steps]}, want {want}")
+        data = SyntheticLM(DataConfig(global_batch=batch_size, seq_len=seq,
+                                      vocab=cfg.vocab, seed=args.seed))
+        batch = {k: torch.from_numpy(v).to(model.device)
+                 for k, v in data.batch_at(TRAIN_STEPS).items()}
+        prof = profile_train_step(model, out, tcfg, batch)
+        records.append(dict(arch=arch, n_layers=n_layers, batch=batch_size,
+                            seq=seq, losses=losses, grad_norms=norms,
+                            step_s=times, ms_per_step=ms_step,
+                            tokens_per_s=tok_s, peak_gib=peak,
+                            counts=counts, profile=prof))
+        del out, model, batch
+        free_device()
+        readings.append((arch, *grad_reading(arch, cfg, args.seed,
+                                             batch_size, seq)))
+        free_device()
+        if cfg.family != "ssm":
+            lr_witness(arch, cfg, args.seed, batch_size, seq, problems)
+            free_device()
+        print(f"phase train {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    sound = max(r[1] for r in readings)
+    fault = min(r[2] for r in readings)
+    print(f"  gradient bar {GRAD_BAR}: largest sound reading {sound:.4g}; "
+          f"smallest reading of a planted fault {fault:.4g}", flush=True)
+    if not sound < GRAD_BAR < fault:
+        problems.append(f"the gradient bar {GRAD_BAR} does not lie between "
+                        f"its sound readings (up to {sound:.4g}) and its "
+                        f"planted faults (from {fault:.4g})")
+    return records, readings
+
+
+def lr_witness(arch: str, cfg, seed: int, batch_size: int, seq: int,
+               problems):
+    """Train ``cfg`` for TRAIN_STEPS steps at AdamWConfig's default learning
+    rate (WSD, 2 warmup steps), through the kernels and through the plain
+    path (attention_impl="naive"), from the same weights and batches, and
+    print both losses step by step. Where the plain path's last loss falls
+    below its first and the kernels' does not, the kernels are at fault."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.step import TrainConfig
+
+    opt = AdamWConfig(schedule="wsd", warmup_steps=2, total_steps=TRAIN_STEPS)
+    losses = {}
+    for impl in ("flash", "naive"):
+        model = Model(dataclasses.replace(cfg, attention_impl=impl))
+        out = train(model, loop_cfg=LoopConfig(
+            total_steps=TRAIN_STEPS, global_batch=batch_size, seq_len=seq,
+            log_every=1, seed=seed), train_cfg=TrainConfig(optimizer=opt),
+            log_fn=lambda m: None)
+        losses[impl] = [h["loss"] for h in out["history"]]
+        del out, model
+        free_device()
+    kern, plain = losses["flash"], losses["naive"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern, plain)]
+    print(f"  [{arch} lr witness, lr {opt.lr}] losses through the kernels "
+          f"{[round(v, 4) for v in kern]}; plain path "
+          f"{[round(v, 4) for v in plain]}; relative difference by step "
+          f"{[float(f'{r:.3g}') for r in rel]}; last loss below the first: "
+          f"kernels {kern[-1] < kern[0]}, plain {plain[-1] < plain[0]}",
+          flush=True)
+    if plain[-1] < plain[0] and not kern[-1] < kern[0]:
+        problems.append(f"{arch} lr witness: at lr {opt.lr} the plain path's "
+                        f"loss falls ({plain[0]} -> {plain[-1]}) and the "
+                        f"kernels' does not ({kern[0]} -> {kern[-1]})")
+
+
 def free_device():
     from repro_torch.kernels import compat
     compat.derived.clear()
@@ -1509,7 +2075,8 @@ def main(argv=None) -> int:
             + check_convs(dev) + check_scan(dev, [
                 len(p) for p in served_prompts(
                     configs.get_config("falcon-mamba-7b").vocab,
-                    args.seed)]))
+                    args.seed)])
+            + check_flash_bwd(dev) + check_scan_bwd(dev))
     bad = [r for r in recs if not r["ok"]]
     print(f"phase kernels: {len(recs)} checks, {len(bad)} failed, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1669,7 +2236,9 @@ def main(argv=None) -> int:
 
     totals = {name: sum(r["counts"][name] for r in runs + paged_runs)
               for name in compat.launch_counts()}
-    elsewhere = ("conv_gemm", "selective_scan")   # the vision and SSM paths
+    # the vision, SSM and training paths
+    elsewhere = ("conv_gemm", "selective_scan", "flash_bwd",
+                 "selective_scan_bwd")
     problems += [f"{name} never launched on the served path"
                  for name, n in totals.items()
                  if n == 0 and name not in elsewhere]
@@ -1712,12 +2281,21 @@ def main(argv=None) -> int:
     for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y"):
         totals[name] += sum(r["counts"][name] for r in ssm_runs)
     free_device()
+
+    # 9. the training path: minicpm-2b through K4 + K8, falcon-mamba-7b
+    # through K6 + K9, and the gradient readings
+    t0 = time.perf_counter()
+    train_recs, _ = run_train(args, problems)
+    for name in ("flash_fwd", "flash_bwd", "selective_scan",
+                 "selective_scan_bwd"):
+        totals[name] += sum(r["counts"][name] for r in train_recs)
+    print(f"phase train: {time.perf_counter() - t0:.1f} s", flush=True)
     readings.gate()
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 9. the kernels line and the result line
+    # 10. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]
@@ -1734,6 +2312,20 @@ def main(argv=None) -> int:
                      f"N={head['n']} chunk {head['chunk']} bf16, falcon "
                      f"prefill; library: none (no PyTorch call computes a "
                      f"selective scan)")
+        elif name == "flash_bwd":
+            head = next(r for r in recs_k if (r["case"], r["dtype"])
+                        == HEADLINE_FLASH_BWD)
+            shape = (f"BH={head['bh']} S={head['s']} d={head['d']} causal "
+                     f"bf16, minicpm-2b training; ms by CUDA-graph replay; "
+                     f"library: aten._scaled_dot_product_"
+                     f"{head['library_op']} on its forward's saved outputs, "
+                     f"by CUDA-graph replay")
+        elif name == "selective_scan_bwd":
+            head = next(r for r in recs_k if r["case"] == HEADLINE_SCAN_BWD)
+            shape = (f"B={head['b']} S={head['s']} di={head['di']} "
+                     f"N={head['n']} chunk {head['chunk']} f32, falcon-mamba "
+                     f"training; library: none (no PyTorch call computes a "
+                     f"selective-scan backward)")
         elif name == "flash_fwd":
             head = next(r for r in recs_k if r["s"] == HEADLINE_FLASH_S)
             shape = f"BH={head['bh']} S={head['s']} d={head['d']} causal bf16"

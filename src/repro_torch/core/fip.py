@@ -175,3 +175,38 @@ def ffip_matmul(a: Tensor, b: Tensor, *, k_chunk: int = 0) -> Tensor:
     (g^{(j)} = pair_swap(a) + b[:, j], §3.2.1)."""
     cross = fip_cross_term(pair_swap(a), pair_swap_rows(b), k_chunk=k_chunk)
     return cross - fip_alpha(a)[..., :, None] - fip_beta(b)
+
+
+# ---------------------------------------------------------------------------
+# Differentiable wrappers: FIP/FFIP forward, analytic (baseline) backward.
+# The algebra is exact, so the gradients of a @ b are the right gradients;
+# using them avoids differentiating through the (M, K/2, N) intermediate.
+# ---------------------------------------------------------------------------
+
+class _TrainableMatmul(torch.autograd.Function):
+    """The reference's ``fip_matmul_trainable`` / ``ffip_matmul_trainable``
+    custom VJPs: the algebra forward; ``ga = ct b^T`` and ``gb = a^T ct``
+    backward, with the leading batch dims of gb summed into the (K, N)
+    parameter gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, k_chunk, algebra):
+        ctx.save_for_backward(a, b)
+        return algebra(a, b, k_chunk=k_chunk)
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, b = ctx.saved_tensors
+        ga = torch.matmul(ct, b.T.to(ct.dtype)).to(a.dtype)
+        gb = torch.matmul(torch.transpose(a, -1, -2).to(ct.dtype), ct)
+        while gb.dim() > 2:
+            gb = gb.sum(dim=0)
+        return ga, gb.to(b.dtype), None, None
+
+
+def fip_matmul_trainable(a: Tensor, b: Tensor, k_chunk: int = 0) -> Tensor:
+    return _TrainableMatmul.apply(a, b, k_chunk, fip_matmul)
+
+
+def ffip_matmul_trainable(a: Tensor, b: Tensor, k_chunk: int = 0) -> Tensor:
+    return _TrainableMatmul.apply(a, b, k_chunk, ffip_matmul)

@@ -6,10 +6,11 @@ Every matmul of the model calls :func:`gemm`; a thread-local
     algo in {baseline, fip, ffip}   x   impl in {torch, ref, cuda}
 
 ``cuda`` is the counterpart of the reference's ``pallas`` (the hand-written
-kernels through :func:`repro_torch.kernels.ops.matmul`), ``torch`` the
-counterpart of ``xla`` (plain PyTorch: ``torch.matmul`` for the baseline, the
-exact FIP/FFIP algebra otherwise), and ``ref`` lowers the algebra like
-``torch``.
+kernels through :func:`repro_torch.kernels.ops.matmul`; forward-only, as the
+Pallas GEMMs are), ``torch`` the counterpart of ``xla`` (plain PyTorch:
+``torch.matmul`` for the baseline, the exact FIP/FFIP algebra otherwise,
+differentiable with the baseline's gradient), and ``ref`` lowers the algebra
+like ``torch``.
 """
 from __future__ import annotations
 
@@ -94,6 +95,9 @@ def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None) -> Tensor:
     if cfg.impl == "cuda":
         bm, bn, bk = resolve_blocks(cfg)
         return ops.matmul(a, b, algo=cfg.algo, bm=bm, bn=bn, bk=bk)
-    fn = fip.fip_matmul if cfg.algo == "fip" else fip.ffip_matmul
-    out = fn(a, b, k_chunk=cfg.k_chunk)
+    # 'torch' and 'ref' both run the exact algebra; the trainable wrappers
+    # give it the analytic (baseline) gradient
+    fn = (fip.fip_matmul_trainable if cfg.algo == "fip"
+          else fip.ffip_matmul_trainable)
+    out = fn(a, b, cfg.k_chunk)
     return out.to(torch.promote_types(a.dtype, b.dtype))

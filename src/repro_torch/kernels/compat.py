@@ -193,6 +193,22 @@ def require_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel operands must be contiguous")
 
 
+def refuse_grad(what: str, *tensors: torch.Tensor, hint: str = "") -> None:
+    """Raise where a forward-only kernel would meet autograd: with grad mode
+    on and an operand that requires grad. On the card the kernel writes into
+    an output with no ``grad_fn``, so a ``backward()`` would silently drop
+    the gradients upstream; on the CPU the plain version would differentiate.
+    The reference raises on both (its Pallas kernels have no gradient:
+    ``jax.grad`` through ``repro.kernels.ops.matmul`` fails), and so does
+    the port, on both devices."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no gradient, as in the reference (its Pallas kernel "
+            f"has no VJP: jax.grad through it fails); run it under "
+            f"torch.no_grad(){hint}")
+
+
 # ---------------------------------------------------------------------------
 # Per-weight derived values (Eq. 9 y-deltas)
 # ---------------------------------------------------------------------------

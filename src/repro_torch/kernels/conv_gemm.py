@@ -220,6 +220,7 @@ def fused_conv_raw(x: Tensor, bg: Tensor, *, kh: int, kw: int,
     axis (Ks may be the evenized K). Returns (B, OH, OW, Cout) in the
     accumulation dtype (int32 for ints, float32 for floats). CPU tensors
     take :func:`fused_conv_plain`; CUDA tensors launch K7 (or raise)."""
+    compat.refuse_grad("conv_gemm", x, bg)
     if algo not in _ALGO_CODES:
         raise ValueError(algo)
     n_b, h, w, cin = x.shape
@@ -257,6 +258,7 @@ def conv_gemm_fused(x: Tensor, kernel: Tensor, *, stride: Size2 = 1,
     kernel: (KH, KW, Cin/groups, Cout). Drop-in for
     :func:`~repro_torch.core.im2col.conv2d_via_gemm`: the same (B, OH, OW,
     Cout) result, with A never built outside shared-memory tiles."""
+    compat.refuse_grad("conv_gemm", x, kernel)
     ph, pw = as_pair(pad)
     if ph or pw:
         x = F.pad(x, (0, 0, pw, pw, ph, ph))

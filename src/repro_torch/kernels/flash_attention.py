@@ -1,12 +1,21 @@
-"""K4: flash-attention forward. Replaces the Pallas kernel
-``repro/kernels/flash_attention.py::_flash_fwd`` (``_fwd_kernel``) with the
-CUDA C++ kernel ``csrc/flash_fwd.cu``.
+"""K4 and K8: flash attention, forward and backward. Replace the Pallas
+kernels ``repro/kernels/flash_attention.py::_flash_fwd`` (``_fwd_kernel``)
+and ``_flash_bwd`` (``_bwd_kernel``) with the CUDA C++ kernels
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``.
 
-FlashAttention-2 online softmax over (BH, Sq, d) x (BH, Sk, d) with causal
-masking and a sliding window (a runtime int, ``<= 0`` means full). Score
-blocks stay in shared memory and registers, so the kernel is bound by its
-operations at prefill lengths; q, k, v and o cross device memory once.
-The backward (K8) and the paged decode kernel (K5) are later slices.
+K4: FlashAttention-2 online softmax over (BH, Sq, d) x (BH, Sk, d) with
+causal masking and a sliding window (a runtime int, ``<= 0`` means full).
+Score blocks stay in shared memory and registers, so the kernel is bound by
+its operations at prefill lengths; q, k, v and o cross device memory once.
+
+K8: dq, dk, dv from the forward's log-sum-exp, with ``delta = sum(do * o)``
+per row. The TPU kernel accumulates dq across key blocks into one output
+block along its sequential grid; on the card that is a race, so K8 runs two
+deterministic passes (one CTA per key block for dk/dv, one per query block
+for dq; no atomics), after a pre-pass for delta. :func:`flash_attention` is
+differentiable through :class:`FlashAttention` (K4 forward, K8 backward), as
+the reference's custom VJP is. The paged decode kernel is K5
+(``flash_paged.py``).
 """
 from __future__ import annotations
 
@@ -22,11 +31,14 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 
 counter = compat.launch_counter("flash_fwd")
+bwd_counter = compat.launch_counter("flash_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                        ctypes.c_int,
                                                        ctypes.c_void_p])
+_BWD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 KERNEL_DMAX = 128
 
 
@@ -98,8 +110,108 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
     return o, lse
 
 
+def _flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                     lse: Tensor, do: Tensor, window: int = 0, *,
+                     causal: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
+    """The plain PyTorch version of K8, in the reference kernel's
+    arithmetic: s = q k^T summed in f32 (bf16 products are exact in f32)
+    times 1/sqrt(d); p = exp(s - lse), zeroed where masked and NOT rounded
+    to v's dtype (unlike the forward); do and o in f32, delta = sum(do * o)
+    per row; ds = p (dp - delta) scale; dq, dk, dv summed in f32. The
+    reference pads q rows with lse = 1e30, which zeroes their p; here there
+    are no padded rows. Returns f32 (dq, dk, dv)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    f32 = torch.float32
+    scale = 1.0 / (d ** 0.5)
+    q32, k32, v32 = q.to(f32), k.to(f32), v.to(f32)
+    do32, o32 = do.to(f32), o.to(f32)
+    s = torch.matmul(q32, k32.transpose(1, 2)) * scale
+    dev = q.device
+    q_pos = torch.arange(sq, device=dev)[:, None]
+    k_pos = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= q_pos >= k_pos
+    if int(window) > 0:
+        mask &= (q_pos - k_pos) < int(window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = torch.sum(do32 * o32, dim=-1, keepdim=True)
+    dp = torch.matmul(do32, v32.transpose(1, 2))
+    ds = p * (dp - delta) * scale
+    dv = torch.matmul(p.transpose(1, 2), do32)
+    dk = torch.matmul(ds.transpose(1, 2), q32)
+    dq = torch.matmul(ds, k32)
+    return dq, dk, dv
+
+
+def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+               do: Tensor, window: int = 0, *, causal: bool = True
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """q, o, do: (BH, Sq, d); k, v: (BH, Sk, d); lse: (BH, Sq) f32 from the
+    forward -> f32 (dq, dk, dv). CPU tensors take :func:`_flash_bwd_plain`;
+    CUDA tensors launch K8 (or raise)."""
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if (k.shape != (bh, sk, d) or v.shape != (bh, sk, d)
+            or o.shape != q.shape or do.shape != q.shape
+            or lse.shape != (bh, sq) or lse.dtype != torch.float32
+            or not q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
+            or q.dtype not in _DTYPE_CODES or d > KERNEL_DMAX):
+        raise ValueError(f"flash_bwd: unsupported operands q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"do{tuple(do.shape)} {q.dtype}")
+    compat.require_cuda(q, k, v, o, lse, do)
+    f32 = torch.float32
+    dq = torch.empty((bh, sq, d), dtype=f32, device=q.device)
+    dk = torch.empty((bh, sk, d), dtype=f32, device=q.device)
+    dv = torch.empty((bh, sk, d), dtype=f32, device=q.device)
+    delta = torch.empty((bh, sq), dtype=f32, device=q.device)
+    lib = compat.load("flash_bwd", {"flash_bwd_launch": _BWD_SIG})
+    err = lib.flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(window),
+        int(causal), 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
+        compat.stream_ptr(q))
+    bwd_counter.bump()
+    compat.check(err, "flash_bwd")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's ``flash_attention`` custom VJP: K4 forward, keeping
+    q, k, v, o and lse (``_fa_fwd``); K8 backward, its f32 outputs cast to
+    the inputs' dtypes (``_fa_bwd``). The window and ``causal`` get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        o, lse = _flash_fwd(q, k, v, window, causal=causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.causal = int(window), bool(causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.window,
+                                causal=ctx.causal)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, window: int = 0,
                     causal: bool = True) -> Tensor:
-    """Forward flash attention; returns o only (the reference's custom VJP
-    entry point, forward half)."""
+    """q: (BH, Sq, d), k/v: (BH, Sk, d) -> o (BH, Sq, d): K4 forward, and K8
+    backward when autograd asks (the reference's custom VJP entry point).
+    The backward takes ``v`` of q's width only (MLA's dv != d waits for the
+    MLA slice)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                "flash_attention backward takes dv == d; MLA's dv != d is "
+                "ROADMAP queue 1 item 8")
+        return FlashAttention.apply(q, k, v, window, causal)
     return _flash_fwd(q, k, v, window, causal=causal)[0]

@@ -109,6 +109,7 @@ def flash_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
     CPU tensors take :func:`flash_attention_paged_plain`; CUDA tensors
     launch the kernel (or raise)."""
+    compat.refuse_grad("flash_attention_paged", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return flash_attention_paged_plain(q, k_pool, v_pool, page_table,
                                            lengths, q_start, window,

@@ -50,6 +50,8 @@ def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,
     Returns the promoted input dtype for floats and int32 for integer inputs
     (the accumulator; the caller rescales). ``fold_beta`` (FIP/FFIP) leaves
     beta for the caller to add from ``fold_beta_into_bias`` (Eq. 15)."""
+    compat.refuse_grad(f"the {algo} GEMM kernel", a, b,
+                       hint=" or train through GemmConfig(impl='torch')")
     *batch, m, k = a.shape
     k2, n = b.shape
     if k != k2:

@@ -1,10 +1,11 @@
-"""Public model API for serving, counterpart of ``repro/models/model.py``:
-init / prefill / decode. The model runs on the card unless the caller asks
-for another device (``device=None`` -> ``cuda:0``, raising without a card)."""
+"""Public model API, counterpart of ``repro/models/model.py``: init, the
+training loss (chunked cross-entropy), prefill and decode. The model runs on
+the card unless the caller asks for another device (``device=None`` ->
+``cuda:0``, raising without a card)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -13,6 +14,28 @@ from repro_torch.kernels.compat import resolve_device
 from repro_torch.models import transformer as T
 
 Tensor = torch.Tensor
+
+
+def chunked_cross_entropy(params, hidden: Tensor, labels: Tensor,
+                          cfg: ModelConfig, *, chunk: int = 512) -> Tensor:
+    """Mean cross-entropy over the vocab without (B, S, V) f32 logits at
+    once: per sequence chunk of ``chunk`` tokens (the whole S when S is not
+    a multiple of it), f32 logits, ``logsumexp - gold``, summed, then
+    divided by B * S."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+    labels = labels.to(torch.long)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        logits = T.logits_fn(params, hidden[:, c0:c0 + chunk],
+                             cfg).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (b * s)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +60,14 @@ class Model:
         (B, max_pages) page table owned by the serving layer."""
         return T.init_paged_cache(self.cfg, num_pages, page_size,
                                   device=self.device)
+
+    # -- training ----------------------------------------------------------
+    def loss(self, params, batch: Dict[str, Tensor]) -> Tensor:
+        """batch: tokens (B, S), labels (B, S) -> CE + the aux loss (zero
+        for the dense and SSM stacks the port carries)."""
+        hidden, aux, _ = T.forward(params, batch["tokens"], self.cfg)
+        return chunked_cross_entropy(params, hidden, batch["labels"],
+                                     self.cfg) + aux
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, tokens: Tensor, cache: dict

@@ -1,7 +1,7 @@
 """State-space blocks, counterpart of ``repro/models/ssm.py``: Mamba1
 (falcon-mamba). Prefill (S > 1) runs the recurrence through the selective
-scan kernel K6; decode (S = 1) takes the plain f32 scan, as the reference
-does outside any kernel. The streaming cache ``{"conv": (B, W-1, di),
+scan kernel K6, and a training forward through the K6 + K9 pair; decode
+(S = 1) takes the plain f32 scan, as the reference does outside any kernel. The streaming cache ``{"conv": (B, W-1, di),
 "ssm": (B, di, N) f32}`` is updated in place.
 
 Mamba2 (zamba2's SSD) is a later slice; asking for it raises.
@@ -142,18 +142,21 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
 
 def _selective_scan_fused(xs, dt, bmat, cmat, A, h0, chunk, *,
                           trainable: bool = False, mesh=None):
-    """K6 over the whole batch: (y, h_final), or (y, None) for a forward that
-    is not a prefill (the reference's trainable branch; the gradient itself
-    raises in K6's wrapper until training is ported). The reference shards
-    this call over a mesh; the port serves on one card."""
+    """The fused scan over the whole batch. ``trainable=True`` runs the K6 +
+    K9 pair (:func:`selective_scan_trainable`, exact gradients from a
+    chunk-checkpointed recompute) and returns (y, None); otherwise K6 alone,
+    (y, h_final) for the streaming cache. The reference shards this call
+    over a mesh; the port runs on one card."""
     if mesh is not None:
         raise NotImplementedError(
             "a sharded selective scan is not ported yet: ROADMAP queue 1 "
             "item 15 (distribution)")
     ck, bd = min(chunk, 128), min(512, xs.shape[-1])
-    # B and C are column slices of x_proj's output; the kernel takes them
-    # contiguous, as it does every operand
-    y, h, _ = ssk.selective_scan(xs, dt, bmat.contiguous(), cmat.contiguous(),
-                                 A, h0, chunk=ck, bd=bd)
-    return (y, None) if trainable else (y, h)
-
+    # B and C are column slices of x_proj's output; the kernels take them
+    # contiguous, as they do every operand
+    bmat, cmat = bmat.contiguous(), cmat.contiguous()
+    if trainable:
+        return ssk.selective_scan_trainable(xs, dt, bmat, cmat, A, h0, ck,
+                                            bd), None
+    y, h, _ = ssk.selective_scan(xs, dt, bmat, cmat, A, h0, chunk=ck, bd=bd)
+    return y, h

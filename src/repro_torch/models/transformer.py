@@ -6,10 +6,12 @@ stacked the same way and written in place; a paged cache stacks page pools
 (:func:`init_paged_cache`)."""
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -111,6 +113,46 @@ def tree_index(tree, i: int):
     return tree[i]
 
 
+def tree_unbind(tree, n: int):
+    """A stacked tree as ``n`` per-layer trees of views. For training: the
+    gradient of ``unbind`` stacks the layers' gradients once, where indexing
+    layer by layer would add a zero-filled gradient of the whole stacked leaf
+    per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: tree_unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+# Matmuls without batch dims: the outputs the "dots" policy keeps, as the
+# reference's checkpoint_dots_with_no_batch_dims does (the projections, not
+# the batched attention products).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(body, cfg: ModelConfig):
+    """Per-layer rematerialisation for training memory (the reference's
+    ``jax.checkpoint`` around its layer scan body): ``"full"`` keeps only
+    the layer's inputs and recomputes the rest in the backward; ``"dots"``
+    keeps the matmul outputs too. Both give the numbers of ``"none"``.
+    Without autograd there is nothing to keep, so the body runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return body
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be none, dots or full; got {cfg.remat!r}")
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     """Random weights from ``gen`` with the reference's distributions (not
     its numbers: ``jax.random`` is not re-created; bring a reference tree
@@ -155,12 +197,14 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=dev)
 
     offset = 0
+    body = _maybe_remat(block_apply, cfg)
     for name, kind, n in layer_plan(cfg):
         win, theta = window_theta_arrays(cfg, n, offset)
         grp_cache = caches.get(name) if caches is not None else None
+        layers = tree_unbind(params[name], n)
         for i in range(n):
-            x, _ = block_apply(
-                tree_index(params[name], i), x, cfg=cfg, kind=kind,
+            x, _ = body(
+                layers[i], x, cfg=cfg, kind=kind,
                 positions=positions, window=int(win[i]),
                 theta=float(theta[i]),
                 cache=(tree_index(grp_cache, i) if grp_cache is not None

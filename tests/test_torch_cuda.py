@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels (K1-K7) against their plain PyTorch versions,
+"""Hand-written CUDA kernels (K1-K9) against their plain PyTorch versions,
 on the card. Marked ``cuda``; they skip where there is no card. This file
 imports no JAX (the machine with the card has none).
 
@@ -14,7 +14,11 @@ bars, with rows that have no valid key exactly 0. The fused conv K7 takes the
 GEMM bars (its K is KH*KW*Cin_g). The selective scan K6 holds h_final and
 h_starts within rtol = atol = 1e-4 of the plain f32 values (the reference
 kernel's bar in tests/test_selective_scan.py) and y within one bf16 ulp
-(the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. Batch invariance is bit for bit
+(the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. The
+flash backward K8 holds its f32 dq/dk/dv within rtol 1e-4, atol 1e-4 *
+max|plain| (the same products summed in another block order) and, once
+cast, one bf16 ulp beyond that atol; the scan backward K9 its five gradients within rtol = atol =
+1e-4. Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
 """
 import numpy as np
@@ -335,3 +339,90 @@ def test_selective_scan_counts_and_refuses(dev):
         selective_scan(x, dt, b[..., :12].contiguous(),
                        c[..., :12].contiguous(), a[:, :12].contiguous(),
                        h0[..., :12].contiguous())
+
+
+# --- training: K8 (flash backward) and K9 (selective-scan backward) ----------
+
+def _bf16_cast_ulps(got, want, atol):
+    """bf16 ulps by which the casts of ``got`` and ``want`` differ beyond
+    the f32 bar's ``atol``: a value that cancels to near 0 (dq of a row that
+    keeps one key: dp - delta) is noise at that floor in either type."""
+    g, w = got.to(torch.bfloat16).float(), want.to(torch.bfloat16)
+    excess = ((g - w.float()).abs() - atol).clamp_min(0)
+    return float((excess / _bf16_ulp(w)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,window,causal", [
+    (2, 96, 32, 0, True),          # the CPU tests' shape, a ragged block
+    (2, 96, 32, 32, True),
+    (2, 64, 32, 0, False),
+    (144, 256, 64, 0, True),       # minicpm-2b at training batch 4
+])
+def test_flash_bwd_kernel_matches_plain(dev, dtype, bh, s, d, window,
+                                        causal):
+    """K8's f32 dq/dk/dv within rtol 1e-4, atol 1e-4 * max|plain| (the same
+    products summed in another block order), and once cast to bf16 within
+    one bf16 ulp beyond that atol."""
+    from repro_torch.kernels.flash_attention import (_flash_bwd,
+                                                     _flash_bwd_plain)
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, do = (torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    o, lse = _flash_fwd(q, k, v, window, causal=causal)
+    got = _flash_bwd(q, k, v, o, lse, do, window, causal=causal)
+    want = _flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, want):
+        assert a_.dtype == torch.float32
+        atol = 1e-4 * float(b_.abs().max())
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=atol)
+        assert _bf16_cast_ulps(a_, b_, atol) <= 1.0
+
+
+@pytest.mark.parametrize("bt,s,di,n,chunk", [
+    (2, 32, 16, 8, 8),             # the CPU tests' shape
+    (1, 40, 100, 4, 8),            # ragged channel block, N 4
+    (2, 256, 8192, 16, 128),       # falcon-mamba-7b at training batch 2
+])
+def test_selective_scan_bwd_kernel_matches_plain(dev, bt, s, di, n, chunk):
+    """K9's dx, ddt, dB, dC and dA within rtol = atol = 1e-4 of the plain
+    f32 values (the reference kernel's bar)."""
+    from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                    selective_scan_bwd_plain)
+    x, dt, b, c, a, h0 = _scan_operands(bt, s, di, n, torch.float32, dev)
+    _, _, starts = selective_scan(x, dt, b, c, a, h0, chunk=chunk)
+    dy = torch.randn_like(x)
+    got = selective_scan_bwd(x, dt, b, c, a, starts, dy, chunk=chunk)
+    want = selective_scan_bwd_plain(x, dt, b, c, a, starts, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, want):
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_backward_functions_launch_k8_and_k9_once(dev):
+    """One backward through each Function launches its backward kernel
+    exactly once (and its forward kernel once, in the forward)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.selective_scan import selective_scan_trainable
+    g = torch.Generator(device=dev).manual_seed(22)
+    q, k, v = (torch.randn((4, 64, 32), generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    compat.reset_counters()
+    flash_attention(q, k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = compat.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd"]) == (1, 1)
+    assert q.grad.dtype == torch.bfloat16 and q.grad.abs().sum() > 0
+    args = [t.requires_grad_(True) for t in _scan_operands(
+        2, 32, 64, 16, torch.bfloat16, dev)]
+    compat.reset_counters()
+    selective_scan_trainable(*args, 8, 64).float().sum().backward()
+    torch.cuda.synchronize()
+    counts = compat.launch_counts()
+    assert (counts["selective_scan"], counts["selective_scan_bwd"]) == (1, 1)
+    assert args[0].grad.dtype == torch.bfloat16
+    assert not args[5].grad.any()

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of repro_torch pulls in
-neither JAX nor the reference package, and its entry points (the LM models,
-dense and SSM, and the server, the vision models and launcher) default to
-the card, raising
-(not falling back to the CPU) when there is none."""
+neither JAX nor the reference package (nor ml_dtypes), and its entry points
+(the LM models, dense and SSM, the server, the vision models and launcher,
+the training loop and launcher) default to the card, raising (not falling
+back to the CPU) when there is none."""
 import os
 import pathlib
 import subprocess
@@ -22,12 +22,19 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro.") or m.startswith("ml_dtypes"))
 assert not bad, bad
 assert len(names) >= 20, names
+for name in ("repro_torch.optim.adamw", "repro_torch.data.pipeline",
+             "repro_torch.ckpt.manager", "repro_torch.watchdog",
+             "repro_torch.train.watchdog", "repro_torch.train.step",
+             "repro_torch.train.loop", "repro_torch.launch.train"):
+    assert name in names, name
 
 import torch
 from repro_torch import configs
 from repro_torch.kernels import compat
+from repro_torch.launch import train as launch_train
 from repro_torch.launch import vision as launch_vision
 from repro_torch.models.model import Model
+from repro_torch.train import loop as train_loop
 from repro_torch.serve.batcher import BatchServer
 from repro_torch.vision import models as vm
 assert not torch.cuda.is_available()
@@ -40,7 +47,11 @@ for make in (lambda: Model(cfg), lambda: Model(ssm),
              lambda: BatchServer(Model(cfg, device="cpu"), batch_slots=1,
                                  max_len=8),
              lambda: vm.init_params(alexnet, 0),
-             lambda: launch_vision.main(["--model", "alexnet", "--smoke"])):
+             lambda: launch_vision.main(["--model", "alexnet", "--smoke"]),
+             lambda: train_loop.train(Model(cfg),
+                                      loop_cfg=train_loop.LoopConfig()),
+             lambda: launch_train.main(["--arch", "minicpm-2b", "--smoke",
+                                        "--steps", "1"])):
     try:
         make()
     except RuntimeError as e:
