@@ -36,12 +36,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sides summing the same products in f32 in another order; flash o at 2**-7
    (one bf16 rounding of o) and lse at 2e-3; K5 at 2**-7, with exact zeros
    for a sequence of length 0. Each call is timed with CUDA events, L2
-   flushed between launches, beside its plain version (timed on the call
-   that checks it, after a warm call for the cheap K4/K5 ones), its library
-   yardstick and its bound.
+   flushed between launches (K1-K3 and their torch.matmul yardstick by
+   CUDA-graph replay, the time around the call beside it), beside its plain
+   version (timed on the call that checks it, after a warm call for the
+   cheap K4/K5 ones), its library yardstick and its bound. The K2/K3 lines
+   start with each pair-kernel instantiation's registers and spills (the
+   build's ``-Xptxas -v``). K3's carry-table kernel is held bit for bit to
+   its plain version on each weight's y and timed on the card (the
+   derivation runs once per weight, memoized beside y; the K3 calls are
+   timed with it memoized).
 3. Batch invariance, bit for bit: rows 0-3 of an M = 512 K1/K2/K3 call
-   against the same rows at M = 4, 64 and 256 (f32 and bf16), and image 0
-   of a batch-8 K7 call against the batch-1 call.
+   against the same rows at M = 4, 64 and 256 (f32 and bf16), rows 0-3 of
+   falcon-mamba-7b's in_proj (K 4096, N 16384) at M = 128 against M = 1, 4
+   and 16, and image 0 of a batch-8 K7 call against the batch-1 call.
 4. Serve minicpm-2b at its published widths (random weights from --seed)
    through ``BatchServer(gemm_impl="cuda")``: 4 slots, 8 requests of 16-128
    prompt tokens, 16 new tokens each, once each with gemm_algo ffip, fip and
@@ -131,16 +138,42 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # NVIDIA H100 SXM peaks (data sheet, dense) that bound each call: device
-# memory, bf16 and int8 tensor cores, and the f32 CUDA cores where FIP/FFIP's
-# pre-add (which has no tensor-core mapping) must run: 128 FMA lanes per SM
-# on 132 SMs at the 1.98 GHz boost clock. exp runs on the special-function
-# units: 16 results per SM per clock (CUDA programming guide, arithmetic
-# throughput, compute capability 9.0), at the same clock.
+# memory, bf16 and int8 tensor cores, and the f32 CUDA cores: 128 FMA lanes
+# per SM on 132 SMs at the 1.98 GHz boost clock. exp runs on the
+# special-function units: 16 results per SM per clock (CUDA programming
+# guide, arithmetic throughput, compute capability 9.0), at the same clock.
 HBM_BYTES_S = 3.35e12
 BOOST_CLOCK_HZ = 1.98e9
 PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12,
               "cuda_core": 2 * 128 * 132 * BOOST_CLOCK_HZ}
 SFU_EXP_S = 16 * 132 * BOOST_CLOCK_HZ
+# FIP/FFIP's pre-add has no tensor-core mapping, and a pair costs each output
+# 2 adds and 1 multiply-add, each an instruction of its own: they are bound
+# by issue slots, not by FMA flops. A scheduler issues one warp instruction
+# a clock: 128 lanes a SM a clock, the rate of f32 adds and FMAs (same guide
+# and table). int32 adds (IADD3, ALU pipe) and multiply-adds (IMAD, FMA
+# pipe) run at 64 each, on separate pipes, and ptxas also issues adds as
+# IMAD.IADD on the FMA pipe: together they reach the issue limit, with the
+# multiply-adds alone held to 64.
+ISSUE_RATE_S = 128 * 132 * BOOST_CLOCK_HZ
+IMAD_RATE_S = 64 * 132 * BOOST_CLOCK_HZ
+
+
+def pair_counts(m: int, n: int, k: int, fold_beta: bool):
+    """(adds, multiply-adds) of an (M, K) x (K, N) FIP/FFIP product: 2 adds
+    + 1 multiply-add per pair and output, one multiply-add per pair for
+    each row's alpha and (unless folded) each column's beta."""
+    beta = 0 if fold_beta else n * k / 2
+    return m * n * k, m * n * k / 2 + m * k / 2 + beta
+
+
+def pair_ms(adds: float, mads: float, integer: bool) -> float:
+    """Least time of the pair arithmetic: every instruction at the issue
+    limit; for int32 also the multiply-adds at the IMAD pipe's rate."""
+    t = (adds + mads) / ISSUE_RATE_S
+    if integer:
+        t = max(t, mads / IMAD_RATE_S)
+    return t * 1e3
 
 # GEMM checks, (M, K, N): minicpm-2b's projections and tied logits at decode
 # (M 4) and prefill (M 512); falcon-mamba-7b's in_proj, x_proj (N 288, not a
@@ -195,6 +228,7 @@ REPLACES = {
     "baseline_gemm": "src/repro/kernels/baseline_gemm.py:58",
     "fip_gemm": "src/repro/kernels/fip_gemm.py:65",
     "ffip_gemm_y": "src/repro/kernels/ffip_gemm.py:92",
+    "ffip_carry_table": "src/repro/kernels/ffip_gemm.py:57",
     "flash_fwd": "src/repro/kernels/flash_attention.py:81",
     "flash_paged": "src/repro/kernels/flash_attention.py:335",
     "conv_gemm": "src/repro/kernels/conv_gemm.py:172",
@@ -206,6 +240,7 @@ SOURCES = {
     "baseline_gemm": "src/repro_torch/kernels/csrc/baseline_gemm.cu",
     "fip_gemm": "src/repro_torch/kernels/csrc/fip_gemm.cu",
     "ffip_gemm_y": "src/repro_torch/kernels/csrc/ffip_gemm.cu",
+    "ffip_carry_table": "src/repro_torch/kernels/csrc/ffip_gemm.cu",
     "flash_fwd": "src/repro_torch/kernels/csrc/flash_fwd.cu",
     "flash_paged": "src/repro_torch/kernels/csrc/flash_paged.cu",
     "conv_gemm": "src/repro_torch/kernels/csrc/conv_gemm.cu",
@@ -366,17 +401,18 @@ def reps_for(ms: float) -> int:
     return max(3, min(20, int(300.0 / max(ms, 1e-3))))
 
 
-def yardstick_ms(fn):
-    """Time of the library call that computes the same function, or None
-    where PyTorch has none for these operands (``torch._int_mm`` refuses
-    some shapes)."""
+def yardstick_ms(fn, replay: bool = False):
+    """Time of the library call that computes the same function (by CUDA
+    graph replay with ``replay``, as the kernel it stands beside is timed),
+    or None where PyTorch has none for these operands (``torch._int_mm``
+    refuses some shapes)."""
     try:
         fn()
         torch.cuda.synchronize()
     except RuntimeError as e:
         print(f"  (no library yardstick: {str(e).splitlines()[0]})")
         return None
-    return time_ms(fn, 5)
+    return graph_ms(fn, 5) if replay else time_ms(fn, 5)
 
 
 def _err(got: torch.Tensor, want: torch.Tensor):
@@ -391,20 +427,83 @@ def _allclose(got, want, rtol, atol) -> bool:
 
 def gemm_bound(name: str, m: int, k: int, n: int, dtype: str):
     """(bound_ms, bound_by) of one GEMM call: each input read once (A, then
-    B or, for FFIP, its f32/int32 deltas y), the f32/int32 output written
-    once; baseline at the tensor-core peak of its type, FIP/FFIP
-    (2 pre-adds, a multiply and an add per pair, + alpha and beta) at the
-    CUDA-core peak."""
+    B or, for FFIP, its f32/int32 deltas y and their carry table), the
+    f32/int32 output written once; baseline at the tensor-core peak of its
+    type, FIP/FFIP in issue slots (:func:`pair_counts`, :func:`pair_ms`;
+    int8 beta folded)."""
     elt = 2 if dtype == "bf16" else 1
-    b_bytes = k * n * (4 if name == "ffip_gemm_y" else elt)
+    b_bytes = k * n * elt
+    if name == "ffip_gemm_y":
+        b_bytes = k * n * 4 + k * -(-n // 32) * 4
     nbytes = m * k * elt + b_bytes + m * n * 4
     if name == "baseline_gemm":
-        ops, peak = 2.0 * m * n * k, PEAK_OPS_S[dtype]
+        t_ops = 2.0 * m * n * k / PEAK_OPS_S[dtype] * 1e3
     else:
-        beta = 0 if dtype == "int8" else k * n
-        ops, peak = 2.0 * m * n * k + m * k + beta, PEAK_OPS_S["cuda_core"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
+        t_ops = pair_ms(*pair_counts(m, n, k, fold_beta=dtype == "int8"),
+                        integer=dtype == "int8")
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_lines(source: str, key: str):
+    """(kernel, "registers, spills") for each kernel of ``source`` whose
+    name holds ``key``, from the build's ``-Xptxas -v`` output, demangled
+    by c++filt where the toolkit's host has it."""
+    from repro_torch.kernels import compat
+
+    out, name = [], None
+    for line in compat.build_log.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            spills = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            if key in name:
+                regs = line.split(":", 1)[1].strip()
+                out.append((name, f"{regs}; {spills}"))
+            name = None
+    try:
+        shown = subprocess.run(["c++filt"], input="\n".join(n for n, _ in out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.split("\n")
+        out = [(shown[i] or n, v) for i, (n, v) in enumerate(out)]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        pass
+    return out
+
+
+def check_carry(y: torch.Tensor, carry: torch.Tensor, dtype: str,
+                first_ms: float):
+    """K3's carry-table kernel on one weight's y against its plain version,
+    bit for bit (the same adds in the same order), timed on the card; the
+    library yardstick is torch.cumsum over the rows (the table is its every
+    32nd column, shifted by one group). ``first_ms``: the memoizing first
+    derivation on the host clock."""
+    from repro_torch.kernels.ffip_gemm import (GROUP, carry_table,
+                                               carry_table_plain)
+
+    k, n = y.shape
+    want, plain_ms = timed(lambda: carry_table_plain(y))
+    ok = torch.equal(carry, want)
+    abs_err = float((carry.double() - want.double()).abs().max())
+    fn = lambda: carry_table(y)                  # noqa: E731
+    ms = time_ms(fn, reps_for(time_ms(fn, 1)), warm=False)
+    lib_ms = yardstick_ms(lambda: torch.cumsum(y, 1))
+    t_bytes = (y.numel() + carry.numel()) * 4 / HBM_BYTES_S * 1e3
+    t_ops = k * max(0, n - GROUP) / ISSUE_RATE_S * 1e3  # one add an element
+    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                          else (t_ops, "operations"))
+    print(f"  ffip_carry_table y ({k}, {n}) {y.dtype} -> "
+          f"{tuple(carry.shape)} {'ok ' if ok else 'BAD'} (bit for bit) "
+          f"max_abs={abs_err:.3g}  {ms:.4f} ms on the card (first derivation "
+          f"{first_ms:.2f} ms host clock)  plain {plain_ms:.3f} ms  cumsum "
+          f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return dict(kernel="ffip_carry_table", k=k, n=n, dtype=dtype, ok=ok,
+                max_abs_err=abs_err, max_rel_err=0.0 if ok else float("nan"),
+                tol="bit for bit", ms=ms, first_ms=first_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def check_gemms(dev):
@@ -412,11 +511,15 @@ def check_gemms(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.baseline_gemm import (baseline_gemm,
                                                    baseline_gemm_plain)
-    from repro_torch.kernels.ffip_gemm import (ffip_gemm_y, ffip_gemm_y_plain,
-                                               y_for)
+    from repro_torch.kernels.ffip_gemm import (carry_for, ffip_gemm_y,
+                                               ffip_gemm_y_plain, y_for)
     from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
 
-    records = []
+    for source, key in (("fip_gemm", "fip_pair_kernel"),
+                        ("ffip_gemm", "ffip_pair_kernel")):
+        for name, regs in ptxas_lines(source, key):
+            print(f"  ptxas {name}: {regs}", flush=True)
+    records, carried = [], set()
     g = torch.Generator(device=dev).manual_seed(0)
     for m, k, n in GEMM_CASES:
         # pairs per plain-version step: its (M, pairs, N) temporaries
@@ -437,13 +540,22 @@ def check_gemms(dev):
                      / k ** 0.5).to(torch.bfloat16)
                 fold = False
                 lib = lambda: torch.matmul(a, b)      # noqa: E731
-            bm, bn, bk = ops.choose_blocks(m, n, k, "ffip")
-            blk = dict(bm=bm, bn=bn, bk=bk)
+            mac = dict(zip(("bm", "bn", "bk"), ops.mac_blocks(m)))
+            blk = dict(zip(("bm", "bn", "bk"),
+                           ops.choose_blocks(m, n, k, "ffip")))
             y = y_for(b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = carry_for(y)          # the K3 calls below reuse it
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if (k, n, dtype) not in carried:
+                carried.add((k, n, dtype))
+                records.append(check_carry(y, carry, dtype, first_ms))
             calls = {
                 "baseline_gemm": (
-                    lambda: baseline_gemm(a, b, **blk),
-                    lambda: baseline_gemm_plain(a, b, **blk)),
+                    lambda: baseline_gemm(a, b, **mac),
+                    lambda: baseline_gemm_plain(a, b, **mac)),
                 "fip_gemm": (
                     lambda: fip_gemm(a, b, fold_beta=fold, **blk),
                     lambda: fip_gemm_plain(a, b, fold_beta=fold,
@@ -453,7 +565,7 @@ def check_gemms(dev):
                     lambda: ffip_gemm_y_plain(a, y, fold_beta=fold,
                                               k_chunk=kc, **blk)),
             }
-            lib_ms = yardstick_ms(lib)
+            lib_ms = yardstick_ms(lib, replay=True)
             for name, (kern, plain) in calls.items():
                 got = kern()
                 torch.cuda.synchronize()
@@ -466,23 +578,29 @@ def check_gemms(dev):
                     ok = _allclose(got, want, 1e-4, atol)
                     tol = f"rtol 1e-4 atol {atol:g}"
                 one = time_ms(kern, 1)
-                ms = time_ms(kern, reps_for(one), warm=False)
+                call_ms = time_ms(kern, reps_for(one), warm=False)
+                ms = graph_ms(kern, reps_for(one))
                 bound_ms, bound_by = gemm_bound(name, m, k, n, dtype)
+                tiles = mac if name == "baseline_gemm" else blk
                 rec = dict(kernel=name, m=m, k=k, n=n, dtype=dtype,
+                           tile=(tiles["bm"], tiles["bn"]),
                            fold_beta=fold, ok=ok, max_abs_err=abs_err,
                            max_rel_err=rel_err, tol=tol, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           call_ms=call_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
                 records.append(rec)
                 print(f"  {name:13s} M={m:<3d} K={k:<4d} N={n:<6d} "
-                      f"{dtype:4s} {'ok ' if ok else 'BAD'} "
+                      f"{dtype:4s} tile {tiles['bm']}x{tiles['bn']} "
+                      f"{'ok ' if ok else 'BAD'} "
                       f"max_abs={abs_err:.3g} max_rel={rel_err:.3g} "
-                      f"({tol})  {ms:.4f} ms  plain {plain_ms:.3f} ms  "
+                      f"({tol})  {ms:.4f} ms (call {call_ms:.4f})  "
+                      f"plain {plain_ms:.3f} ms  "
                       f"lib {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                       f" ms  bound {bound_ms:.4f} ms ({bound_by})",
                       flush=True)
                 del got, want
-            del a, b, y
+            del a, b, y, carry
     return records
 
 
@@ -632,19 +750,23 @@ def check_paged(dev):
 
 
 def conv_bound(algo: str, dtype: str, xp: torch.Tensor, stack: torch.Tensor,
-               m: int, k: int):
+               m: int, k: int, fold_beta: bool):
     """(bound_ms, bound_by) of one K7 call: the padded input read once, the
-    weights (FFIP: their f32/int32 deltas) and the f32/int32 output once;
-    2 M N K operations (over all groups) at the CUDA-core peak (f32 without
-    TF32, and every FIP/FFIP body), or the int8 peak for int8 baseline."""
+    weights (FFIP: their f32/int32 deltas) and the f32/int32 output once.
+    Baseline: 2 M N K operations (over all groups) at the f32 CUDA-core peak
+    (no TF32), or the int8 tensor-core peak for int8. FIP/FFIP: issue slots
+    (:func:`pair_counts` per group, :func:`pair_ms`)."""
     g, _, ng = stack.shape
     w_elt = 4 if algo == "ffip" else stack.element_size()
     nbytes = (xp.numel() * xp.element_size() + stack[:, :k].numel() * w_elt
               + m * g * ng * 4)
-    peak = PEAK_OPS_S["int8" if (dtype, algo) == ("int8", "baseline")
-                      else "cuda_core"]
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 2.0 * m * g * ng * k / peak * 1e3
+    if algo == "baseline":
+        peak = PEAK_OPS_S["int8" if dtype == "int8" else "cuda_core"]
+        t_ops = 2.0 * m * g * ng * k / peak * 1e3
+    else:
+        adds, mads = pair_counts(m, ng, k + k % 2, fold_beta)
+        t_ops = pair_ms(g * adds, g * mads, integer=dtype == "int8")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -684,7 +806,7 @@ def check_convs(dev):
                     stride=st, padding=pad, groups=groups))
             xp = F.pad(x, (0, 0, pad, pad, pad, pad))
             stack = cg._kernel_to_stack(kern, groups)
-            bm, bn, bk = ops.choose_blocks(m, geom.ng, geom.k, "ffip")
+            bm, bn, bk = ops.mac_blocks(m)
             for algo in ("baseline", "fip", "ffip"):
                 fold = dtype == "int8" and algo != "baseline"
                 bg = {"baseline": stack, "fip": cg._evenize_k(stack),
@@ -707,7 +829,7 @@ def check_convs(dev):
                 one = time_ms(kern_fn, 1)
                 ms = time_ms(kern_fn, reps_for(one), warm=False)
                 bound_ms, bound_by = conv_bound(algo, dtype, xp, bg, m,
-                                                geom.k)
+                                                geom.k, fold)
                 records.append(dict(
                     kernel="conv_gemm", case=label, algo=algo, dtype=dtype,
                     batch=CONV_BATCH, m=m, k=geom.k, n=cout, groups=groups,
@@ -1034,8 +1156,10 @@ def check_scan_bwd(dev):
 def check_batch_invariance(dev):
     """Bit for bit: rows 0-3 of an M = 512 K1/K2/K3 call against the same
     rows at M = 4, 64 and 256 (f32 and bf16, at the served (K, N) pairs),
-    and image 0 of a batch-8 K7 call against the batch-1 call (f32, the
-    three algos, ResNet-50's s2b1.c2). Returns the failures."""
+    rows 0-3 of falcon-mamba-7b's in_proj (K 4096, N 16384) at M = 128
+    against M = 1, 4 and 16 (row 0 at M = 1), and image 0 of a batch-8 K7
+    call against the batch-1 call (f32, the three algos, ResNet-50's
+    s2b1.c2). Returns the failures."""
     from repro_torch.kernels import conv_gemm as cg
     from repro_torch.kernels import ops
     from repro_torch.kernels.baseline_gemm import baseline_gemm
@@ -1044,27 +1168,32 @@ def check_batch_invariance(dev):
 
     bad = []
     g = torch.Generator(device=dev).manual_seed(7)
-    for k, n in ((2304, 5760), (5760, 2304)):
+    for m_full, k, n, ms in ((512, 2304, 5760, (4, 64, 256)),
+                             (512, 5760, 2304, (4, 64, 256)),
+                             (128, 4096, 16384, (1, 4, 16))):
         for dtype in (torch.float32, torch.bfloat16):
-            a = torch.randn((512, k), generator=g, device=dev).to(dtype)
+            a = torch.randn((m_full, k), generator=g, device=dev).to(dtype)
             b = (torch.randn((k, n), generator=g, device=dev)
                  / k ** 0.5).to(dtype)
             y = y_for(b)
 
-            def blk(rows):
+            def blk(rows, algo):
                 return dict(zip(("bm", "bn", "bk"),
-                                ops.choose_blocks(rows, n, k, "ffip")))
+                                ops.choose_blocks(rows, n, k, algo)))
             fns = {"baseline_gemm": lambda a_: baseline_gemm(
-                       a_, b, **blk(len(a_))),
-                   "fip_gemm": lambda a_: fip_gemm(a_, b, **blk(len(a_))),
+                       a_, b, **blk(len(a_), "baseline")),
+                   "fip_gemm": lambda a_: fip_gemm(
+                       a_, b, **blk(len(a_), "fip")),
                    "ffip_gemm_y": lambda a_: ffip_gemm_y(
-                       a_, y, **blk(len(a_)))}
+                       a_, y, **blk(len(a_), "ffip"))}
             for name, fn in fns.items():
                 full = fn(a)[:4]
-                same = {m: torch.equal(fn(a[:m].contiguous())[:4], full)
-                        for m in (4, 64, 256)}
+                same = {m: torch.equal(fn(a[:m].contiguous())[:4],
+                                       full[:min(m, 4)])
+                        for m in ms}
                 print(f"  batch invariance {name:13s} K={k} N={n} "
-                      f"{str(dtype)[6:]:8s} rows 0-3 at M=512 vs M=4/64/256: "
+                      f"{str(dtype)[6:]:8s} rows 0-3 at M={m_full} vs "
+                      f"M={'/'.join(map(str, ms))}: "
                       f"{'identical' if all(same.values()) else same}",
                       flush=True)
                 if not all(same.values()):
@@ -1347,7 +1476,9 @@ KERNEL_GROUPS = (("ConvA", "conv_gemm"),
                  ("selective_scan_kernel", "selective_scan"),
                  ("selective_scan_bwd_kernel", "selective_scan_bwd"),
                  ("flash_bwd_", "flash_bwd"),
-                 ("ffip_kernel", "ffip_gemm_y"), ("fip_kernel", "fip_gemm"),
+                 ("ffip_pair_kernel", "ffip_gemm_y"),
+                 ("carry_", "ffip_carry_table"),
+                 ("fip_pair_kernel", "fip_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
                  ("reduce_units", "split-K reduce"),
                  ("flash_fwd_kernel", "flash_fwd"),
@@ -2071,7 +2202,8 @@ def main(argv=None) -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     print("phase kernels: hand-written kernel vs plain version", flush=True)
-    recs = (check_gemms(dev) + check_flash(dev) + check_paged(dev)
+    recs = check_gemms(dev)
+    recs += (check_flash(dev) + check_paged(dev)
             + check_convs(dev) + check_scan(dev, [
                 len(p) for p in served_prompts(
                     configs.get_config("falcon-mamba-7b").vocab,
@@ -2278,7 +2410,8 @@ def main(argv=None) -> int:
     ssm_runs = run_ssm(args, readings, problems)
     totals["selective_scan"] = sum(r["counts"]["selective_scan"]
                                    for r in ssm_runs)
-    for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y"):
+    for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y",
+                 "ffip_carry_table"):
         totals[name] += sum(r["counts"][name] for r in ssm_runs)
     free_device()
 
@@ -2326,6 +2459,13 @@ def main(argv=None) -> int:
                      f"N={head['n']} chunk {head['chunk']} f32, falcon-mamba "
                      f"training; library: none (no PyTorch call computes a "
                      f"selective-scan backward)")
+        elif name == "ffip_carry_table":
+            _, k, n, dt = HEADLINE_GEMM
+            head = next(r for r in recs_k if (r["k"], r["n"], r["dtype"])
+                        == (k, n, dt))
+            shape = (f"y K={k} N={n} f32 (of {dt} weights) -> ({k}, "
+                     f"{-(-n // 32)}), once per weight, memoized beside y; "
+                     f"library: torch.cumsum(y, 1)")
         elif name == "flash_fwd":
             head = next(r for r in recs_k if r["s"] == HEADLINE_FLASH_S)
             shape = f"BH={head['bh']} S={head['s']} d={head['d']} causal bf16"

@@ -8,10 +8,12 @@ other:
     <dir>/step_000123/arr_00000.npy ...
 
 Leaves go in the reference's flatten order (dict keys sorted; an
-``AdamWState`` as step, m, v). bf16 leaves are stored as their uint16 bits
-with ``"bfloat16"`` in the manifest's ``dtypes``, the way ``bridge.py``
-carries bf16, and a file whose manifest says ``bfloat16`` is read the same
-way (the reference's own bf16 files hold the same two bytes per element).
+``AdamWState`` as step, m, v). A bf16 leaf is stored as f32 values with
+``"bfloat16"`` in the manifest's ``dtypes``: every bf16 value is an f32, so
+the reference's ``astype(bfloat16)`` restores it exactly (at twice the bytes
+of the leaf). A bf16 leaf is read by the file's own dtype: f32 by value, a
+two-byte file (the reference's ``<V2``, or a uint16 file of the port's
+earlier format) by its bits.
 
 A checkpoint is valid iff its directory has no ``.tmp`` suffix (atomic
 rename on completion). Restore picks the latest valid step; an interrupted
@@ -37,7 +39,7 @@ PyTree = Any
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().to("cpu").contiguous()
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16).copy()
+        return t.float().numpy()
     return t.numpy().copy()
 
 
@@ -47,7 +49,7 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 def _from_numpy(arr: np.ndarray, dtype_name: str, like: torch.Tensor
                 ) -> torch.Tensor:
-    if dtype_name == "bfloat16":
+    if dtype_name == "bfloat16" and arr.dtype.itemsize == 2:
         bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
         t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
     else:

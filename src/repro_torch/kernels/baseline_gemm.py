@@ -11,7 +11,7 @@ on how many rows share its launch (batch invariance), and no workspace or
 second pass is needed. At decode only N / 64 CTAs run.
 
 Also home of the pad-run-slice contract shared by K1-K3
-(:func:`pad_to_blocks`).
+(:func:`pad_to_blocks`) and the operand dtype codes of their launchers.
 """
 from __future__ import annotations
 
@@ -26,8 +26,9 @@ Tensor = torch.Tensor
 
 counter = compat.launch_counter("baseline_gemm")
 
-# Geometry compiled into csrc/common.cuh: 64-column tiles, 32-deep k-tiles,
-# 16 rows per CTA for M <= 16 (decode) or 64 rows otherwise.
+# Geometry of the tile body K1 and K7 are compiled for (csrc/common.cuh):
+# 64-column tiles, 32-deep k-tiles, 16 rows per CTA for M <= 16 (decode) or
+# 64 rows otherwise. K2 and K3 have their own (fip_gemm.PAIR_GEOMS).
 KERNEL_BN = 64
 KERNEL_BK = 32
 KERNEL_BMS = (16, 64)
@@ -56,10 +57,10 @@ def pad_to_blocks(a: Tensor, b: Tensor, bm: int, bn: int, bk: int):
 
 
 def kernel_tm(bm: int, bn: int, bk: int) -> int:
-    """Rows per thread of the compiled kernel for a requested block."""
+    """Rows per thread of K1's (and K7's) compiled body for a block."""
     if bm not in KERNEL_BMS or bn != KERNEL_BN or bk != KERNEL_BK:
         raise ValueError(
-            f"the CUDA GEMM kernels are compiled for bm in {KERNEL_BMS}, "
+            f"K1 and K7 are compiled for bm in {KERNEL_BMS}, "
             f"bn={KERNEL_BN}, bk={KERNEL_BK}; got ({bm}, {bn}, {bk})")
     return bm // 16
 

@@ -7,12 +7,14 @@ The paper's memory subsystem never materialises an im2col matrix: the §5.1
 multi-digit address counters generate the conv->GEMM gather addresses while
 the array consumes the stream. On the card each (bm, 32) A tile is gathered
 from the padded NHWC input in global memory / L2 into shared memory, and the
-tile arithmetic after it is K1-K3's own (``csrc/gemm_kernels.cuh``) in
-their k order (one in-order sweep for baseline and FIP, K3's k-split plan,
-a function of K only, for FFIP). So a fused conv gives the same bits as
-K1-K3 over the materialised A, and the batch, folded into M (M = batch * OH
-* OW), does not change an image's result. Bound on the
-H100: CUDA-core operations (f32 without TF32, and every FIP/FFIP body).
+tile arithmetic after it is the tile body K1 runs (``csrc/gemm_kernels.cuh``:
+one in-order sweep for baseline and FIP; for FFIP the half-tile k-split plan
+of :func:`split_rows`, a function of K only). So the baseline conv gives the
+same bits as K1 over the materialised A, and the batch, folded into M (M =
+batch * OH * OW), does not change an image's result. (K2 and K3 run their
+own pipelined pair body; K7's FIP/FFIP sum the same products in
+another nesting.) Bound on the H100: CUDA-core operations (f32 without
+TF32; FIP/FFIP in issue slots).
 
 The plain version (:func:`fused_conv_plain`) is the reference's own
 contract: it gathers A with :func:`~repro_torch.core.im2col.conv_gemm_indices`
@@ -39,11 +41,10 @@ from repro_torch.core import fip, quant
 from repro_torch.core.im2col import (Size2, as_pair, conv_gemm_indices,
                                      conv_out_hw)
 from repro_torch.kernels import compat, ops
-from repro_torch.kernels.baseline_gemm import (acc_dtype_of,
+from repro_torch.kernels.baseline_gemm import (KERNEL_BK, acc_dtype_of,
                                                baseline_gemm_plain, int_mm,
                                                kernel_tm)
-from repro_torch.kernels.ffip_gemm import (WORKSPACE_BYTES, ffip_gemm_y_plain,
-                                           split_rows, unit_plan, workspace)
+from repro_torch.kernels.ffip_gemm import ffip_gemm_y_plain
 from repro_torch.kernels.fip_gemm import fip_gemm_plain
 
 Tensor = torch.Tensor
@@ -55,6 +56,48 @@ _DTYPE_CODES = {torch.float32: 0, torch.int8: 2}
 _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
 # Elements of the plain version's (M, pairs, N) temporaries per step.
 _PLAIN_TEMP_ELEMS = 16 << 20
+# K7's FFIP plan (FFIP_GROUPS, split_rows, unit_plan, workspace) serves its
+# half-tile FFIP body only, and goes with K7's move onto the pair body
+# (ROADMAP queue 2 §B). Groups of half-tile splits that one CTA of the FFIP
+# body sums itself at large M.
+FFIP_GROUPS = 24
+
+
+def split_rows(k: int) -> Tuple[int, int]:
+    """K7's FFIP k-split plan, from K only: ``(rows per split, splits per
+    group)``. Splits are half a k-tile (16 rows, whole pairs), so a small M
+    has K / 16 CTAs to fill the card with, its time being each CTA's serial
+    N sweep; the splits form at most FFIP_GROUPS groups, which one CTA each
+    sums at large M."""
+    rows = KERNEL_BK // 2
+    splits = -(-k // rows)
+    return rows, -(-splits // FFIP_GROUPS)
+
+
+def unit_plan(k: int, rows: int, group: int, ctas_per_unit: int,
+              slot_bytes: int) -> Tuple[int, int, int]:
+    """How a K7 FFIP launch runs the k-split plan: ``(splits per CTA, units,
+    slots per reduction group)``. Either each CTA takes one split (while the
+    card would otherwise hold fewer than SMS CTAs and the partials fit the
+    workspace) and the reduction sums each group's slots, then the group
+    totals; or each CTA sums one whole group itself and the reduction sums
+    the group totals. Both sum in the plan's order: the same bits. Only
+    this choice depends on M (through ``ctas_per_unit``, the CTAs one unit
+    along K takes, and ``slot_bytes``, one partial's size)."""
+    splits = -(-k // rows)
+    groups = -(-splits // group)
+    if (groups < splits and ctas_per_unit * groups < compat.SMS
+            and splits * slot_bytes <= compat.WORKSPACE_BYTES):
+        return 1, splits, group
+    return group, groups, 1
+
+
+def workspace(units: int, shape, dtype, device) -> Tensor:
+    """The (units, *shape) partials buffer, or an empty stand-in when one
+    unit writes the output directly."""
+    if units <= 1:
+        return torch.empty((0,), dtype=dtype, device=device)
+    return torch.empty((units, *shape), dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +233,8 @@ def _fused_cuda(x: Tensor, bg: Tensor, geom: ConvGeom, *, algo: str,
                                     m * ldo * 4)
     per_img = geom.m * ldo * 4
     chunk = n_b
-    if units > 1 and units * n_b * per_img > WORKSPACE_BYTES:
-        chunk = max(1, WORKSPACE_BYTES // (units * per_img))
+    if units > 1 and units * n_b * per_img > compat.WORKSPACE_BYTES:
+        chunk = max(1, compat.WORKSPACE_BYTES // (units * per_img))
     out = torch.empty((n_b, geom.oh, geom.ow, ldo), dtype=acc,
                       device=x.device)
     ws = workspace(units, (min(chunk, n_b) * geom.m, ldo), acc, x.device)
@@ -241,7 +284,7 @@ def fused_conv_raw(x: Tensor, bg: Tensor, *, kh: int, kw: int,
     elif algo == "fip":
         bg = compat.current_derived().get("even", bg, _evenize_k)
     if not (bm and bn and bk):
-        bm, bn, bk = ops.choose_blocks(n_b * geom.m, ng, bg.shape[1], algo)
+        bm, bn, bk = ops.mac_blocks(n_b * geom.m)
     if algo in ("fip", "ffip") and bk % 2:
         raise ValueError(f"bk={bk} must be even for the FIP pair algebra")
     if x.device.type == "cpu":

@@ -1,6 +1,6 @@
 // Shared pieces of the port's hand-written Hopper GEMM kernels (K1-K3, K7):
-// operand conversion into the accumulation type, the dense tile loads and the
-// deterministic split-K reduction pass.
+// operand conversion into the accumulation type, K1's and K7's tile geometry
+// and dense tile loads, and the deterministic split-K reduction pass.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -8,7 +8,7 @@
 
 namespace rt {
 
-// Output tile geometry shared by K1-K3 (see kernels/ops.py::choose_blocks):
+// Output tile geometry of K1 and K7 (see kernels/ops.py::mac_blocks):
 // 256 threads as a 16 x 16 grid, each thread owning TM rows x TN columns
 // strided by 16, so neighbouring threads touch neighbouring columns.
 constexpr int TX = 16;

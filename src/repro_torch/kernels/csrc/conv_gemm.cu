@@ -13,14 +13,15 @@
 // 230 x 230 x 3 f32 input alone is 635 KB), and L2 (50 MB) holds the input
 // of every layer here at batch 8.
 //
-// Everything after the gather is the dense kernels' code (baseline, FIP with
-// the pair algebra, FFIP rebuilding the weights from the y deltas by a carry
-// across the N sweep, reset per group), with the dense kernels' k order (one
-// in-order sweep for baseline and FIP; FFIP's k-split plan, a function of K
-// only). So a fused conv gives the same bits as K1-K3 run over the
-// materialised A, and an image's output does not depend on the batch it came
-// in. The output is written straight into NHWC: group g's
-// columns are g * N .. g * N + N - 1 of each pixel's Cout.
+// Everything after the gather is gemm_kernels.cuh's tile code (baseline, FIP
+// with the pair algebra, FFIP rebuilding the weights from the y deltas by a
+// carry across the N sweep, reset per group), in its k order (one in-order
+// sweep for baseline and FIP; FFIP's k-split plan, a function of K only).
+// So the baseline conv gives the same bits as K1 run over the materialised
+// A, and an image's output does not depend on the batch it came in. (K2 and
+// K3 run their own pipelined body, fip_body.cuh.) The output is written
+// straight into NHWC: group g's columns are g * N .. g * N + N - 1 of each
+// pixel's Cout.
 //
 // Bound on this card: CUDA-core operations (f32 without TF32, and every
 // FIP/FFIP body: the pre-add has no tensor-core mapping); int8 baseline's
@@ -55,8 +56,9 @@ static int launch(int algo, const void* x, const void* b, void* ws, void* out,
 // x: (batch, h, w, cin) padded input; b: (groups, K, N) weights (baseline,
 // FIP) or y deltas (FFIP, in the accumulation type); out: (batch * oh * ow,
 // groups * N). algo: 0 baseline, 1 FIP, 2 FFIP. dtype: 0 f32, 2 int8.
-// rows / spu / red_gsz (FFIP only): the k-split plan and launch grouping, as
-// for K3; ws holds the partials when there is more than one unit.
+// rows / spu / red_gsz (FFIP only): the k-split plan and launch grouping
+// (conv_gemm.py::split_rows, unit_plan); ws holds the partials when there is
+// more than one unit.
 extern "C" int conv_gemm_launch(const void* x, const void* b, void* ws,
                                 void* out, int batch, int h, int w, int cin,
                                 int groups, int kh, int kw, int sh, int sw,

@@ -1,18 +1,18 @@
-// The tile bodies of the port's GEMM kernels, shared by the dense GEMMs
-// K1-K3 (baseline_gemm.cu, fip_gemm.cu, ffip_gemm.cu) and the fused conv K7
-// (conv_gemm.cu). A kernel is instantiated with the loader of its A operand:
-// DenseA reads a row-major (M, K) matrix, ConvA gathers the implicit im2col
-// matrix of a conv from the padded NHWC input (Algorithm 1). Everything after
-// the A tile is in shared memory is the same code, so a fused conv sums
-// exactly what the dense kernel sums over the materialised A, in the same
-// order: the two give the same bits.
+// The tile bodies of the dense baseline GEMM K1 (baseline_gemm.cu) and of
+// the fused conv K7 (conv_gemm.cu: baseline, FIP and FFIP). K2 and K3 have
+// their own pipelined pair body (fip_body.cuh). A kernel is instantiated with
+// the loader of its A operand: DenseA reads a row-major (M, K) matrix, ConvA
+// gathers the implicit im2col matrix of a conv from the padded NHWC input
+// (Algorithm 1). Everything after the A tile is in shared memory is the same
+// code, so K7's baseline sums exactly what K1 sums over the materialised A,
+// in the same order: the two give the same bits.
 //
 // A row's sums never depend on how many rows share its launch (batch
 // invariance):
-//   - The baseline and FIP bodies (K1, K2, K7) sum all of K in one in-order
-//     sweep of k-tiles, as the reference's Pallas kernels do.
-//   - The FFIP body (K3, K7) splits K by a plan that depends on K only
-//     (kernels/ffip_gemm.py::split_rows): splits of `rows` rows (16, half a
+//   - The baseline and FIP bodies sum all of K in one in-order sweep of
+//     k-tiles, as the reference's Pallas kernels do.
+//   - The FFIP body splits K by a plan that depends on K only
+//     (kernels/conv_gemm.py::split_rows): splits of `rows` rows (16, half a
 //     k-tile), each summing its half tiles in k order; consecutive splits
 //     form groups whose total sums the splits' partials in order, and the
 //     result sums the group totals in order. A CTA ("unit") takes one split
@@ -120,9 +120,9 @@ struct ConvA {
 };
 
 // ---------------------------------------------------------------------------
-// K1 / K2 bodies: one CTA per (64-column, BM-row) output tile and group; all
-// its k-tiles run in order through shared memory, each thread keeping a
-// TM x 4 accumulator in registers.
+// Baseline and FIP bodies: one CTA per (64-column, BM-row) output tile and
+// group; all its k-tiles run in order through shared memory, each thread
+// keeping a TM x 4 accumulator in registers.
 // ---------------------------------------------------------------------------
 
 template <typename In, typename Acc, int TM, bool FIP,
@@ -250,7 +250,7 @@ fip_kernel(typename AL<In, TY * TM>::Params ap, const In* __restrict__ B,
 }
 
 // ---------------------------------------------------------------------------
-// K3 body (FFIP from the Eq. 9 deltas y). One CTA owns the whole N sweep of
+// FFIP body (from the Eq. 9 deltas y). One CTA owns the whole N sweep of
 // an (m-block, unit) stripe: it walks the 64-column tiles left to right and
 // keeps the prefix carry of each of its k rows in shared memory (a CUDA grid
 // runs in no order, so the carry cannot cross CTAs as Pallas carries it

@@ -5,28 +5,110 @@ CUDA C++ kernel ``csrc/fip_gemm.cu``.
 The FIP pre-add ``(a_{i,2k-1} + b_{2k,j})(a_{i,2k} + b_{2k-1,j})`` couples i
 and j, so it has no tensor-core mapping on Hopper either (the reason the
 Pallas kernel runs on the VPU): the kernel runs on the CUDA cores, walks the
-pairs in registers and never builds the (bm, bk/2, bn) cross tensor. It is
-bound by those CUDA-core operations at prefill and by the weight bytes at
-decode. Per k-tile it keeps ``fip_tile``'s order, ``part = cross - alpha
-(- beta)`` then ``out += part``, over all of K in one in-order sweep, as K1
-(batch-invariant).
+pairs in registers and never builds the (bm, bk/2, bn) cross tensor. Its
+body (``csrc/fip_body.cuh``, shared with K3) pipelines the tiles through a
+``cp.async`` ring and feeds a TM x TN register tile with 128-bit fragment
+loads. It is bound by the CUDA cores' issue slots at prefill (2 FADD + 1
+FFMA per pair and output) and by the weight bytes at decode. Per k-tile it
+keeps ``fip_tile``'s order, ``part = cross - alpha (- beta)`` then ``out +=
+part``.
+
+Also home of what K2 and K3 share: the tile geometries the pair body is
+compiled for (:data:`PAIR_GEOMS`, chosen by M in :func:`pair_blocks`), the
+k-split plan (:func:`split_plan`, a function of K
+only, so a row's sums do not depend on M) and the launch plan
+(:func:`launch_plan`: where the output grid would leave the card idle, one
+split a CTA into a workspace, added in split order by a second pass).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from repro_torch.core.fip import _sum
 from repro_torch.kernels import compat
 from repro_torch.kernels.baseline_gemm import (_DTYPE_CODES, acc_dtype_of,
-                                               kernel_tm, pad_to_blocks)
+                                               pad_to_blocks)
 
 Tensor = torch.Tensor
 
 counter = compat.launch_counter("fip_gemm")
 
-_SIG = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+# (bm, bn) -> the geometry code of csrc/fip_body.cuh: 16 x 32 tiles for
+# decode (M <= 16), 64 x 64 (M <= 64) and 128 x 128; all with 32-row k-tiles
+# (16 whole pairs).
+PAIR_GEOMS = {(16, 32): 0, (64, 64): 1, (128, 128): 2}
+PAIR_BK = 32
+# CTAs a geometry's grid needs before one split a CTA stops paying: the
+# decode tiles keep several CTAs on an SM, the others one or two.
+_FILL = {0: 2 * compat.SMS, 1: compat.SMS * 9 // 10,
+         2: compat.SMS * 9 // 10}
+# Rows of one split of K: 16 k-tiles.
+SPLIT_ROWS = 512
+
+
+def pair_blocks(m: int, n: int) -> Tuple[int, int, int]:
+    """K2's and K3's (bm, bn, bk) for an (m, n) output: the decode tiles for
+    M <= 16 (M = slots), 64 x 64 up to M = 64, else 128 x 128 (the fewest
+    instructions a pair; where their grid would leave the card idle,
+    :func:`launch_plan` splits K instead of narrowing the tiles)."""
+    del n
+    if m <= 16:
+        return 16, 32, PAIR_BK
+    if m <= 64:
+        return 64, 64, PAIR_BK
+    return 128, 128, PAIR_BK
+
+
+def pair_geom(bm: int, bn: int, bk: int) -> int:
+    if (bm, bn) not in PAIR_GEOMS or bk != PAIR_BK:
+        raise ValueError(
+            f"the FIP/FFIP kernels are compiled for (bm, bn) in "
+            f"{sorted(PAIR_GEOMS)}, bk={PAIR_BK}; got ({bm}, {bn}, {bk})")
+    return PAIR_GEOMS[(bm, bn)]
+
+
+def split_plan(k: int) -> Tuple[int, int]:
+    """The k-split plan of K2 and K3, from K only: ``(rows per split,
+    splits)``. A row's result is each split's in-order sum of tile parts,
+    the splits added in order, whatever M and the launch are."""
+    return SPLIT_ROWS, -(-k // SPLIT_ROWS)
+
+
+def launch_plan(m: int, n: int, k: int, bm: int, bn: int) -> bool:
+    """Whether a launch runs one split a CTA (into a (splits, M, N)
+    workspace, then the in-order reduction): only where there is more than
+    one split, the (m, n) grid would not fill the card and the partials fit
+    the workspace bound. Otherwise each CTA sums all splits itself."""
+    _, splits = split_plan(k)
+    grid = -(-m // bm) * -(-n // bn)
+    return (splits > 1 and grid < _FILL[PAIR_GEOMS[(bm, bn)]]
+            and splits * m * n * 4 <= compat.WORKSPACE_BYTES)
+
+
+def launch_pair(lib_fn, a: Tensor, b: Tensor, extra, *, bm: int, bn: int,
+                bk: int, fold_beta: bool, what: str) -> Tensor:
+    """Launch K2 (``extra`` empty) or K3 (``extra`` the carry table) on
+    contiguous CUDA operands; returns the (M, N) accumulator."""
+    m, k = a.shape
+    n = b.shape[1]
+    geom = pair_geom(bm, bn, bk)
+    rows, splits = split_plan(k)
+    split_cta = launch_plan(m, n, k, bm, bn)
+    acc = acc_dtype_of(a.dtype)
+    out = torch.empty((m, n), dtype=acc, device=a.device)
+    ws = (torch.empty((splits, m, n), dtype=acc, device=a.device)
+          if split_cta else out)
+    err = lib_fn(a.data_ptr(), b.data_ptr(), *[t.data_ptr() for t in extra],
+                 ws.data_ptr(), out.data_ptr(), m, n, k, geom, rows,
+                 int(split_cta), _DTYPE_CODES[a.dtype], int(fold_beta),
+                 compat.stream_ptr(a))
+    compat.check(err, what)
+    return out
 
 
 def fip_tile(a: Tensor, b: Tensor, *, fold_beta: bool,
@@ -78,19 +160,13 @@ def fip_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
     the kernel (or raise)."""
     if a.device.type == "cpu":
         return fip_gemm_plain(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold_beta)
-    m, k = a.shape
-    k2, n = b.shape
+    k, k2 = a.shape[1], b.shape[0]
     if k != k2 or a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
         raise ValueError(f"fip_gemm: bad operands {a.shape} {a.dtype} x "
                          f"{b.shape} {b.dtype}")
     compat.require_cuda(a, b)
-    tm = kernel_tm(bm, bn, bk)
-    acc = acc_dtype_of(a.dtype)
-    out = torch.empty((m, n), dtype=acc, device=a.device)
     lib = compat.load("fip_gemm", {"fip_gemm_launch": _SIG})
-    err = lib.fip_gemm_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        _DTYPE_CODES[a.dtype], tm, int(fold_beta), compat.stream_ptr(a))
+    out = launch_pair(lib.fip_gemm_launch, a, b, (), bm=bm, bn=bn, bk=bk,
+                      fold_beta=fold_beta, what="fip_gemm")
     counter.bump()
-    compat.check(err, "fip_gemm")
     return out

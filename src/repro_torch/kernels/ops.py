@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import compat
 from repro_torch.kernels.baseline_gemm import baseline_gemm
 from repro_torch.kernels.ffip_gemm import ffip_gemm
-from repro_torch.kernels.fip_gemm import fip_gemm
+from repro_torch.kernels.fip_gemm import fip_gemm, pair_blocks
 
 Tensor = torch.Tensor
 
@@ -27,20 +27,27 @@ ALGOS = ("baseline", "fip", "ffip")
 _CONTIG_TAG = "contiguous"
 
 
-def choose_blocks(m: int, n: int, k: int, algo: str) -> Tuple[int, int, int]:
-    """Default (bm, bn, bk) for the H100 kernels.
-
-    The reference sizes its blocks from a 6 MiB v5e VMEM budget; on the card
-    the limits are the 227 KB of shared memory and 255 registers a thread.
-    The kernels hold a (bm, 32) A tile and a (32, 64) B tile in shared
-    memory in the accumulation type (16 KB at bm = 64, so several CTAs fit
-    an SM) and a bm/16 x 4 accumulator per thread (plus as many per-tile
-    partials for FIP/FFIP) in registers. bk = 32 keeps whole (odd, even)
-    pairs in a tile. bm = 16 when M <= 16 (decode: M = slots) wastes fewer
-    rows than 64; split-K then fills the card. All algos share the geometry.
-    """
-    del n, k, algo
+def mac_blocks(m: int) -> Tuple[int, int, int]:
+    """(bm, bn, bk) of the tile body K1 and K7 are compiled for
+    (``csrc/gemm_kernels.cuh``). The reference sizes its blocks from a 6 MiB
+    v5e VMEM budget; on the card the limits are the 227 KB of shared memory
+    and 255 registers a thread. The body holds a (bm, 32) A tile and a
+    (32, 64) B tile in shared memory in the accumulation type (16 KB at
+    bm = 64, so several CTAs fit an SM) and a bm/16 x 4 accumulator per
+    thread in registers. bk = 32 keeps whole (odd, even) pairs in a tile.
+    bm = 16 when M <= 16 (decode: M = slots) wastes fewer rows than 64."""
     return (16 if m <= 16 else 64), 64, 32
+
+
+def choose_blocks(m: int, n: int, k: int, algo: str) -> Tuple[int, int, int]:
+    """Default (bm, bn, bk) for the H100 kernels: K1's :func:`mac_blocks`
+    for the baseline; for FIP and FFIP the pipelined pair body's tiles
+    (``fip_gemm.pair_blocks``): 16 x 32 at decode, 64 x 64 up to M = 64,
+    else 128 x 128."""
+    del k
+    if algo == "baseline":
+        return mac_blocks(m)
+    return pair_blocks(m, n)
 
 
 def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,

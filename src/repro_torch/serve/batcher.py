@@ -260,9 +260,9 @@ class BatchServer:
     def _params_for(self, params):
         """The run-ready tree, built once per distinct params object: int8
         ``q`` entries attached when quantized, and for the FFIP kernels the
-        y-deltas of every weight the forward will hand them, computed now
-        into the server's memo (it keys on storage, so the per-layer views
-        the forward slices later hit it)."""
+        y-deltas (and their carry tables) of every weight the forward will
+        hand them, computed now into the server's memo (it keys on storage,
+        so the per-layer views the forward slices later hit it)."""
         if self._gemm_cfg is None:
             return params
         if self._prepared_src is not params:
@@ -279,9 +279,9 @@ class BatchServer:
     def _warm_y(self, p) -> None:
         for w in _ffip_weights(p, self.quantized):
             for view in (w if w.dim() == 3 else [w]):
-                ffip_gemm.y_for(view)
+                ffip_gemm.prepare(view)
         if self.model.cfg.tie_embeddings:
-            ffip_gemm.y_for(p["embed"]["table"].T)
+            ffip_gemm.prepare(p["embed"]["table"].T)
 
     # -- prefill -----------------------------------------------------------
     def _bucket_len(self, n: int) -> int:

@@ -5,8 +5,8 @@ imports no JAX (the machine with the card has none).
 Run there:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: int8 paths are exact (int32 ``assert_equal``). Float GEMMs sum
-in another order than the plain tile loop (split-K partials, FMA
-contraction), so they use the reference's f32 GEMM bar from
+in another order than the plain tile loop (k splits, FMA contraction, K3's
+carry-table rebuild), so they use the reference's f32 GEMM bar from
 tests/test_kernels.py (rtol 1e-4, atol 1e-3 * max(1, K // 64)); flash uses
 the reference flash bar (rtol = atol = 2e-3) on f32 o/lse, and the bf16
 output rounding (2**-8 relative) on bf16 o; the paged kernel K5 the same
@@ -18,7 +18,8 @@ kernel's bar in tests/test_selective_scan.py) and y within one bf16 ulp
 flash backward K8 holds its f32 dq/dk/dv within rtol 1e-4, atol 1e-4 *
 max|plain| (the same products summed in another block order) and, once
 cast, one bf16 ulp beyond that atol; the scan backward K9 its five gradients within rtol = atol =
-1e-4. Batch invariance is bit for bit
+1e-4. K3's carry-table kernel is bit for bit (the plain version's adds in
+its order). Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
 """
 import numpy as np
@@ -28,7 +29,9 @@ import torch
 from repro_torch.core.im2col import conv2d_via_gemm
 from repro_torch.kernels import compat, conv_gemm, ops
 from repro_torch.kernels.baseline_gemm import baseline_gemm, baseline_gemm_plain
-from repro_torch.kernels.ffip_gemm import ffip_gemm_y, ffip_gemm_y_plain, y_for
+from repro_torch.kernels.ffip_gemm import (carry_table, carry_table_plain,
+                                           ffip_gemm_y, ffip_gemm_y_plain,
+                                           y_for)
 from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
 from repro_torch.kernels.flash_attention import _flash_fwd, _flash_fwd_plain
 from repro_torch.kernels.flash_paged import (flash_attention_paged,
@@ -82,20 +85,62 @@ SHAPES = [(4, 2304, 2304), (4, 5760, 2304), (100, 60, 36), (1, 130, 257),
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_gemm_kernels_match_plain(dev, m, k, n, dtype):
     a, b = _operands(m, k, n, dtype, dev)
-    blocks = ops.choose_blocks(m, n, k, "ffip")
-    bm, bn, bk = blocks
+    bm, bn, bk = ops.choose_blocks(m, n, k, "baseline")
     kc = _k_chunk(m, n)
     _compare(baseline_gemm(a, b, bm=bm, bn=bn, bk=bk),
              baseline_gemm_plain(a, b, bm=bm, bn=bn, bk=bk), dtype, k)
+    bm, bn, bk = ops.choose_blocks(m, n, k, "ffip")
+    y = y_for(b)
     for fold in (False, True):
         _compare(fip_gemm(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold),
                  fip_gemm_plain(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold,
                                 k_chunk=kc), dtype, k)
-        y = y_for(b)
         _compare(ffip_gemm_y(a, y, bm=bm, bn=bn, bk=bk, fold_beta=fold),
                  ffip_gemm_y_plain(a, y, bm=bm, bn=bn, bk=bk, fold_beta=fold,
                                    k_chunk=kc), dtype, k)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("blocks", [(16, 32, 32), (64, 64, 32),
+                                    (128, 128, 32)])
+@pytest.mark.parametrize("m,k,n", [(130, 1030, 1001), (130, 1024, 1000),
+                                   (9, 520, 257), (70, 96, 31)])
+def test_pair_kernels_every_geometry_ragged(dev, m, k, n, blocks, dtype):
+    """K2 and K3 at each tile geometry of the pair body, whatever M is, on
+    ragged shapes: N not a multiple of the tile, of 32 or of 16 bytes (the
+    plain-load path), K over one split (1030: three splits, the last
+    ragged) and under one, M over and under a tile."""
+    a, b = _operands(m, k, n, dtype, dev, seed=3)
+    bm, bn, bk = blocks
+    y = y_for(b)
+    kc = _k_chunk(m, n)
+    for fold in (False, True):
+        _compare(fip_gemm(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold),
+                 fip_gemm_plain(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold,
+                                k_chunk=kc), dtype, k)
+        _compare(ffip_gemm_y(a, y, bm=bm, bn=bn, bk=bk, fold_beta=fold),
+                 ffip_gemm_y_plain(a, y, bm=bm, bn=bn, bk=bk, fold_beta=fold,
+                                   k_chunk=kc), dtype, k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("k,n", [(16, 288), (9, 257), (6, 31), (130, 32),
+                                 (2304, 5760)])
+def test_carry_table_kernel_equals_plain(dev, k, n, dtype):
+    """K3's carry table derived on the card equals the plain derivation bit
+    for bit (the same adds in the same order; f32 and int32), ragged N and
+    N under one group included, in one counted launch."""
+    _, b = _operands(1, k, n, dtype, dev, seed=k + n)
+    y = y_for(b)
+    before = compat.launch_counts()["ffip_carry_table"]
+    got = carry_table(y)
+    assert compat.launch_counts()["ffip_carry_table"] == before + 1
+    want = carry_table_plain(y)
+    torch.cuda.synchronize()
+    assert got.shape == (k, -(-n // 32)) and got.dtype == y.dtype
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,8 +244,7 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
     geom = conv_gemm.ConvGeom(h=h + 2 * pad, w=w + 2 * pad, cin=cin, kh=kh,
                               kw=kw, sh=stride, sw=stride, groups=groups,
                               ng=cout // groups)
-    blocks = ops.choose_blocks(b * geom.m, geom.ng, geom.k, "ffip")
-    bm, bn, bk = blocks
+    bm, bn, bk = ops.mac_blocks(b * geom.m)
     for algo in ("baseline", "fip", "ffip"):
         fold = dtype == torch.int8 and algo != "baseline"
         bg = {"baseline": stack, "fip": conv_gemm._evenize_k(stack),
@@ -216,34 +260,76 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
 
 @pytest.mark.parametrize("algo", ["baseline", "fip", "ffip"])
 def test_conv_kernel_equals_gemm_on_materialised_a(dev, algo):
-    """K7 sums what K1-K3 sum over the materialised A, in the same order."""
+    """K7 sums what K1 and K2 sum over the materialised A, in the same order,
+    at K 162. FIP's equality rests on K 162 being under one 512-row split
+    of K2's plan (past it K2 adds split totals, K7 sums K in one sweep:
+    test_conv_fip_equals_gemm_past_one_split). K7's FFIP body keeps 16-row
+    half-tile parts and the in-kernel carry sweep, K3 32-row tile parts
+    and the carry table: K7 and K3 sum the same products in different
+    nestings at every K, so f32 FFIP is held to the GEMM bar (int8, exact
+    for any nesting, bit for bit). Bit equality of K7 with K2/K3 comes back
+    with K7's redesign on the pair body."""
     x, kern = _conv_operands(2, 14, 14, 36, 72, 3, 3, 2, torch.float32, dev)
     got = conv_gemm.conv_gemm_fused(x, kern, stride=1, pad=1, groups=2,
                                     algo=algo)
     ref = conv2d_via_gemm(x, kern, stride=1, pad=1, groups=2,
                           gemm_fn=lambda a, b: ops.matmul(a, b, algo=algo))
     torch.cuda.synchronize()
+    if algo == "ffip":
+        _compare(got, ref, torch.float32, 3 * 3 * 18)
+        x, kern = _conv_operands(2, 14, 14, 36, 72, 3, 3, 2, torch.int8,
+                                 dev)
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+        got = conv_gemm.fused_conv_raw(xp, conv_gemm._kernel_to_stack(
+            kern, 2), kh=3, kw=3, groups=2, algo=algo)
+        ref = conv2d_via_gemm(x, kern, stride=1, pad=1, groups=2,
+                              gemm_fn=lambda a, b: ops.matmul(a, b,
+                                                              algo=algo))
+        torch.cuda.synchronize()
     assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_conv_fip_equals_gemm_past_one_split(dev, dtype):
+    """K7's FIP against K2 over the materialised A at K 648, over one
+    512-row split of K2's plan: the same products, K2 adding its two split
+    totals, K7 one sweep over K; f32 at the GEMM bar, int8 bit for bit."""
+    x, kern = _conv_operands(2, 14, 14, 72, 72, 3, 3, 1, dtype, dev)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    got = conv_gemm.fused_conv_raw(xp, conv_gemm._kernel_to_stack(kern, 1),
+                                   kh=3, kw=3, groups=1, algo="fip")
+    ref = conv2d_via_gemm(x, kern, stride=1, pad=1, groups=1,
+                          gemm_fn=lambda a, b: ops.matmul(a, b, algo="fip"))
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    _compare(got, ref, dtype, 3 * 3 * 72)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,n", [(2304, 5760), (5760, 2304)])
-def test_gemm_batch_invariant(dev, k, n, dtype):
-    """Rows 0-3 of an M = 512 call equal the same rows at M = 4, 64, 256."""
-    a, b = _operands(512, k, n, dtype, dev, seed=7)
+@pytest.mark.parametrize("m_full,k,n,ms", [
+    (512, 2304, 5760, (4, 64, 256)), (512, 5760, 2304, (4, 64, 256)),
+    (128, 4096, 16384, (1, 4, 16))])
+def test_gemm_batch_invariant(dev, m_full, k, n, ms, dtype):
+    """Rows 0-3 of a full call equal the same rows at smaller M, across the
+    tile geometries and launches each M takes (falcon-mamba-7b's in_proj at
+    M 128 runs the wide tiles with no partials; M 1-16 the decode tiles,
+    one split a CTA)."""
+    a, b = _operands(m_full, k, n, dtype, dev, seed=7)
     y = y_for(b)
 
-    def blocks(m):
+    def blocks(m, algo):
         return dict(zip(("bm", "bn", "bk"), ops.choose_blocks(m, n, k,
-                                                              "ffip")))
-    kernels = {"baseline": lambda a_: baseline_gemm(a_, b, **blocks(len(a_))),
-               "fip": lambda a_: fip_gemm(a_, b, **blocks(len(a_))),
-               "ffip": lambda a_: ffip_gemm_y(a_, y, **blocks(len(a_)))}
+                                                              algo)))
+    kernels = {"baseline": lambda a_: baseline_gemm(
+                   a_, b, **blocks(len(a_), "baseline")),
+               "fip": lambda a_: fip_gemm(a_, b, **blocks(len(a_), "fip")),
+               "ffip": lambda a_: ffip_gemm_y(a_, y,
+                                              **blocks(len(a_), "ffip"))}
     for name, fn in kernels.items():
         full = fn(a)[:4]
-        for m in (4, 64, 256):
+        for m in ms:
             part = fn(a[:m].contiguous())[:4]
-            assert torch.equal(part, full), (name, m)
+            assert torch.equal(part[:min(m, 4)], full[:min(m, 4)]), (name, m)
 
 
 def test_conv_batch_invariant(dev):

@@ -19,6 +19,7 @@ from repro.kernels.ffip_gemm import ffip_gemm as j_ffip_gemm
 from repro.kernels.fip_gemm import fip_gemm as j_fip_gemm
 from repro.kernels.flash_attention import _flash_fwd as j_flash_fwd
 from repro_torch import bridge
+from repro_torch.core import fip as fip_core
 from repro_torch.kernels import ops
 from repro_torch.kernels.ffip_gemm import ffip_gemm
 from repro_torch.kernels.fip_gemm import fip_gemm
@@ -103,41 +104,124 @@ def test_fold_beta_matches_pallas(algo, dtype):
     _check(got, want, dtype, k)
 
 
-def _sum_tree(k, rows, spu, units, red):
-    """The nesting a K3 launch sums a row's k range in: a tuple of groups
-    (summed in order), each the k ranges of its splits (summed in order).
-    A CTA sums ``spu`` splits itself; the reduction sums ``red`` slots a
-    group, then the group totals."""
+def _sum_tree(k, rows, split_cta):
+    """The nesting a K2/K3 launch sums a row's k range in: a tuple of splits
+    (added in order), each the k-tiles it sums in order. A CTA takes one
+    split (``split_cta``; the reduction adds the slots in split order) or
+    every split (its running total adds each split as it closes)."""
     splits = -(-k // rows)
-    per_unit = [[(s * rows, min((s + 1) * rows, k))
-                 for s in range(u * spu, min((u + 1) * spu, splits))]
-                for u in range(units)]
-    return tuple(tuple(r for unit in per_unit[g:g + red] for r in unit)
-                 for g in range(0, units, red))
+
+    def tiles(s):
+        return tuple((t, min(t + 32, k))
+                     for t in range(s * rows, min((s + 1) * rows, k), 32))
+    units = ([[s] for s in range(splits)] if split_cta
+             else [list(range(splits))])
+    return tuple(tiles(s) for unit in units for s in unit)
+
+
+SERVED_KN = [(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753),
+             (4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
+             (4096, 65024)]
 
 
 def test_ffip_split_rows_fill_the_card_at_decode():
-    """K3's k-split plan depends on K only: at each (K, N) of the served
-    path every M sums a row's k range in the same nesting, whichever launch
-    grouping ``unit_plan`` picks for that M (one split a CTA, or one group
-    a CTA; both are taken); and decode still puts at least one CTA on each
-    of the 132 SMs at (4, 2304, 5760). (K1 and K2 never split K.)"""
-    from repro_torch.kernels.ffip_gemm import SMS, split_rows, unit_plan
-    for k, n in [(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753)]:
-        trees, modes = set(), set()
-        for m in (1, 4, 16, 64, 256, 512):
-            bm = ops.choose_blocks(m, n, k, "ffip")[0]
-            rows, group = split_rows(k)
-            spu, units, red = unit_plan(k, rows, group, -(-m // bm),
-                                        m * n * 4)
-            trees.add(_sum_tree(k, rows, spu, units, red))
-            modes.add(spu)
-        assert len(trees) == 1, (k, n, trees)
-        assert len(modes) == 2, (k, n)
-    rows, group = split_rows(2304)
-    spu, units, red = unit_plan(2304, rows, group, 1, 4 * 5760 * 4)
-    assert (rows, spu, units, red) == (16, 1, 144, group)
-    assert units >= SMS
+    """K2's and K3's k-split plan depends on K only: at each (K, N) of the
+    served paths every M sums a row's k range in the same nesting, whichever
+    tile geometry and launch (one split a CTA, or every split in one CTA)
+    it takes; both launches and all three geometries are taken. Decode (M 4)
+    puts at least one CTA on each of the 132 SMs at every served (K, N), and
+    the prefill shapes whose grid fills the card write no partials."""
+    from repro_torch.kernels.compat import SMS
+    from repro_torch.kernels.fip_gemm import launch_plan, split_plan
+    modes, geoms = set(), set()
+    for k, n in SERVED_KN:
+        trees = set()
+        for m in (1, 4, 16, 17, 64, 128, 256, 512):
+            bm, bn, bk = ops.choose_blocks(m, n, k, "ffip")
+            assert bk == 32
+            rows, _ = split_plan(k)
+            split_cta = launch_plan(m, n, k, bm, bn)
+            trees.add(_sum_tree(k, rows, split_cta))
+            modes.add(split_cta)
+            geoms.add((bm, bn))
+        assert len(trees) == 1, (k, n)
+        bm, bn, _ = ops.choose_blocks(4, n, k, "ffip")
+        ctas = -(-4 // bm) * -(-n // bn)
+        if launch_plan(4, n, k, bm, bn):
+            ctas *= split_plan(k)[1]
+        assert ctas >= SMS, (k, n, ctas)
+    assert modes == {False, True}
+    assert geoms == {(16, 32), (64, 64), (128, 128)}
+    for m, k, n in [(128, 4096, 16384), (512, 2304, 5760)]:
+        bm, bn, _ = ops.choose_blocks(m, n, k, "ffip")
+        assert (bm, bn) == (128, 128)
+        assert not launch_plan(m, n, k, bm, bn)
+    assert split_plan(2304) == (512, 5)
+    assert ops.choose_blocks(4, 5760, 2304, "fip") == (16, 32, 32)
+    assert ops.choose_blocks(512, 5760, 2304, "baseline") == (64, 64, 32)
+
+
+@pytest.mark.parametrize("k,n", [(16, 288), (9, 257), (10, 257), (6, 31)])
+@pytest.mark.parametrize("dtype", ["int8", "float32"])
+def test_carry_table_matches_reference_prefix(k, n, dtype):
+    """K3's carry table (the prefix of each row before every 32-column
+    group, derived offline from y) against the reference's y_to_b(make_y(b))
+    at every 32-column start: int32 exactly, f32 within the GEMM bar. N 288,
+    257 (ragged) and 31 (under one group); K 9 odd and 10 (the same rows
+    evenized with a zero row). The plain rebuild (carry plus the group's own
+    prefix) gives B back the same way."""
+    from repro.core import fip as jfip
+    from repro_torch.kernels.ffip_gemm import carry_table, rebuild_b
+    _, b = _inputs(1, 9 if k == 10 else k, n, dtype, seed=n)
+    if k == 10:
+        b = np.concatenate([b, np.zeros((1, n), b.dtype)])
+    jb, tb = _pair(b, dtype)
+    want_b = np.asarray(jfip.y_to_b(jfip.make_y(jb)))
+    want = np.concatenate([np.zeros((k, 1), want_b.dtype),
+                           want_b[:, 31::32]], axis=1)[:, :-(-n // 32)]
+    y = fip_core.make_y(tb)
+    got = carry_table(y)
+    assert got.shape == (k, -(-n // 32)) and got.dtype == y.dtype
+    if dtype == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(rebuild_b(y).numpy(), want_b)
+    else:
+        _check(got, want, dtype, k)
+        _check(rebuild_b(y), want_b, dtype, k)
+
+
+def test_carry_table_cpu_takes_the_plain_version():
+    """On a CPU tensor the carry-table wrapper is its plain version and
+    launches nothing."""
+    from repro_torch.kernels import compat
+    from repro_torch.kernels.ffip_gemm import carry_table, carry_table_plain
+    y = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (5, 70)).astype(np.float32))
+    before = compat.launch_counts()["ffip_carry_table"]
+    assert torch.equal(carry_table(y), carry_table_plain(y))
+    assert compat.launch_counts()["ffip_carry_table"] == before
+
+
+@pytest.mark.parametrize("algo", ["fip", "ffip"])
+@pytest.mark.parametrize("m,k,n,blocks", [
+    (4, 96, 70, None),            # decode tiles, 16 x 32
+    (72, 130, 80, None),          # 64 x 64
+    (70, 64, 136, (128, 128, 32)),  # the wide tiles, ragged M and N
+])
+def test_pair_geometry_matches_pallas(algo, m, k, n, blocks):
+    """ops.matmul for FIP/FFIP at the pair body's tile geometries
+    (choose_blocks' decode and mid tiles, and the wide tiles) against the
+    reference's ops.matmul in interpret mode: int8 exactly, f32 at the GEMM
+    bar."""
+    bm, bn, bk = blocks or ops.choose_blocks(m, n, k, algo)
+    assert (bm, bn, bk) in {(16, 32, 32), (64, 64, 32), (128, 128, 32)}
+    for dtype in ("int8", "float32"):
+        a, b = _inputs(m, k, n, dtype, seed=m + n)
+        ja, ta = _pair(a, dtype)
+        jb, tb = _pair(b, dtype)
+        got = ops.matmul(ta, tb, algo=algo, bm=bm, bn=bn, bk=bk)
+        want = jops.matmul(ja, jb, algo=algo, interpret=True)
+        _check(got, want, dtype, k)
 
 
 def test_matmul_batch_dims():

@@ -300,8 +300,9 @@ def test_reference_checkpoint_restores_in_the_port_and_back(tmp_path):
 
 
 def test_ckpt_bf16_leaves_as_bits(tmp_path):
-    """bf16 leaves cross as their uint16 bits, "bfloat16" in the manifest;
-    the port reads the reference's bf16 files (the same two bytes)."""
+    """The port reads a two-byte bf16 file by its bits: the reference's own
+    bf16 files and the port's earlier uint16 files ("bfloat16" in the
+    manifest); and its own bf16 checkpoints round-trip bit for bit."""
     rng = np.random.default_rng(9)
     x = rng.standard_normal((3, 5)).astype(np.float32)
     jtree = {"w": jnp.asarray(x).astype(jnp.bfloat16)}
@@ -319,6 +320,38 @@ def test_ckpt_bf16_leaves_as_bits(tmp_path):
     meta = json.loads((tmp_path / "port" / "step_00000002" /
                        "manifest.json").read_text())
     assert meta["dtypes"] == ["bfloat16"]
+    # a file of the earlier format: the leaf's uint16 bits
+    old = tmp_path / "port" / "step_00000002" / "arr_00000.npy"
+    np.save(old, want["w"].view(torch.int16).numpy().view(np.uint16))
+    back, _ = mgr.restore(tmpl)
+    assert torch.equal(back["w"].view(torch.int16),
+                       want["w"].view(torch.int16))
+
+
+def test_ckpt_bf16_port_to_reference_bit_for_bit(tmp_path):
+    """A bf16 tree saved by the port restores bit for bit in the reference:
+    the port writes bf16 leaves as f32 values (each bf16 value is an f32),
+    which the reference's astype(bfloat16) converts exactly; the manifest
+    still says "bfloat16"."""
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((4, 6)).astype(np.float32) * 1e3
+    x[0, :3] = [1.0, -2.0, 0.5]
+    tree = bridge.params_from_numpy(
+        {"b": np.asarray(jnp.asarray(x[:, :2]).astype(jnp.bfloat16)),
+         "w": np.asarray(jnp.asarray(x).astype(jnp.bfloat16))})
+    CheckpointManager(tmp_path, async_save=False).save(3, tree)
+    import json
+    meta = json.loads((tmp_path / "step_00000003" /
+                       "manifest.json").read_text())
+    assert meta["dtypes"] == ["bfloat16", "bfloat16"]
+    got, _ = JCkpt(tmp_path).restore(
+        {"b": jnp.zeros((4, 2), jnp.bfloat16),
+         "w": jnp.zeros((4, 6), jnp.bfloat16)})
+    for name in ("b", "w"):
+        assert got[name].dtype == jnp.bfloat16
+        np.testing.assert_array_equal(
+            np.asarray(got[name]).view(np.uint16),
+            tree[name].view(torch.int16).numpy().view(np.uint16))
 
 
 def test_ckpt_keep_n_and_interrupted_write(tmp_path):
