@@ -39,9 +39,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    flushed between launches (K1-K3 and their torch.matmul yardstick by
    CUDA-graph replay, the time around the call beside it), beside its plain
    version (timed on the call that checks it, after a warm call for the
-   cheap K4/K5 ones), its library yardstick and its bound. The K2/K3 lines
-   start with each pair-kernel instantiation's registers and spills (the
-   build's ``-Xptxas -v``). K3's carry-table kernel is held bit for bit to
+   cheap K4/K5 ones), its library yardstick and its bound. The GEMM lines
+   start with the registers and spills (the build's ``-Xptxas -v``) of each
+   instantiation of K1's tensor-core body and of K2/K3's pair body, the K8
+   lines with those of K8's tensor-core passes. K3's carry-table kernel is held bit for bit to
    its plain version on each weight's y and timed on the card (the
    derivation runs once per weight, memoized beside y; the K3 calls are
    timed with it memoized).
@@ -515,7 +516,8 @@ def check_gemms(dev):
                                                ffip_gemm_y_plain, y_for)
     from repro_torch.kernels.fip_gemm import fip_gemm, fip_gemm_plain
 
-    for source, key in (("fip_gemm", "fip_pair_kernel"),
+    for source, key in (("baseline_gemm", "baseline_tc"),
+                        ("fip_gemm", "fip_pair_kernel"),
                         ("ffip_gemm", "ffip_pair_kernel")):
         for name, regs in ptxas_lines(source, key):
             print(f"  ptxas {name}: {regs}", flush=True)
@@ -540,7 +542,8 @@ def check_gemms(dev):
                      / k ** 0.5).to(torch.bfloat16)
                 fold = False
                 lib = lambda: torch.matmul(a, b)      # noqa: E731
-            mac = dict(zip(("bm", "bn", "bk"), ops.mac_blocks(m)))
+            mac = dict(zip(("bm", "bn", "bk"),
+                           ops.choose_blocks(m, n, k, "baseline", a.dtype)))
             blk = dict(zip(("bm", "bn", "bk"),
                            ops.choose_blocks(m, n, k, "ffip")))
             y = y_for(b)
@@ -986,6 +989,8 @@ def check_flash_bwd(dev):
                                                      _flash_bwd_plain,
                                                      _flash_fwd)
 
+    for name, regs in ptxas_lines("flash_bwd", "_tc_kernel"):
+        print(f"  ptxas {name}: {regs}", flush=True)
     records = []
     g = torch.Generator(device=dev).manual_seed(11)
     bh, d = 4 * 36, 64
@@ -1179,7 +1184,7 @@ def check_batch_invariance(dev):
 
             def blk(rows, algo):
                 return dict(zip(("bm", "bn", "bk"),
-                                ops.choose_blocks(rows, n, k, algo)))
+                                ops.choose_blocks(rows, n, k, algo, dtype)))
             fns = {"baseline_gemm": lambda a_: baseline_gemm(
                        a_, b, **blk(len(a_), "baseline")),
                    "fip_gemm": lambda a_: fip_gemm(
@@ -1480,6 +1485,7 @@ KERNEL_GROUPS = (("ConvA", "conv_gemm"),
                  ("carry_", "ffip_carry_table"),
                  ("fip_pair_kernel", "fip_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
+                 ("baseline_tc", "baseline_gemm"),
                  ("reduce_units", "split-K reduce"),
                  ("flash_fwd_kernel", "flash_fwd"),
                  ("flash_paged_kernel", "flash_paged"))

@@ -7,14 +7,16 @@ The paper's memory subsystem never materialises an im2col matrix: the §5.1
 multi-digit address counters generate the conv->GEMM gather addresses while
 the array consumes the stream. On the card each (bm, 32) A tile is gathered
 from the padded NHWC input in global memory / L2 into shared memory, and the
-tile arithmetic after it is the tile body K1 runs (``csrc/gemm_kernels.cuh``:
-one in-order sweep for baseline and FIP; for FFIP the half-tile k-split plan
-of :func:`split_rows`, a function of K only). So the baseline conv gives the
-same bits as K1 over the materialised A, and the batch, folded into M (M =
-batch * OH * OW), does not change an image's result. (K2 and K3 run their
-own pipelined pair body; K7's FIP/FFIP sum the same products in
-another nesting.) Bound on the H100: CUDA-core operations (f32 without
-TF32; FIP/FFIP in issue slots).
+tile arithmetic after it is the CUDA-core tile body f32 K1 runs
+(``csrc/gemm_kernels.cuh``: one in-order sweep for baseline and FIP; for
+FFIP the half-tile k-split plan of :func:`split_rows`, a function of K
+only). So the f32 baseline conv gives the same bits as K1 over the
+materialised A (int8 too, though int8 K1 runs on the tensor cores: integer
+sums are exact in any order), and the batch, folded into M (M = batch * OH
+* OW), does not change an image's result. (K2 and K3 run their own
+pipelined pair body; K7's FIP/FFIP sum the same products in another
+nesting.) Bound on the H100: CUDA-core operations (f32 without TF32;
+FIP/FFIP in issue slots).
 
 The plain version (:func:`fused_conv_plain`) is the reference's own
 contract: it gathers A with :func:`~repro_torch.core.im2col.conv_gemm_indices`

@@ -1,6 +1,8 @@
-// Shared pieces of the port's hand-written Hopper GEMM kernels (K1-K3, K7):
-// operand conversion into the accumulation type, K1's and K7's tile geometry
-// and dense tile loads, and the deterministic split-K reduction pass.
+// Shared pieces of the port's hand-written Hopper kernels: the cp.async,
+// ldmatrix and mma.sync wrappers of the pipelined bodies (K1's tensor-core
+// body, K2/K3's pair body, K8), operand conversion into the accumulation
+// type, K7's (and f32 K1's) tile geometry and dense tile loads, and the
+// deterministic split-K reduction pass.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -8,7 +10,71 @@
 
 namespace rt {
 
-// Output tile geometry of K1 and K7 (see kernels/ops.py::mac_blocks):
+// -- asynchronous copies into shared memory (zero-filled where !valid) -------
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// -- tensor-core fragments ----------------------------------------------------
+// Four 8 x 8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8. With .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a b on the tensor cores: m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Output tile geometry of K7 and f32 K1 (see kernels/ops.py::mac_blocks):
 // 256 threads as a 16 x 16 grid, each thread owning TM rows x TN columns
 // strided by 16, so neighbouring threads touch neighbouring columns.
 constexpr int TX = 16;
@@ -22,10 +88,6 @@ template <typename Acc, typename In>
 __device__ __forceinline__ Acc cvt(In v);
 template <>
 __device__ __forceinline__ float cvt<float, float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <>
 __device__ __forceinline__ int cvt<int, int8_t>(int8_t v) { return (int)v; }
 template <>

@@ -1,7 +1,7 @@
 // K8: flash-attention backward. Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::_flash_bwd (_bwd_kernel).
 //
-// q, o, do: (BH, Sq, d), k, v: (BH, Sk, d) in f32 or bf16; lse: (BH, Sq) f32
+// q, o, do: (BH, Sq, d), k, v: (BH, Sk, d) in bf16 or f32; lse: (BH, Sq) f32
 // from the forward (K4). Outputs dq: (BH, Sq, d), dk, dv: (BH, Sk, d), all
 // f32 (the wrapper casts them to the inputs' types), and the scratch delta:
 // (BH, Sq) f32. Causal masking and a sliding window (a runtime int; <= 0
@@ -14,42 +14,42 @@
 // The TPU kernel walks a (bh, key block, query block) grid in order and adds
 // each step's dq into the same output block (lines 174-186, 212-213): that
 // relies on the sequential grid, and on the card it would be a race. Here
-// three deterministic passes, no atomics, so a result does not change from
-// run to run or with the batch:
-//   1. delta per row (one thread a row, d products in order);
-//   2. dk/dv: one CTA per (bh, 64-key block) walks the 32-row query blocks
-//      that the causal mask and the window leave, recomputes s and p from
-//      lse, and keeps its keys' dk and dv rows in f32 registers (four
-//      threads a key, d/4 columns each);
-//   3. dq: one CTA per (bh, 64-query block) walks the 32-key blocks, and
-//      keeps its rows' dq in registers.
-// Rows past Sq and keys past Sk are loaded as zeros and masked, so they add
-// exactly 0. p is not rounded to v's type (the reference's backward keeps it
-// in f32). Operands live in shared memory in f32; products are summed on the
-// CUDA cores in a fixed order.
+// two deterministic passes, no atomics, so a result does not change from run
+// to run or with the batch. Rows past Sq and keys past Sk are loaded as
+// zeros and masked, so they add exactly 0. p and ds stay f32 (the
+// reference's backward keeps p in f32, line 168).
 //
-// Bound: 10 d flops per kept (q, k) pair (s, dp, dv, dk, dq; s is computed
-// twice here, once per pass) at the tensor-core peak, or the bytes of q, k,
-// v, o, do, lse in and dq, dk, dv out; at training shapes the operations.
-// This first kernel runs on the CUDA cores, far from that bound; tensor-core
-// tiles are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// bf16 (training), on the tensor cores (mma.sync m16n8k16, f32
+// accumulation), four warps a CTA, 16 rows a warp:
+//   1. dq: one CTA per (bh, 64-query block). Its prologue forms delta for
+//      its rows (written for pass 2). It walks the key blocks the mask and
+//      the window leave, STEP keys at a time through a double-buffered
+//      cp.async ring: s = q k^T and dp = do v^T from bf16 operands as they
+//      are (products of bf16 values are exact in f32), p and ds in
+//      registers, dq += ds k.
+//   2. dk/dv: one CTA per (bh, 64-key block) walks the query blocks:
+//      s^T = k q^T, dp^T = v do^T, dv += p^T do, dk += ds^T q.
+// The products with an f32 operand (p or ds) split it into hi + lo bf16
+// (hi = bf16(x), lo = bf16(x - hi)) and issue two MMAs: the residual is
+// below 2^-16 of x, inside the bar of the f32 version, where one bf16
+// rounding of p (as FlashAttention-2 does) is not. The passes are templated
+// on (D, DV), the widths of q/k and of v, instantiated at 32, 64 and 128; a
+// narrower d runs zero-padded to the next one.
+//
+// f32 keeps the CUDA-core passes: delta per row, then dk/dv (one CTA per
+// 64-key block walking 32-row query blocks, four threads a key), then dq
+// (one CTA per 64-query block walking 32-key blocks); operands in shared
+// memory in f32, products summed in a fixed order.
+//
+// Bound: 10 d flops per kept (q, k) pair (s, dp, dv, dk, dq) at the
+// tensor-core peak, or the bytes of q, k, v, o, do, lse in and dq, dk, dv
+// out; at training shapes (S 256, d 64) the bytes. The bf16 passes issue 20
+// d a pair (s and dp twice, the split products twice).
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int DMAX = 128;
-constexpr int KV_BLK = 64;    // dk/dv pass: keys per CTA (4 threads a key)
-constexpr int Q_STEP = 32;    // dk/dv pass: query rows per iteration
-constexpr int Q_BLK = 64;     // dq pass: query rows per CTA (4 threads a row)
-constexpr int KV_STEP = 32;   // dq pass: keys per iteration
-
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 
 __device__ __forceinline__ bool kept(int qp, int kp, int Sq, int Sk,
                                      int window, int causal) {
@@ -58,32 +58,45 @@ __device__ __forceinline__ bool kept(int qp, int kp, int Sq, int Sk,
   return ok && (window <= 0 || qp - kp < window);
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// f32: the CUDA-core passes
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+
+constexpr int THREADS = 256;
+constexpr int DMAX = 128;
+constexpr int KV_BLK = 64;    // dk/dv pass: keys per CTA (4 threads a key)
+constexpr int Q_STEP = 32;    // dk/dv pass: query rows per iteration
+constexpr int Q_BLK = 64;     // dq pass: query rows per CTA (4 threads a row)
+constexpr int KV_STEP = 32;   // dq pass: keys per iteration
+
 __device__ __forceinline__ void load_rows(float* dst, int ld_dst,
-                                          const T* __restrict__ src, int row0,
-                                          int rows, int n_rows, int d) {
+                                          const float* __restrict__ src,
+                                          int row0, int rows, int n_rows,
+                                          int d) {
   for (int idx = threadIdx.x; idx < rows * d; idx += THREADS) {
     const int r = idx / d, c = idx % d;
     dst[r * ld_dst + c] =
-        row0 + r < n_rows ? ld(src + (long long)(row0 + r) * d + c) : 0.f;
+        row0 + r < n_rows ? src[(long long)(row0 + r) * d + c] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o,
+                       const float* __restrict__ dout,
                        float* __restrict__ delta, long long rows, int d) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= rows) return;
   float acc = 0.f;
-  for (int c = 0; c < d; ++c) acc += ld(dout + i * d + c) * ld(o + i * d + c);
+  for (int c = 0; c < d; ++c) acc += dout[i * d + c] * o[i * d + c];
   delta[i] = acc;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, float* __restrict__ dk,
                       float* __restrict__ dv, int Sq, int Sk, int d,
@@ -173,10 +186,9 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int Sq, int Sk, int d, int window, int causal,
@@ -265,42 +277,476 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const float* lse, const void* dout, float* delta, float* dq,
-                   float* dk, float* dv, int BH, int Sq, int Sk, int d,
-                   int window, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* o, const float* lse, const void* dout,
+                       float* delta, float* dq, float* dk, float* dv, int BH,
+                       int Sq, int Sk, int d, int window, int causal,
+                       float scale, cudaStream_t stream) {
   const long long rows = (long long)BH * Sq;
-  flash_bwd_delta_kernel<T>
+  flash_bwd_delta_kernel
       <<<(unsigned)((rows + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-          (const T*)o, (const T*)dout, delta, rows, d);
+          (const float*)o, (const float*)dout, delta, rows, d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const size_t smem_kv =
       sizeof(float) * ((size_t)(2 * KV_BLK + 2 * Q_STEP) * (d + 1) +
                        2 * Q_STEP * (KV_BLK + 1) + 2 * Q_STEP);
-  e = allow_smem(flash_bwd_dkdv_kernel<T>, smem_kv);
+  e = allow_smem(flash_bwd_dkdv_kernel, smem_kv);
   if (e != cudaSuccess) return e;
   dim3 grid_kv((Sk + KV_BLK - 1) / KV_BLK, BH);
-  flash_bwd_dkdv_kernel<T><<<grid_kv, THREADS, smem_kv, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
-      dv, Sq, Sk, d, window, causal, scale);
+  flash_bwd_dkdv_kernel<<<grid_kv, THREADS, smem_kv, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, dk, dv, Sq, Sk, d, window, causal, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
   const size_t smem_q =
       sizeof(float) * ((size_t)(2 * Q_BLK + 2 * KV_STEP) * (d + 1) +
                        Q_BLK * (KV_STEP + 1));
-  e = allow_smem(flash_bwd_dq_kernel<T>, smem_q);
+  e = allow_smem(flash_bwd_dq_kernel, smem_q);
   if (e != cudaSuccess) return e;
   dim3 grid_q((Sq + Q_BLK - 1) / Q_BLK, BH);
-  flash_bwd_dq_kernel<T><<<grid_q, THREADS, smem_q, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dq,
-      Sq, Sk, d, window, causal, scale);
+  flash_bwd_dq_kernel<<<grid_q, THREADS, smem_q, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, delta, dq, Sq, Sk, d, window, causal, scale);
   return cudaGetLastError();
 }
 
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core passes
+// ---------------------------------------------------------------------------
+namespace tcb {
+
+using bf16 = __nv_bfloat16;
+constexpr int BLK = 64;       // queries (dq pass) or keys (dk/dv pass) a CTA
+constexpr int WARPS = BLK / 16;
+constexpr int THREADS = 32 * WARPS;
+
+// Rows of the inner block: 64, or 32 at d 128 to keep the accumulators in
+// registers.
+template <int D, int DV>
+__host__ __device__ constexpr int step() {
+  return D <= 64 && DV <= 64 ? 64 : 32;
+}
+
+// Row pitch of a shared tile of w bf16 values: an odd number of 16-byte
+// chunks, so the eight rows of an ldmatrix land on eight bank quads.
+__host__ __device__ constexpr int pitch(int w) {
+  return (w / 8) % 2 ? 2 * w + 32 : 2 * w + 16;
+}
+
+// Load rows row0 .. row0 + ROWS of a row-major (n_rows, w) bf16 matrix into
+// a (ROWS x W) shared tile; rows past n_rows and columns past w read zero.
+template <int ROWS, int W>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const bf16* __restrict__ src,
+                                          int row0, int n_rows, int w,
+                                          bool vec) {
+  constexpr int CH = W / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const int gr = row0 + r, gc = c * 8;
+    unsigned char* d = dst + r * pitch(W) + c * 16;
+    if (vec) {                       // w % 8 == 0: a chunk is in or out
+      const bool ok = gr < n_rows && gc < w;
+      rt::cp_async16(d, ok ? (const void*)(src + (long long)gr * w + gc)
+                           : (const void*)src, ok);
+    } else {
+      const unsigned short* s = (const unsigned short*)src;
+      unsigned short v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = gr < n_rows && gc + e < w ? s[(long long)gr * w + gc + e] : 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ((unsigned short*)d)[e] = v[e];
+    }
+  }
+}
+
+// n_rows f32 values from src + row0 into dst[0 .. ROWS), zero past n_rows.
+template <int ROWS>
+__device__ __forceinline__ void load_vec(float* dst,
+                                         const float* __restrict__ src,
+                                         int row0, int n_rows) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+    const bool ok = row0 + i < n_rows;
+    rt::cp_async4(dst + i, ok ? (const void*)(src + row0 + i)
+                              : (const void*)src, ok);
+  }
+}
+
+__device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// The A fragments (16 x 16) of hi = bf16(x) and lo = bf16(x - hi) for an f32
+// 16 x 16 block held as two n8 accumulator tiles c0 (columns 0-7) and c1
+// (columns 8-15): the accumulator layout of m16n8 is the A layout of
+// m16n8k16, two tiles at a time.
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
+                                       unsigned& lo) {
+  hi = pack(x0, x1);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi);
+  lo = pack(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+__device__ __forceinline__ void split(const float (&c0)[4],
+                                      const float (&c1)[4], unsigned (&hi)[4],
+                                      unsigned (&lo)[4]) {
+  split2(c0[0], c0[1], hi[0], lo[0]);   // row g, columns 2t, 2t + 1
+  split2(c0[2], c0[3], hi[1], lo[1]);   // row g + 8
+  split2(c1[0], c1[1], hi[2], lo[2]);   // row g, columns 8 + 2t, 9 + 2t
+  split2(c1[2], c1[3], hi[3], lo[3]);   // row g + 8
+}
+
+// acc[16 x 8 n] += A (16 x 16 k, a) . B, B taken from a row-major
+// (rows = n, columns = k) tile: s = q k^T reads k's rows as B's columns.
+// Covers 16 columns: tiles 2 nb and 2 nb + 1.
+template <int W>
+__device__ __forceinline__ void mma_nk(float (&c0)[4], float (&c1)[4],
+                                       const unsigned (&a)[4],
+                                       const unsigned char* tile, int n0,
+                                       int k0, int lane) {
+  unsigned b[4];
+  rt::ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * pitch(W) +
+                     (k0 + ((lane >> 3) & 1) * 8) * 2);
+  rt::mma(c0, a, b[0], b[1]);
+  rt::mma(c1, a, b[2], b[3]);
+}
+
+// acc += (hi + lo) . B, B taken from a row-major (rows = k, columns = n)
+// tile: dv = p^T do reads do's rows as B's k.
+template <int W>
+__device__ __forceinline__ void mma_kn2(float (&c0)[4], float (&c1)[4],
+                                        const unsigned (&hi)[4],
+                                        const unsigned (&lo)[4],
+                                        const unsigned char* tile, int k0,
+                                        int n0, int lane) {
+  unsigned b[4];
+  rt::ldsm_x4_t(b, tile + (k0 + (lane & 15)) * pitch(W) +
+                       (n0 + (lane >> 4) * 8) * 2);
+  rt::mma(c0, hi, b[0], b[1]);
+  rt::mma(c0, lo, b[0], b[1]);
+  rt::mma(c1, hi, b[2], b[3]);
+  rt::mma(c1, lo, b[2], b[3]);
+}
+
+// The A fragment of rows row0 .. row0 + 15, columns k0 .. k0 + 15.
+template <int W>
+__device__ __forceinline__ void frag_a(unsigned (&a)[4],
+                                       const unsigned char* tile, int row0,
+                                       int k0, int lane) {
+  rt::ldsm_x4(a, tile + (row0 + (lane & 15)) * pitch(W) +
+                     (k0 + (lane >> 4) * 8) * 2);
+}
+
+// s (or s^T) and dp (or dp^T) of one warp's 16 rows against N rows of the
+// other side: rows of x and dx (q and do, or k and v) in shared tiles X, dX
+// at row0; columns from Y, dY (k and v, or q and do).
+template <int D, int DV, int N>
+__device__ __forceinline__ void scores(float (&s)[N / 8][4],
+                                       float (&dp)[N / 8][4],
+                                       const unsigned char* X,
+                                       const unsigned char* dX,
+                                       const unsigned char* Y,
+                                       const unsigned char* dY, int row0,
+                                       int lane) {
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned a[4];
+    frag_a<D>(a, X, row0, kk * 16, lane);
+#pragma unroll
+    for (int nb = 0; nb < N / 16; ++nb)
+      mma_nk<D>(s[2 * nb], s[2 * nb + 1], a, Y, nb * 16, kk * 16, lane);
+  }
+#pragma unroll
+  for (int kk = 0; kk < DV / 16; ++kk) {
+    unsigned a[4];
+    frag_a<DV>(a, dX, row0, kk * 16, lane);
+#pragma unroll
+    for (int nb = 0; nb < N / 16; ++nb)
+      mma_nk<DV>(dp[2 * nb], dp[2 * nb + 1], a, dY, nb * 16, kk * 16, lane);
+  }
+}
+
+struct Args {
+  const bf16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  float *delta, *dq, *dk, *dv;
+  int Sq, Sk, d, dv_w, window, causal;
+  float scale;
+  int vec;   // d, dv % 8 == 0 and 16-byte bases: cp.async rows
+};
+
+// Pass 1: dq (and delta) of one 64-query block.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_tc_kernel(Args p) {
+  constexpr int STEP = step<D, DV>();
+  constexpr int Q_BYTES = BLK * pitch(D), DO_BYTES = BLK * pitch(DV);
+  constexpr int K_BYTES = STEP * pitch(D), V_BYTES = STEP * pitch(DV);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* Qs = smem;
+  unsigned char* dOs = Qs + Q_BYTES;
+  unsigned char* ring = dOs + DO_BYTES;               // 2 x (K, V)
+  float* lse_s = (float*)(ring + 2 * (K_BYTES + V_BYTES));
+  float* delta_s = lse_s + BLK;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BLK;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const bf16* qb = p.q + (long long)bh * p.Sq * p.d;
+  const bf16* ob = p.o + (long long)bh * p.Sq * p.dv_w;
+  const bf16* dob = p.dout + (long long)bh * p.Sq * p.dv_w;
+  const bf16* kb = p.k + (long long)bh * p.Sk * p.d;
+  const bf16* vb = p.v + (long long)bh * p.Sk * p.dv_w;
+  const int q_last = min(q0 + BLK, p.Sq) - 1;
+  // key blocks that a row of this block can keep
+  const int k_begin = p.window > 0
+                          ? (max(0, q0 - p.window + 1) / STEP) * STEP : 0;
+  const int k_end = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  const int nsteps = k_end > k_begin ? (k_end - k_begin + STEP - 1) / STEP
+                                     : 0;
+  auto issue = [&](int t) {
+    if (t < nsteps) {
+      unsigned char* r = ring + (t % 2) * (K_BYTES + V_BYTES);
+      const int k0 = k_begin + t * STEP;
+      load_tile<STEP, D>(r, kb, k0, p.Sk, p.d, p.vec);
+      load_tile<STEP, DV>(r + K_BYTES, vb, k0, p.Sk, p.dv_w, p.vec);
+    }
+    rt::cp_async_commit();
+  };
+
+  load_tile<BLK, D>(Qs, qb, q0, p.Sq, p.d, p.vec);
+  load_tile<BLK, DV>(dOs, dob, q0, p.Sq, p.dv_w, p.vec);
+  load_vec<BLK>(lse_s, p.lse + (long long)bh * p.Sq, q0, p.Sq);
+  issue(0);
+
+  // delta of this block's rows: two threads a row, halves of the row
+  {
+    const int r = tid / 2, h = tid % 2;
+    const int half = (p.dv_w + 1) / 2;
+    const int c0 = h * half, c1 = min(p.dv_w, c0 + half);
+    float acc = 0.f;
+    if (q0 + r < p.Sq) {
+      const long long row = (long long)(q0 + r) * p.dv_w;
+      for (int c = c0; c < c1; ++c)
+        acc = fmaf(__bfloat162float(dob[row + c]),
+                   __bfloat162float(ob[row + c]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (h == 0) {
+      delta_s[r] = acc;
+      if (q0 + r < p.Sq) p.delta[(long long)bh * p.Sq + q0 + r] = acc;
+    }
+  }
+
+  float dq[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[n][c] = 0.f;
+
+  const int row0 = warp * 16;
+  for (int t = 0; t < nsteps; ++t) {
+    issue(t + 1);
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* Ks = ring + (t % 2) * (K_BYTES + V_BYTES);
+    const unsigned char* Vs = Ks + K_BYTES;
+    const int k0 = k_begin + t * STEP;
+    float s[STEP / 8][4], ds[STEP / 8][4];
+    scores<D, DV, STEP>(s, ds, Qs, dOs, Ks, Vs, row0, lane);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = row0 + g + 8 * (c >> 1);
+        const int kp = k0 + n * 8 + 2 * tq + (c & 1);
+        const float pv = kept(q0 + r, kp, p.Sq, p.Sk, p.window, p.causal)
+                             ? expf(s[n][c] * p.scale - lse_s[r])
+                             : 0.f;
+        ds[n][c] = pv * (ds[n][c] - delta_s[r]) * p.scale;
+      }
+#pragma unroll
+    for (int kk = 0; kk < STEP / 16; ++kk) {
+      unsigned hi[4], lo[4];
+      split(ds[2 * kk], ds[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int nb = 0; nb < D / 16; ++nb)
+        mma_kn2<D>(dq[2 * nb], dq[2 * nb + 1], hi, lo, Ks, kk * 16, nb * 16,
+                   lane);
+    }
+    __syncthreads();   // the ring slot is refilled next
+  }
+  rt::cp_async_wait<0>();
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = q0 + row0 + g + 8 * (c >> 1);
+      const int col = n * 8 + 2 * tq + (c & 1);
+      if (row < p.Sq && col < p.d)
+        p.dq[((long long)bh * p.Sq + row) * p.d + col] = dq[n][c];
+    }
+}
+
+// Pass 2: dk and dv of one 64-key block.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_tc_kernel(Args p) {
+  constexpr int STEP = step<D, DV>();
+  constexpr int K_BYTES = BLK * pitch(D), V_BYTES = BLK * pitch(DV);
+  constexpr int Q_BYTES = STEP * pitch(D), DO_BYTES = STEP * pitch(DV);
+  constexpr int SLOT = Q_BYTES + DO_BYTES + 2 * STEP * (int)sizeof(float);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* Ks = smem;
+  unsigned char* Vs = Ks + K_BYTES;
+  unsigned char* ring = Vs + V_BYTES;       // 2 x (q, do, lse, delta)
+
+  const int bh = blockIdx.y, k0 = blockIdx.x * BLK;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const bf16* qb = p.q + (long long)bh * p.Sq * p.d;
+  const bf16* dob = p.dout + (long long)bh * p.Sq * p.dv_w;
+  const bf16* kb = p.k + (long long)bh * p.Sk * p.d;
+  const bf16* vb = p.v + (long long)bh * p.Sk * p.dv_w;
+  const float* lseb = p.lse + (long long)bh * p.Sq;
+  const float* deltab = p.delta + (long long)bh * p.Sq;
+  const int k_last = min(k0 + BLK, p.Sk) - 1;
+  // query blocks that can keep a key of this block
+  const int q_begin = p.causal ? (k0 / STEP) * STEP : 0;
+  const int q_end = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
+  const int nsteps = q_end > q_begin ? (q_end - q_begin + STEP - 1) / STEP
+                                     : 0;
+  auto issue = [&](int t) {
+    if (t < nsteps) {
+      unsigned char* r = ring + (t % 2) * SLOT;
+      const int q0 = q_begin + t * STEP;
+      float* lv = (float*)(r + Q_BYTES + DO_BYTES);
+      load_tile<STEP, D>(r, qb, q0, p.Sq, p.d, p.vec);
+      load_tile<STEP, DV>(r + Q_BYTES, dob, q0, p.Sq, p.dv_w, p.vec);
+      load_vec<STEP>(lv, lseb, q0, p.Sq);
+      load_vec<STEP>(lv + STEP, deltab, q0, p.Sq);
+    }
+    rt::cp_async_commit();
+  };
+
+  load_tile<BLK, D>(Ks, kb, k0, p.Sk, p.d, p.vec);
+  load_tile<BLK, DV>(Vs, vb, k0, p.Sk, p.dv_w, p.vec);
+  issue(0);
+
+  float dk[D / 8][4], dv[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = 0.f;
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dv[n][c] = 0.f;
+
+  const int row0 = warp * 16;
+  for (int t = 0; t < nsteps; ++t) {
+    issue(t + 1);
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* Qs = ring + (t % 2) * SLOT;
+    const unsigned char* dOs = Qs + Q_BYTES;
+    const float* lse_s = (const float*)(dOs + DO_BYTES);
+    const float* delta_s = lse_s + STEP;
+    const int q0 = q_begin + t * STEP;
+    float pt[STEP / 8][4], dst[STEP / 8][4];    // p^T and ds^T
+    scores<D, DV, STEP>(pt, dst, Ks, Vs, Qs, dOs, row0, lane);
+#pragma unroll
+    for (int n = 0; n < STEP / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kp = k0 + row0 + g + 8 * (c >> 1);
+        const int qi = n * 8 + 2 * tq + (c & 1);
+        const float pv = kept(q0 + qi, kp, p.Sq, p.Sk, p.window, p.causal)
+                             ? expf(pt[n][c] * p.scale - lse_s[qi])
+                             : 0.f;
+        dst[n][c] = pv * (dst[n][c] - delta_s[qi]) * p.scale;
+        pt[n][c] = pv;
+      }
+#pragma unroll
+    for (int kk = 0; kk < STEP / 16; ++kk) {
+      unsigned hi[4], lo[4];
+      split(pt[2 * kk], pt[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int nb = 0; nb < DV / 16; ++nb)
+        mma_kn2<DV>(dv[2 * nb], dv[2 * nb + 1], hi, lo, dOs, kk * 16,
+                    nb * 16, lane);
+      split(dst[2 * kk], dst[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int nb = 0; nb < D / 16; ++nb)
+        mma_kn2<D>(dk[2 * nb], dk[2 * nb + 1], hi, lo, Qs, kk * 16, nb * 16,
+                   lane);
+    }
+    __syncthreads();   // the ring slot is refilled next
+  }
+  rt::cp_async_wait<0>();
+
+  const int row_g = k0 + row0 + g;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int row = row_g + 8 * (c >> 1);
+    if (row >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * tq + (c & 1);
+      if (col < p.d)
+        p.dk[((long long)bh * p.Sk + row) * p.d + col] = dk[n][c];
+    }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n) {
+      const int col = n * 8 + 2 * tq + (c & 1);
+      if (col < p.dv_w)
+        p.dv[((long long)bh * p.Sk + row) * p.dv_w + col] = dv[n][c];
+    }
+  }
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int D, int DV>
+cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
+  constexpr int STEP = step<D, DV>();
+  constexpr int SMEM_DQ = BLK * (pitch(D) + pitch(DV)) +
+                          2 * STEP * (pitch(D) + pitch(DV)) +
+                          2 * BLK * (int)sizeof(float);
+  constexpr int SMEM_KV = BLK * (pitch(D) + pitch(DV)) +
+                          2 * (STEP * (pitch(D) + pitch(DV)) +
+                               2 * STEP * (int)sizeof(float));
+  cudaError_t e = opt_in(flash_bwd_dq_tc_kernel<D, DV>, SMEM_DQ);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dq_tc_kernel<D, DV>
+      <<<dim3((p.Sq + BLK - 1) / BLK, BH), THREADS, SMEM_DQ, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = opt_in(flash_bwd_dkdv_tc_kernel<D, DV>, SMEM_KV);
+  if (e != cudaSuccess) return e;
+  flash_bwd_dkdv_tc_kernel<D, DV>
+      <<<dim3((p.Sk + BLK - 1) / BLK, BH), THREADS, SMEM_KV, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tcb
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, o and do share it; lse, delta, dq, dk
@@ -311,18 +757,24 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 void* dk, void* dv, int BH, int Sq, int Sk,
                                 int d, int window, int causal, float scale,
                                 int dtype, void* stream) {
-  if (BH < 1 || Sq < 1 || Sk < 1 || d < 1 || d > DMAX)
+  if (BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || d < 1 || d > f32::DMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, o, (const float*)lse, dout,
-                              (float*)delta, (float*)dq, (float*)dk,
-                              (float*)dv, BH, Sq, Sk, d, window, causal, scale,
-                              s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, o, (const float*)lse, dout,
-                                      (float*)delta, (float*)dq, (float*)dk,
-                                      (float*)dv, BH, Sq, Sk, d, window,
-                                      causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)f32::launch_f32(q, k, v, o, (const float*)lse, dout,
+                                (float*)delta, (float*)dq, (float*)dk,
+                                (float*)dv, BH, Sq, Sk, d, window, causal,
+                                scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  using tcb::bf16;
+  const void* ptrs[] = {q, k, v, o, dout};
+  bool aligned = d % 8 == 0;
+  for (const void* ptr : ptrs) aligned = aligned && (uintptr_t)ptr % 16 == 0;
+  tcb::Args p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+              (const bf16*)dout, (const float*)lse, (float*)delta,
+              (float*)dq, (float*)dk, (float*)dv, Sq, Sk, d, d, window,
+              causal, scale, (int)aligned};
+  if (d <= 32) return (int)tcb::launch<32, 32>(p, BH, s);
+  if (d <= 64) return (int)tcb::launch<64, 64>(p, BH, s);
+  return (int)tcb::launch<128, 128>(p, BH, s);
 }

@@ -1,11 +1,13 @@
-// The tile bodies of the dense baseline GEMM K1 (baseline_gemm.cu) and of
-// the fused conv K7 (conv_gemm.cu: baseline, FIP and FFIP). K2 and K3 have
-// their own pipelined pair body (fip_body.cuh). A kernel is instantiated with
-// the loader of its A operand: DenseA reads a row-major (M, K) matrix, ConvA
-// gathers the implicit im2col matrix of a conv from the padded NHWC input
-// (Algorithm 1). Everything after the A tile is in shared memory is the same
-// code, so K7's baseline sums exactly what K1 sums over the materialised A,
-// in the same order: the two give the same bits.
+// The CUDA-core tile bodies of the fused conv K7 (conv_gemm.cu: baseline,
+// FIP and FFIP) and of f32 K1 (baseline_gemm.cu). bf16 and int8 K1 run on
+// the tensor cores (tc_gemm.cuh); K2 and K3 have their own pipelined pair
+// body (fip_body.cuh). A kernel is instantiated with the loader of its A
+// operand: DenseA reads a row-major (M, K) matrix, ConvA gathers the
+// implicit im2col matrix of a conv from the padded NHWC input (Algorithm 1).
+// Everything after the A tile is in shared memory is the same code, so for
+// f32 K7's baseline sums exactly what K1 sums over the materialised A, in
+// the same order: the two give the same bits. int8 K7 and int8 K1 also give
+// the same bits, on different bodies: integer sums are exact in any order.
 //
 // A row's sums never depend on how many rows share its launch (batch
 // invariance):

@@ -11,8 +11,14 @@ its operations at prefill lengths; q, k, v and o cross device memory once.
 K8: dq, dk, dv from the forward's log-sum-exp, with ``delta = sum(do * o)``
 per row. The TPU kernel accumulates dq across key blocks into one output
 block along its sequential grid; on the card that is a race, so K8 runs two
-deterministic passes (one CTA per key block for dk/dv, one per query block
-for dq; no atomics), after a pre-pass for delta. :func:`flash_attention` is
+deterministic passes (one CTA per 64-query block for dq, whose prologue
+forms delta; then one per 64-key block for dk/dv; no atomics). bf16 inputs
+(training) run on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulation): s = q k^T and dp = do v^T from the bf16 operands as they
+are, and each product with the f32 p or ds (dv, dk, dq) as two MMAs of its
+hi + lo bf16 split, which keeps the reference's f32 p within the f32 bar
+(one bf16 rounding of p would not). Bound at training shapes: the bytes.
+f32 inputs keep the CUDA-core passes. :func:`flash_attention` is
 differentiable through :class:`FlashAttention` (K4 forward, K8 backward), as
 the reference's custom VJP is. The paged decode kernel is K5
 (``flash_paged.py``).

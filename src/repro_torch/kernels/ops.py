@@ -14,7 +14,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import compat
-from repro_torch.kernels.baseline_gemm import baseline_gemm
+from repro_torch.kernels.baseline_gemm import (TC_BK, baseline_gemm,
+                                               tc_blocks)
 from repro_torch.kernels.ffip_gemm import ffip_gemm
 from repro_torch.kernels.fip_gemm import fip_gemm, pair_blocks
 
@@ -28,8 +29,8 @@ _CONTIG_TAG = "contiguous"
 
 
 def mac_blocks(m: int) -> Tuple[int, int, int]:
-    """(bm, bn, bk) of the tile body K1 and K7 are compiled for
-    (``csrc/gemm_kernels.cuh``). The reference sizes its blocks from a 6 MiB
+    """(bm, bn, bk) of the CUDA-core tile body K7 and f32 K1 are compiled
+    for (``csrc/gemm_kernels.cuh``). The reference sizes its blocks from a 6 MiB
     v5e VMEM budget; on the card the limits are the 227 KB of shared memory
     and 255 registers a thread. The body holds a (bm, 32) A tile and a
     (32, 64) B tile in shared memory in the accumulation type (16 KB at
@@ -39,14 +40,17 @@ def mac_blocks(m: int) -> Tuple[int, int, int]:
     return (16 if m <= 16 else 64), 64, 32
 
 
-def choose_blocks(m: int, n: int, k: int, algo: str) -> Tuple[int, int, int]:
-    """Default (bm, bn, bk) for the H100 kernels: K1's :func:`mac_blocks`
-    for the baseline; for FIP and FFIP the pipelined pair body's tiles
-    (``fip_gemm.pair_blocks``): 16 x 32 at decode, 64 x 64 up to M = 64,
-    else 128 x 128."""
+def choose_blocks(m: int, n: int, k: int, algo: str,
+                  dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """Default (bm, bn, bk) for the H100 kernels. The baseline: for bf16
+    and int8 the tensor-core tiles (``baseline_gemm.tc_blocks``, by M and
+    N), else (f32) :func:`mac_blocks`, the CUDA-core body's. FIP and FFIP,
+    any dtype: the pipelined pair body's tiles (``fip_gemm.pair_blocks``):
+    16 x 32 at decode, 64 x 64 up to M = 64, else 128 x 128."""
     del k
     if algo == "baseline":
-        return mac_blocks(m)
+        return (tc_blocks(m, n, dtype) if dtype in TC_BK
+                else mac_blocks(m))
     return pair_blocks(m, n)
 
 
@@ -73,7 +77,7 @@ def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,
         b = compat.current_derived().get(_CONTIG_TAG, b,
                                          lambda t: t.contiguous())
     if not (bm and bn and bk):
-        bm, bn, bk = choose_blocks(a2.shape[0], n, k, algo)
+        bm, bn, bk = choose_blocks(a2.shape[0], n, k, algo, out_dtype)
 
     if algo == "baseline":
         if fold_beta:

@@ -77,15 +77,25 @@ def _compare(got, want, dtype, k):
                                    rtol=1e-4, atol=1e-3 * max(1, k // 64))
 
 
+# The served shapes, and ragged ones for each of K1's tensor-core tiles and
+# loaders: M 1, 17 and 130 (under and over a tile), K not a multiple of the
+# k-tile, N not a multiple of the tile. bf16 rows 16-byte aligned take the
+# TMA loader: (1, 1032, 4104) the 16 x 64 tiles, (130, 1024, 1000) the
+# 64 x 64 ones, (130, 520, 16400) the 128 x 128 ones. Rows that are not
+# (K 100 or 1030, N 200, 257 or 1001; int8 N not a multiple of 16) take the
+# cp.async loader with plain loads: (1, 130, 257), (17, 100, 200) and
+# (130, 1030, 1001).
 SHAPES = [(4, 2304, 2304), (4, 5760, 2304), (100, 60, 36), (1, 130, 257),
-          (64, 2304, 5760), (4, 8192, 288), (128, 256, 8192)]
+          (64, 2304, 5760), (4, 8192, 288), (128, 256, 8192),
+          (17, 100, 200), (130, 1030, 1001), (130, 520, 16400),
+          (1, 1032, 4104), (130, 1024, 1000)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_gemm_kernels_match_plain(dev, m, k, n, dtype):
     a, b = _operands(m, k, n, dtype, dev)
-    bm, bn, bk = ops.choose_blocks(m, n, k, "baseline")
+    bm, bn, bk = ops.choose_blocks(m, n, k, "baseline", dtype)
     kc = _k_chunk(m, n)
     _compare(baseline_gemm(a, b, bm=bm, bn=bn, bk=bk),
              baseline_gemm_plain(a, b, bm=bm, bn=bn, bk=bk), dtype, k)
@@ -319,7 +329,7 @@ def test_gemm_batch_invariant(dev, m_full, k, n, ms, dtype):
 
     def blocks(m, algo):
         return dict(zip(("bm", "bn", "bk"), ops.choose_blocks(m, n, k,
-                                                              algo)))
+                                                              algo, dtype)))
     kernels = {"baseline": lambda a_: baseline_gemm(
                    a_, b, **blocks(len(a_), "baseline")),
                "fip": lambda a_: fip_gemm(a_, b, **blocks(len(a_), "fip")),
@@ -330,6 +340,20 @@ def test_gemm_batch_invariant(dev, m_full, k, n, ms, dtype):
         for m in ms:
             part = fn(a[:m].contiguous())[:4]
             assert torch.equal(part[:min(m, 4)], full[:min(m, 4)]), (name, m)
+
+
+@pytest.mark.parametrize("m", [4, 130])
+def test_gemm_loaders_agree_bit_for_bit(dev, m):
+    """K1 bf16 fills its tiles by TMA where A's and B's rows are 16-byte
+    aligned and by cp.async where they are not; both feed the same mma
+    chain, so a misaligned copy of A gives the aligned call's bits."""
+    a, b = _operands(m, 2304, 5760, torch.bfloat16, dev, seed=9)
+    bm, bn, bk = ops.choose_blocks(m, 5760, 2304, "baseline", torch.bfloat16)
+    shifted = torch.empty(a.numel() + 1, dtype=a.dtype, device=dev)[1:]
+    shifted = shifted.view(a.shape).copy_(a)
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(baseline_gemm(shifted, b, bm=bm, bn=bn, bk=bk),
+                       baseline_gemm(a, b, bm=bm, bn=bn, bk=bk))
 
 
 def test_conv_batch_invariant(dev):
@@ -444,6 +468,9 @@ def _bf16_cast_ulps(got, want, atol):
     (2, 96, 32, 32, True),
     (2, 64, 32, 0, False),
     (144, 256, 64, 0, True),       # minicpm-2b at training batch 4
+    (8, 200, 128, 32, True),       # d 128, a ragged block and a window
+    (8, 256, 128, 0, True),
+    (8, 200, 64, 32, True),
 ])
 def test_flash_bwd_kernel_matches_plain(dev, dtype, bh, s, d, window,
                                         causal):

@@ -161,6 +161,57 @@ def test_ffip_split_rows_fill_the_card_at_decode():
     assert ops.choose_blocks(512, 5760, 2304, "baseline") == (64, 64, 32)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("bm,bn", [(16, 64), (64, 64), (128, 128)])
+def test_baseline_plain_at_tensor_core_tiles_matches_pallas(bm, bn, dtype):
+    """K1's plain version at each tensor-core tile (``TC_GEOMS``, with the
+    dtype's 128-byte k-tile) against the reference's baseline kernel in
+    interpret mode: M, K and N ragged against the tile (M a tile and 3, K
+    two k-tiles and 7, N a tile and 5). int8 exactly, bf16 on the f32
+    accumulator at the f32 bar. The wrapper takes exactly these blocks."""
+    from repro_torch.kernels.baseline_gemm import (TC_BK, TC_GEOMS,
+                                                   baseline_gemm, tc_geom)
+    tdtype = getattr(torch, dtype)
+    bk = TC_BK[tdtype]
+    assert tc_geom(bm, bn, bk, tdtype) == TC_GEOMS[(bm, bn)]
+    m, k, n = bm + 3, 2 * bk + 7, bn + 5
+    a, b = _inputs(m, k, n, dtype, seed=bm + bn)
+    ja, ta = _pair(a, dtype)
+    jb, tb = _pair(b, dtype)
+    got = baseline_gemm(ta, tb, bm=bm, bn=bn, bk=bk)
+    _check(got, _j_acc(ja, jb, "baseline"), dtype, k)
+    with pytest.raises(ValueError):
+        tc_geom(bm, bn, bk // 2, tdtype)
+
+
+def test_tensor_core_tiles_share_one_k_chain_at_every_m():
+    """The invariance argument of K1 on the tensor cores, without a card.
+    The body has no split of K: an output element is one chain of mma
+    k-steps (16 bf16 or 32 int8 values, 32 bytes) over all of K in order
+    from zero. So a row's sums cannot depend on M as long as every M takes
+    a tile of the same dtype's k-tile, a whole number of k-steps deep: at
+    each served (K, N) and dtype, every M does (whichever loader fills the
+    tile: TMA or cp.async). The served shapes take all three tiles."""
+    from repro_torch.kernels.baseline_gemm import TC_BK, TC_GEOMS
+    geoms = set()
+    for dtype, kstep in ((torch.bfloat16, 16), (torch.int8, 32)):
+        assert TC_BK[dtype] * dtype.itemsize == 128
+        assert TC_BK[dtype] % kstep == 0
+        for k, n in SERVED_KN:
+            for m in (1, 4, 16, 17, 64, 128, 512):
+                bm, bn, bk = ops.choose_blocks(m, n, k, "baseline", dtype)
+                assert (bm, bn) in TC_GEOMS and (bm <= 16) == (m <= 16)
+                assert bk == TC_BK[dtype], (k, n, m, dtype)
+                geoms.add((bm, bn))
+    assert geoms == set(TC_GEOMS)
+    assert ops.choose_blocks(512, 5760, 2304, "baseline",
+                             torch.bfloat16) == (128, 128, 64)
+    assert ops.choose_blocks(512, 2304, 5760, "baseline",
+                             torch.bfloat16) == (64, 64, 64)
+    assert ops.choose_blocks(4, 16384, 4096, "baseline",
+                             torch.int8) == (16, 64, 128)
+
+
 @pytest.mark.parametrize("k,n", [(16, 288), (9, 257), (10, 257), (6, 31)])
 @pytest.mark.parametrize("dtype", ["int8", "float32"])
 def test_carry_table_matches_reference_prefix(k, n, dtype):

@@ -125,6 +125,72 @@ def test_flash_sdpa_gqa_grads_match_reference():
         _close_rel(t.grad, jg)
 
 
+def _k8_on_the_tensor_cores(q, k, v, o, lse, do, window, causal, terms):
+    """K8's bf16 arithmetic emulated with torch casts: s = q k^T and dp =
+    do v^T from the bf16 operands as they are (exact products), p and ds in
+    f32, then each product with p or ds as a sum over ``terms`` bf16 pieces
+    of it (2: hi = bf16(x), lo = bf16(x - hi), the kernel's split; 1: one
+    bf16 rounding, as FlashAttention-2 does), summed in f64."""
+    f64 = torch.float64
+    sq, d = q.shape[1], q.shape[2]
+    scale = 1.0 / d ** 0.5
+    s = torch.matmul(q.to(f64), k.to(f64).transpose(1, 2)).float()
+    pos_q = torch.arange(sq)[:, None]
+    pos_k = torch.arange(k.shape[1])[None, :]
+    keep = torch.ones((sq, k.shape[1]), dtype=torch.bool)
+    if causal:
+        keep &= pos_q >= pos_k
+    if window > 0:
+        keep &= (pos_q - pos_k) < window
+    p = torch.where(keep, torch.exp(s * scale - lse[..., None]), 0.0)
+    delta = torch.sum(do.to(f64) * o.to(f64), -1, keepdim=True).float()
+    dp = torch.matmul(do.to(f64), v.to(f64).transpose(1, 2)).float()
+    ds = p * (dp - delta) * scale
+
+    def pieces(x):
+        out = []
+        for _ in range(terms):
+            out.append(x.to(torch.bfloat16).float())
+            x = x - out[-1]
+        return [t.to(f64) for t in out]
+
+    dv = sum(t.transpose(1, 2) @ do.to(f64) for t in pieces(p))
+    dk = sum(t.transpose(1, 2) @ q.to(f64) for t in pieces(ds))
+    dq = sum(t @ k.to(f64) for t in pieces(ds))
+    return dq.float(), dk.float(), dv.float()
+
+
+def _within_card_bar(got, want) -> bool:
+    """K8's bar on the card (tests/test_torch_cuda.py): rtol 1e-4, atol
+    1e-4 * max|plain|, and once cast to bf16 one ulp beyond that atol."""
+    atol = 1e-4 * float(want.abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=atol):
+        return False
+    w = want.to(torch.bfloat16).float()
+    _, e = torch.frexp(w.abs().clamp_min(2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    excess = ((got.to(torch.bfloat16).float() - w).abs() - atol).clamp_min(0)
+    return float((excess / ulp).max()) <= 1.0
+
+
+@pytest.mark.parametrize("s,window,causal", [
+    (256, 0, True), (200, 0, True), (256, 32, True), (128, 0, False)])
+def test_k8_hi_lo_split_holds_the_card_bar(s, window, causal):
+    """K8 on the tensor cores splits its f32 operands p and ds into hi + lo
+    bf16 and issues two MMAs. Emulated at FLASH_BWD_CASES' sequences (BH 4,
+    d 64, bf16 inputs), dq, dk and dv stay within the card bar of
+    _flash_bwd_plain; rounding p and ds once to bf16 leaves it."""
+    rng = np.random.default_rng(s + window)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((4, s, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(4))
+    o, lse = fa._flash_fwd_plain(q, k, v, window, causal=causal)
+    want = fa._flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
+    split = _k8_on_the_tensor_cores(q, k, v, o, lse, do, window, causal, 2)
+    assert all(_within_card_bar(g, w) for g, w in zip(split, want))
+    once = _k8_on_the_tensor_cores(q, k, v, o, lse, do, window, causal, 1)
+    assert not any(_within_card_bar(g, w) for g, w in zip(once, want))
+
+
 def test_flash_function_refuses_mla_widths():
     q, k = (torch.randn(2, 8, 16, requires_grad=True) for _ in range(2))
     v = torch.randn(2, 8, 8, requires_grad=True)
