@@ -14,14 +14,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    falcon-mamba-7b's M in {4, 128} x (K, N) in {(4096, 16384), (8192, 288),
    (256, 8192), (8192, 4096), (4096, 65024)}, in bf16 (beta unfolded) and
    int8 (beta folded, as the int8 dense layer calls them); the flash kernel
-   K4 at BH = 4 x 36, d = 64, causal, over the prefill buckets S in {16, 32,
-   64, 128}; the paged kernel K5 at decode (B 4, H = KV = 36, Sq 1 and 4,
-   d 64, pages of 16, 16 pages a sequence, lengths 17-256 and one of 0), a
+   K4 at BH = 4 x 36 over the prefill buckets S in {16, 32, 64, 128} and
+   the trained S 256 (d 64, causal), d 128, d 40, a window of 32 and
+   non-causal, bf16 and f32 (FLASH_CASES); the paged kernel K5 at decode
+   (B 4, H = KV = 36, Sq 1 and 4, d 64, pages of 16, 16 pages a sequence,
+   lengths 17-256 and one of 0), a
    64-row prefill chunk, GQA group 4, a window of 40 and an MLA-like d 576,
    dv 512, in bf16 and f32; the fused conv K7 at seven ResNet-50 / AlexNet
    convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
-   (beta folded); the selective scan K6 at falcon-mamba-7b's prefill (B 1, S
-   16 / 64 / 128, di 8192, N 16, bf16), two chunks at B 2, f32, a nonzero
+   (beta folded), each in the tile ``conv_blocks`` picks; the selective
+   scan K6 at falcon-mamba-7b's prefill (B 1, S 16 / 64 / 128, di 8192,
+   N 16, bf16), two chunks at B 2, f32, a nonzero
    h0, and a state carried across two calls (SCAN_CASES); the flash backward
    K8 at BH 144, d 64, S 256 / 128 / 200, a window of 32 and non-causal,
    bf16 and f32 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
@@ -36,16 +39,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sides summing the same products in f32 in another order; flash o at 2**-7
    (one bf16 rounding of o) and lse at 2e-3; K5 at 2**-7, with exact zeros
    for a sequence of length 0. Each call is timed with CUDA events, L2
-   flushed between launches (K1-K3 and their torch.matmul yardstick by
+   flushed between launches (K1-K4 and their library yardsticks by
    CUDA-graph replay, the time around the call beside it), beside its plain
    version (timed on the call that checks it, after a warm call for the
    cheap K4/K5 ones), its library yardstick and its bound. The GEMM lines
    start with the registers and spills (the build's ``-Xptxas -v``) of each
-   instantiation of K1's tensor-core body and of K2/K3's pair body, the K8
-   lines with those of K8's tensor-core passes. K3's carry-table kernel is held bit for bit to
-   its plain version on each weight's y and timed on the card (the
-   derivation runs once per weight, memoized beside y; the K3 calls are
-   timed with it memoized).
+   instantiation of K1's tensor-core body and of K2/K3's pair body, the
+   K4, K7 and K8 lines with those of K4's tensor-core body, K7's FIP/FFIP
+   pair kernels and K8's tensor-core passes. K3's carry-table kernel is
+   held bit for bit to its plain version on each weight's y and timed on
+   the card (the derivation runs once per weight, memoized beside y; the
+   K3 calls are timed with it memoized).
 3. Batch invariance, bit for bit: rows 0-3 of an M = 512 K1/K2/K3 call
    against the same rows at M = 4, 64 and 256 (f32 and bf16), rows 0-3 of
    falcon-mamba-7b's in_proj (K 4096, N 16384) at M = 128 against M = 1, 4
@@ -187,9 +191,23 @@ GEMM_CASES = tuple(
         ((4, 128), ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
                     (4096, 65024))))
     for m in ms for k, n in kns)
-FLASH_SEQS = (16, 32, 64, 128)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
-HEADLINE_FLASH_S = 128
+# K4 checks at BH = 4 x 36 (minicpm-2b's heads at 4 slots or training batch
+# 4): (label, S, d, window, causal), each in bf16 and f32. S 16-128 are the
+# served prefill buckets, S 256 the trained sequence; d 128 runs the second
+# tensor-core instantiation, d 40 the first zero-filled.
+FLASH_CASES = (
+    ("S 16", 16, 64, 0, True),
+    ("S 32", 32, 64, 0, True),
+    ("S 64", 64, 64, 0, True),
+    ("S 128", 128, 64, 0, True),
+    ("S 256", 256, 64, 0, True),
+    ("S 128 d 128", 128, 128, 0, True),
+    ("S 128 d 40", 128, 40, 0, True),
+    ("window 32", 256, 64, 32, True),
+    ("non-causal", 128, 64, 0, False),
+)
+HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
 # every run prints both and fails if the bar no longer lies between them.
@@ -608,45 +626,77 @@ def check_gemms(dev):
 
 
 def check_flash(dev):
-    """K4 against its plain version over the prefill buckets."""
+    """K4 against its plain version at FLASH_CASES, bf16 (tensor cores) and
+    f32 (CUDA cores): o within 2**-7 (bf16) or 2e-3 (f32), lse within 2e-3.
+    K4 and the library yardstick (scaled_dot_product_attention, a boolean
+    mask for the window) are both timed by CUDA-graph replay, L2 flushed.
+    Bound: q, k, v and o read or written once and lse written once, against
+    4 d flops per kept (q, k) pair (the QK and PV products) at the bf16
+    tensor-core peak, or the f32 CUDA-core peak for f32."""
     from repro_torch.kernels.flash_attention import _flash_fwd, _flash_fwd_plain
     import torch.nn.functional as F
 
+    for name, regs in ptxas_lines("flash_fwd", "_tc_kernel"):
+        print(f"  ptxas {name}: {regs}", flush=True)
     records = []
     g = torch.Generator(device=dev).manual_seed(1)
-    bh, d = 4 * 36, 64
-    for s in FLASH_SEQS:
-        q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(
-            torch.bfloat16) for _ in range(3))
-        o, lse = _flash_fwd(q, k, v, 0, causal=True)
-        torch.cuda.synchronize()
-        plain = lambda: _flash_fwd_plain(q, k, v, 0, causal=True)  # noqa: E731
-        plain()                                   # warm: first-use set-up
-        (o_ref, lse_ref), plain_ms = timed(plain)
-        o_err, _ = _err(o, o_ref)
-        lse_err, _ = _err(lse, lse_ref)
-        ok = (_allclose(o, o_ref, 2 ** -7, 2 ** -7)
-              and _allclose(lse, lse_ref, 2e-3, 2e-3))
-        kern = lambda: _flash_fwd(q, k, v, 0, causal=True)      # noqa: E731
-        lib = lambda: F.scaled_dot_product_attention(           # noqa: E731
-            q[None], k[None], v[None], is_causal=True)
-        ms = time_ms(kern, 20)
-        lib_ms = time_ms(lib, 20)
-        pairs = s * (s + 1) // 2                  # causal (q, k) pairs per head
-        t_ops = 4.0 * bh * pairs * d / PEAK_OPS_S["bf16"] * 1e3
-        t_bytes = (4 * bh * s * d * 2 + bh * s * 4) / HBM_BYTES_S * 1e3
-        bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                              else (t_ops, "operations"))
-        records.append(dict(kernel="flash_fwd", bh=bh, s=s, d=d, ok=ok,
-                            max_abs_err=max(o_err, lse_err), ms=ms,
-                            plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            tol="o 2**-7, lse 2e-3"))
-        print(f"  flash_fwd     BH={bh} S={s:<3d} d={d} causal bf16 "
-              f"{'ok ' if ok else 'BAD'} o_err={o_err:.3g} "
-              f"lse_err={lse_err:.3g}  {ms:.4f} ms  plain {plain_ms:.3f} ms  "
-              f"sdpa {lib_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by})",
-              flush=True)
+    bh = 4 * 36
+    for label, s, d, window, causal in FLASH_CASES:
+        pos = torch.arange(s, device=dev)
+        keep = torch.ones((s, s), dtype=torch.bool, device=dev)
+        if causal:
+            keep &= pos[:, None] >= pos[None, :]
+        if window > 0:
+            keep &= (pos[:, None] - pos[None, :]) < window
+        pairs = int(keep.sum())
+        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(
+                dtype) for _ in range(3))
+            kern = lambda: _flash_fwd(q, k, v, window,        # noqa: E731
+                                      causal=causal)
+            o, lse = kern()
+            torch.cuda.synchronize()
+            plain = lambda: _flash_fwd_plain(q, k, v, window,  # noqa: E731
+                                             causal=causal)
+            plain()                               # warm: first-use set-up
+            (o_ref, lse_ref), plain_ms = timed(plain)
+            o_err, _ = _err(o, o_ref)
+            lse_err, _ = _err(lse, lse_ref)
+            o_tol = 2 ** -7 if dtype == torch.bfloat16 else 2e-3
+            ok = (_allclose(o, o_ref, o_tol, o_tol)
+                  and _allclose(lse, lse_ref, 2e-3, 2e-3))
+            if window > 0:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q[None], k[None], v[None], attn_mask=keep)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q[None], k[None], v[None], is_causal=causal)
+            call_ms = time_ms(kern, 20)
+            ms = graph_ms(kern)
+            lib_ms = yardstick_ms(lib, replay=True)
+            peak = PEAK_OPS_S["bf16" if dtype == torch.bfloat16
+                              else "cuda_core"]
+            t_ops = 4.0 * bh * pairs * d / peak * 1e3
+            t_bytes = ((4 * bh * s * d * q.element_size() + bh * s * 4)
+                       / HBM_BYTES_S * 1e3)
+            bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                  else (t_ops, "operations"))
+            records.append(dict(kernel="flash_fwd", case=label, bh=bh, s=s,
+                                d=d, window=window, causal=causal,
+                                dtype=dname, ok=ok,
+                                max_abs_err=max(o_err, lse_err), ms=ms,
+                                call_ms=call_ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, kept_pairs=pairs * bh,
+                                tol=f"o {o_tol:g}, lse 2e-3"))
+            lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            print(f"  flash_fwd     {label:11s} BH={bh} S={s:<3d} d={d:<3d} "
+                  f"{dname:4s} {'ok ' if ok else 'BAD'} o_err={o_err:.3g} "
+                  f"lse_err={lse_err:.3g}  {ms:.4f} ms (graph replay; "
+                  f"{call_ms:.4f} ms around the call)  plain "
+                  f"{plain_ms:.3f} ms  sdpa {lib_txt}  bound "
+                  f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+            del q, k, v, o, lse, o_ref, lse_ref
     return records
 
 
@@ -783,8 +833,9 @@ def check_convs(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels import conv_gemm as cg
-    from repro_torch.kernels import ops
 
+    for name, regs in ptxas_lines("conv_gemm", "pair_kernel"):
+        print(f"  ptxas {name}: {regs}", flush=True)
     records = []
     g = torch.Generator(device=dev).manual_seed(3)
     for label, h, w, cin, cout, kh, kw, st, pad, groups in CONV_CASES:
@@ -809,11 +860,12 @@ def check_convs(dev):
                     stride=st, padding=pad, groups=groups))
             xp = F.pad(x, (0, 0, pad, pad, pad, pad))
             stack = cg._kernel_to_stack(kern, groups)
-            bm, bn, bk = ops.mac_blocks(m)
             for algo in ("baseline", "fip", "ffip"):
                 fold = dtype == "int8" and algo != "baseline"
                 bg = {"baseline": stack, "fip": cg._evenize_k(stack),
                       "ffip": cg._y_even(stack)}[algo]
+                bm, bn, bk = cg.conv_blocks(m, cout // groups, bg.shape[1],
+                                            algo, groups)
                 kern_fn = lambda: cg.fused_conv_raw(   # noqa: E731
                     xp, stack, kh=kh, kw=kw, stride=st, groups=groups,
                     algo=algo, fold_beta=fold)
@@ -836,6 +888,7 @@ def check_convs(dev):
                 records.append(dict(
                     kernel="conv_gemm", case=label, algo=algo, dtype=dtype,
                     batch=CONV_BATCH, m=m, k=geom.k, n=cout, groups=groups,
+                    tile=f"{bm}x{bn}",
                     fold_beta=fold, ok=ok, max_abs_err=abs_err,
                     max_rel_err=rel_err, tol=tol, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by))
@@ -843,6 +896,7 @@ def check_convs(dev):
                        else f"{lib_ms:.4f} ms")
                 print(f"  conv_gemm     {label:17s} M={m:<6d} K={geom.k:<4d} "
                       f"N={cout:<4d} g{groups} {algo:8s} {dtype:4s} "
+                      f"{bm}x{bn} "
                       f"{'ok ' if ok else 'BAD'} max_abs={abs_err:.3g} "
                       f"({tol})  {ms:.4f} ms  plain {plain_ms:.3f} ms  "
                       f"conv2d {lib}  bound {bound_ms:.4f} ms ({bound_by})",
@@ -1477,7 +1531,8 @@ def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
     return runs
 
 
-KERNEL_GROUPS = (("ConvA", "conv_gemm"),
+KERNEL_GROUPS = (("conv_", "conv_gemm"),
+                 ("ConvA", "conv_gemm"),
                  ("selective_scan_kernel", "selective_scan"),
                  ("selective_scan_bwd_kernel", "selective_scan_bwd"),
                  ("flash_bwd_", "flash_bwd"),
@@ -1487,7 +1542,7 @@ KERNEL_GROUPS = (("ConvA", "conv_gemm"),
                  ("baseline_kernel", "baseline_gemm"),
                  ("baseline_tc", "baseline_gemm"),
                  ("reduce_units", "split-K reduce"),
-                 ("flash_fwd_kernel", "flash_fwd"),
+                 ("flash_fwd_", "flash_fwd"),
                  ("flash_paged_kernel", "flash_paged"))
 
 
@@ -2473,8 +2528,12 @@ def main(argv=None) -> int:
                      f"{-(-n // 32)}), once per weight, memoized beside y; "
                      f"library: torch.cumsum(y, 1)")
         elif name == "flash_fwd":
-            head = next(r for r in recs_k if r["s"] == HEADLINE_FLASH_S)
-            shape = f"BH={head['bh']} S={head['s']} d={head['d']} causal bf16"
+            head = next(r for r in recs_k if (r["case"], r["dtype"])
+                        == HEADLINE_FLASH)
+            shape = (f"BH={head['bh']} S={head['s']} d={head['d']} causal "
+                     f"bf16, minicpm-2b prefill; ms by CUDA-graph replay; "
+                     f"library: scaled_dot_product_attention, by CUDA-graph "
+                     f"replay")
         elif name == "flash_paged":
             head = next(r for r in recs_k if (r["case"], r["dtype"])
                         == HEADLINE_PAGED)

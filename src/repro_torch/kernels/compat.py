@@ -35,7 +35,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 # The H100 SXM's SMs, which the GEMM launch plans fill, and the bound on any
-# split-K partials buffer (K2/K3's launch plan, K7's unit plan).
+# split-K partials buffer (the launch plan of K2, K3 and K7's FIP/FFIP).
 SMS = 132
 WORKSPACE_BYTES = 512 * 1024 * 1024
 

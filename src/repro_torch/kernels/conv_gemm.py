@@ -5,18 +5,23 @@ CUDA C++ kernel ``csrc/conv_gemm.cu``; also the host half of that module.
 
 The paper's memory subsystem never materialises an im2col matrix: the §5.1
 multi-digit address counters generate the conv->GEMM gather addresses while
-the array consumes the stream. On the card each (bm, 32) A tile is gathered
-from the padded NHWC input in global memory / L2 into shared memory, and the
-tile arithmetic after it is the CUDA-core tile body f32 K1 runs
-(``csrc/gemm_kernels.cuh``: one in-order sweep for baseline and FIP; for
-FFIP the half-tile k-split plan of :func:`split_rows`, a function of K
-only). So the f32 baseline conv gives the same bits as K1 over the
-materialised A (int8 too, though int8 K1 runs on the tensor cores: integer
-sums are exact in any order), and the batch, folded into M (M = batch * OH
-* OW), does not change an image's result. (K2 and K3 run their own
-pipelined pair body; K7's FIP/FFIP sum the same products in another
-nesting.) Bound on the H100: CUDA-core operations (f32 without TF32;
-FIP/FFIP in issue slots).
+the array consumes the stream. On the card each (bm, 32) A stage is gathered
+from the padded NHWC input in global memory / L2 straight into shared
+memory (16-byte ``cp.async`` where Cin_g is a whole number of 16-byte
+chunks, plain loads otherwise), and the tile arithmetic after it is K2's
+and K3's: FIP and FFIP run on their pipelined pair body
+(``csrc/fip_body.cuh``, its ``ConvRows`` loader), FFIP from y and a carry
+table per group (:func:`carry_stack`, derived once per weight), with K2's
+and K3's split and launch plans (``fip_gemm.split_plan``, ``launch_plan``)
+and the groups folded into the grid. So K7's FIP and FFIP sum what K2 and
+K3 sum over the materialised A, in the same nesting, at every K: the same
+bits. The baseline keeps f32 K1's CUDA-core body (no TF32): the same bits
+as f32 K1 over the materialised A (int8: integer sums are exact in any
+order). The batch, folded into M (M = batch * OH * OW), changes neither the
+splits nor the order of a row's sums, so it does not change an image's
+result. The tile comes from M, N and K (:func:`conv_blocks`). Bound on the
+H100: the CUDA cores' issue slots for FIP/FFIP (2 adds + 1 multiply-add a pair
+and output), the f32 FMA rate for the f32 baseline.
 
 The plain version (:func:`fused_conv_plain`) is the reference's own
 contract: it gathers A with :func:`~repro_torch.core.im2col.conv_gemm_indices`
@@ -43,11 +48,12 @@ from repro_torch.core import fip, quant
 from repro_torch.core.im2col import (Size2, as_pair, conv_gemm_indices,
                                      conv_out_hw)
 from repro_torch.kernels import compat, ops
-from repro_torch.kernels.baseline_gemm import (KERNEL_BK, acc_dtype_of,
+from repro_torch.kernels.baseline_gemm import (acc_dtype_of,
                                                baseline_gemm_plain, int_mm,
                                                kernel_tm)
-from repro_torch.kernels.ffip_gemm import ffip_gemm_y_plain
-from repro_torch.kernels.fip_gemm import fip_gemm_plain
+from repro_torch.kernels.ffip_gemm import carry_table, ffip_gemm_y_plain
+from repro_torch.kernels.fip_gemm import (PAIR_BK, fip_gemm_plain,
+                                          launch_plan, pair_geom, split_plan)
 
 Tensor = torch.Tensor
 
@@ -55,51 +61,35 @@ counter = compat.launch_counter("conv_gemm")
 
 _ALGO_CODES = {"baseline": 0, "fip": 1, "ffip": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.int8: 2}
-_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 21 + [ctypes.c_void_p]
+_SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 20 + [ctypes.c_void_p]
 # Elements of the plain version's (M, pairs, N) temporaries per step.
 _PLAIN_TEMP_ELEMS = 16 << 20
-# K7's FFIP plan (FFIP_GROUPS, split_rows, unit_plan, workspace) serves its
-# half-tile FFIP body only, and goes with K7's move onto the pair body
-# (ROADMAP queue 2 §B). Groups of half-tile splits that one CTA of the FFIP
-# body sums itself at large M.
-FFIP_GROUPS = 24
+# CTAs a 128 x 128 launch needs to take that tile (as fip_gemm's launch plan
+# counts a filled card).
+_WIDE_FILL = compat.SMS * 9 // 10
 
 
-def split_rows(k: int) -> Tuple[int, int]:
-    """K7's FFIP k-split plan, from K only: ``(rows per split, splits per
-    group)``. Splits are half a k-tile (16 rows, whole pairs), so a small M
-    has K / 16 CTAs to fill the card with, its time being each CTA's serial
-    N sweep; the splits form at most FFIP_GROUPS groups, which one CTA each
-    sums at large M."""
-    rows = KERNEL_BK // 2
-    splits = -(-k // rows)
-    return rows, -(-splits // FFIP_GROUPS)
-
-
-def unit_plan(k: int, rows: int, group: int, ctas_per_unit: int,
-              slot_bytes: int) -> Tuple[int, int, int]:
-    """How a K7 FFIP launch runs the k-split plan: ``(splits per CTA, units,
-    slots per reduction group)``. Either each CTA takes one split (while the
-    card would otherwise hold fewer than SMS CTAs and the partials fit the
-    workspace) and the reduction sums each group's slots, then the group
-    totals; or each CTA sums one whole group itself and the reduction sums
-    the group totals. Both sum in the plan's order: the same bits. Only
-    this choice depends on M (through ``ctas_per_unit``, the CTAs one unit
-    along K takes, and ``slot_bytes``, one partial's size)."""
-    splits = -(-k // rows)
-    groups = -(-splits // group)
-    if (groups < splits and ctas_per_unit * groups < compat.SMS
-            and splits * slot_bytes <= compat.WORKSPACE_BYTES):
-        return 1, splits, group
-    return group, groups, 1
-
-
-def workspace(units: int, shape, dtype, device) -> Tensor:
-    """The (units, *shape) partials buffer, or an empty stand-in when one
-    unit writes the output directly."""
-    if units <= 1:
-        return torch.empty((0,), dtype=dtype, device=device)
-    return torch.empty((units, *shape), dtype=dtype, device=device)
+def conv_blocks(m: int, n: int, k: int, algo: str,
+                groups: int = 1) -> Tuple[int, int, int]:
+    """K7's (bm, bn, bk) for M output pixels, N output channels a group and
+    the (evenized) K. The baseline: the CUDA-core body's
+    (:func:`~repro_torch.kernels.ops.mac_blocks`). FIP and FFIP: a tile of
+    the pair body (``fip_gemm.PAIR_GEOMS``), where K2's and K3's
+    ``pair_blocks`` looks at M only: 128 x 128 where N > 64 and its launch
+    (one split a CTA where the grid alone would leave SMs idle,
+    ``fip_gemm.launch_plan``) fills the card; else 64 x 64 (N <= 64, as
+    ResNet-50's conv1 and stage 2, where a 128-column tile computes half
+    zeros; ResNet-50's 1x1 convs of stages 4-5 at batch 8, whose grid is
+    short and K one split). The tile never changes a row's sums (fixed
+    k-tile order, the split plan from K only)."""
+    if algo == "baseline":
+        return ops.mac_blocks(m)
+    ctas = -(-m // 128) * -(-n // 128) * groups
+    if launch_plan(m, n, k, 128, 128, groups=groups):
+        ctas *= split_plan(k)[1]
+    if n <= 64 or ctas < _WIDE_FILL:
+        return 64, 64, PAIR_BK
+    return 128, 128, PAIR_BK
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +158,12 @@ def _y_even(bg: Tensor) -> Tensor:
     return torch.stack([fip.make_y(b) for b in _evenize_k(bg)])
 
 
+def carry_stack(y: Tensor) -> Tensor:
+    """The (G, K, ceil(N / 32)) carry tables of a (G, K, N) y stack: each
+    group's ``ffip_gemm.carry_table``, so K7's rebuilt weights are K3's."""
+    return torch.stack([carry_table(yg) for yg in y])
+
+
 def fused_conv_plain(x: Tensor, bg: Tensor, geom: ConvGeom, *, algo: str,
                      bm: int, bn: int, bk: int,
                      fold_beta: bool = False) -> Tensor:
@@ -205,10 +201,11 @@ def fused_conv_plain(x: Tensor, bg: Tensor, geom: ConvGeom, *, algo: str,
     return out.reshape(n_b, geom.oh, geom.ow, geom.groups * geom.ng)
 
 
-def _fused_cuda(x: Tensor, bg: Tensor, geom: ConvGeom, *, algo: str,
-                bm: int, bn: int, bk: int, fold_beta: bool) -> Tensor:
-    """Launch K7 (images in chunks where the split partials would pass the
-    workspace bound: an image's sums are the same in any chunk)."""
+def _fused_cuda(x: Tensor, bg: Tensor, carry, geom: ConvGeom, *,
+                algo: str, bm: int, bn: int, bk: int,
+                fold_beta: bool) -> Tensor:
+    """Launch K7 on the whole batch: FIP/FFIP on the pair body in K2's and
+    K3's split and launch plans, the baseline on the CUDA-core body."""
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"conv_gemm: input dtype {x.dtype} (f32 or int8)")
     acc = acc_dtype_of(x.dtype)
@@ -221,36 +218,32 @@ def _fused_cuda(x: Tensor, bg: Tensor, geom: ConvGeom, *, algo: str,
     compat.require_cuda(x, bg)
     if x.numel() >= 2 ** 31:
         raise ValueError("conv_gemm: input too large for 32-bit addresses")
-    tm = kernel_tm(bm, bn, bk)
     n_b = x.shape[0]
     _, ks, ng = bg.shape
     ldo = geom.groups * ng
     m = n_b * geom.m
-    m_blocks = -(-m // bm)
-    rows = spu = red = 0
-    units = 1                  # baseline / FIP: one in-order sweep of K
-    if algo == "ffip":
-        rows, group = split_rows(ks)
-        spu, units, red = unit_plan(ks, rows, group, m_blocks * geom.groups,
-                                    m * ldo * 4)
-    per_img = geom.m * ldo * 4
-    chunk = n_b
-    if units > 1 and units * n_b * per_img > compat.WORKSPACE_BYTES:
-        chunk = max(1, compat.WORKSPACE_BYTES // (units * per_img))
+    tm = tile = rows = 0
+    splits, split_cta = 1, False
+    if algo == "baseline":
+        tm = kernel_tm(bm, bn, bk)
+    else:
+        tile = pair_geom(bm, bn, bk)
+        rows, splits = split_plan(ks)
+        split_cta = launch_plan(m, ng, ks, bm, bn, groups=geom.groups)
     out = torch.empty((n_b, geom.oh, geom.ow, ldo), dtype=acc,
                       device=x.device)
-    ws = workspace(units, (min(chunk, n_b) * geom.m, ldo), acc, x.device)
+    ws = (torch.empty((splits, m, ldo), dtype=acc, device=x.device)
+          if split_cta else out)
     lib = compat.load("conv_gemm", {"conv_gemm_launch": _SIG})
-    for b0 in range(0, n_b, chunk):
-        nb = min(chunk, n_b - b0)
-        err = lib.conv_gemm_launch(
-            x[b0].data_ptr(), bg.data_ptr(), ws.data_ptr(),
-            out[b0].data_ptr(), nb, geom.h, geom.w, geom.cin, geom.groups,
-            geom.kh, geom.kw, geom.sh, geom.sw, geom.oh, geom.ow, geom.k, ng,
-            ks, rows, spu, red, _ALGO_CODES[algo], _DTYPE_CODES[x.dtype], tm,
-            int(fold_beta), compat.stream_ptr(x))
-        counter.bump()
-        compat.check(err, "conv_gemm")
+    err = lib.conv_gemm_launch(
+        x.data_ptr(), bg.data_ptr(),
+        None if carry is None else carry.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), n_b, geom.h, geom.w, geom.cin, geom.groups, geom.kw,
+        geom.sh, geom.sw, geom.oh, geom.ow, geom.k, ng, ks,
+        _ALGO_CODES[algo], _DTYPE_CODES[x.dtype], tm, tile, rows,
+        int(split_cta), int(fold_beta), compat.stream_ptr(x))
+    counter.bump()
+    compat.check(err, "conv_gemm")
     return out
 
 
@@ -279,20 +272,25 @@ def fused_conv_raw(x: Tensor, bg: Tensor, *, kh: int, kw: int,
                     groups=groups, ng=ng)
     if ks not in (geom.k, geom.k + geom.k % 2):
         raise ValueError(f"b-stack K={ks} does not match KH*KW*Cin_g={geom.k}")
-    # the offline weight derivations (evenize, y deltas; §4.4) are memoised
-    # per weight, as K3's y deltas are
+    # the offline weight derivations (evenize, y deltas and, on the card,
+    # their carry tables; §4.4) are memoised per weight, as K3's are
+    memo = compat.current_derived()
+    carry = None
     if algo == "ffip":
-        bg = compat.current_derived().get("y_even", bg, _y_even)
+        bg = memo.get("y_even", bg, _y_even)
+        if bg.device.type == "cuda":
+            carry = memo.get("carry_even", bg, carry_stack)
     elif algo == "fip":
-        bg = compat.current_derived().get("even", bg, _evenize_k)
+        bg = memo.get("even", bg, _evenize_k)
     if not (bm and bn and bk):
-        bm, bn, bk = ops.mac_blocks(n_b * geom.m)
+        bm, bn, bk = conv_blocks(n_b * geom.m, ng, bg.shape[1], algo,
+                                 groups)
     if algo in ("fip", "ffip") and bk % 2:
         raise ValueError(f"bk={bk} must be even for the FIP pair algebra")
     if x.device.type == "cpu":
         return fused_conv_plain(x, bg, geom, algo=algo, bm=bm, bn=bn, bk=bk,
                                 fold_beta=fold_beta)
-    return _fused_cuda(x, bg, geom, algo=algo, bm=bm, bn=bn, bk=bk,
+    return _fused_cuda(x, bg, carry, geom, algo=algo, bm=bm, bn=bn, bk=bk,
                        fold_beta=fold_beta)
 
 

@@ -27,9 +27,9 @@ template <typename In, typename Acc>
 static int launch_cuda_cores(const void* a, const void* b, void* out, int M,
                              int N, int K, int tm, cudaStream_t stream) {
   DenseParams<In> ap{(const In*)a, M, K};
-  Plan pl{M, N, K, N, 0, 0, 0, 0, 0, 0};
-  return (int)launch_mac<In, Acc, false, DenseA>(ap, (const In*)b,
-                                                 (Acc*)out, pl, 1, tm, stream);
+  Plan pl{M, N, K, N, 0};
+  return (int)launch_mac<In, Acc, DenseA>(ap, (const In*)b, (Acc*)out, pl, 1,
+                                          tm, stream);
 }
 
 // dtype: 0 = f32 x f32 -> f32 (tile: rows a thread, 1 or 4), 1 = bf16 x

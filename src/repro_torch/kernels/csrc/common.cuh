@@ -1,8 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: the cp.async,
 // ldmatrix and mma.sync wrappers of the pipelined bodies (K1's tensor-core
 // body, K2/K3's pair body, K8), operand conversion into the accumulation
-// type, K7's (and f32 K1's) tile geometry and dense tile loads, and the
-// deterministic split-K reduction pass.
+// type, the tile geometry and dense tile loads of f32 K1's and K7's
+// baseline body, and the deterministic split-K reduction pass.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,9 +74,10 @@ __device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Output tile geometry of K7 and f32 K1 (see kernels/ops.py::mac_blocks):
-// 256 threads as a 16 x 16 grid, each thread owning TM rows x TN columns
-// strided by 16, so neighbouring threads touch neighbouring columns.
+// Output tile geometry of f32 K1 and K7's baseline
+// (kernels/ops.py::mac_blocks): 256 threads as a 16 x 16 grid, each thread
+// owning TM rows x TN columns strided by 16, so neighbouring threads touch
+// neighbouring columns.
 constexpr int TX = 16;
 constexpr int TY = 16;
 constexpr int TN = 4;
@@ -93,34 +94,28 @@ __device__ __forceinline__ int cvt<int, int8_t>(int8_t v) { return (int)v; }
 template <>
 __device__ __forceinline__ int cvt<int, int>(int v) { return v; }
 
-// The split-K reduction, in the order the plan fixes (gemm_kernels.cuh):
-// the partials of each group of `gsz` consecutive slots are summed in slot
-// order, then the group totals in group order. No atomics, so a float result
-// does not change from run to run; and a CTA that summed a whole group
-// itself (gsz = 1 here) leaves the same bits.
+// The split-K reduction of the pair body (fip_body.cuh): out = the slots
+// summed in slot (split) order. No atomics, so a float result does not
+// change from run to run; and a CTA that summed every split itself, in the
+// same order, leaves the same bits.
 template <typename Acc>
 __global__ void reduce_units(const Acc* __restrict__ ws, Acc* __restrict__ out,
-                             int units, int gsz, long long mn) {
+                             int units, long long mn) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= mn) return;
-  Acc total = Acc(0);
-  for (int g0 = 0; g0 < units; g0 += gsz) {
-    Acc t = ws[(long long)g0 * mn + i];
-    const int g1 = min(g0 + gsz, units);
-    for (int p = g0 + 1; p < g1; ++p) t += ws[(long long)p * mn + i];
-    total = g0 == 0 ? t : total + t;
-  }
+  Acc total = ws[i];
+  for (int p = 1; p < units; ++p) total = total + ws[(long long)p * mn + i];
   out[i] = total;
 }
 
 template <typename Acc>
-inline void launch_reduce(const Acc* ws, Acc* out, int units, int gsz,
-                          long long mn, cudaStream_t stream) {
+inline void launch_reduce(const Acc* ws, Acc* out, int units, long long mn,
+                          cudaStream_t stream) {
   if (units <= 1) return;
   int threads = 256;
   long long blocks = (mn + threads - 1) / threads;
   reduce_units<Acc><<<(unsigned)blocks, threads, 0, stream>>>(ws, out, units,
-                                                              gsz, mn);
+                                                              mn);
 }
 
 // Load a (ROWS x BK) tile of a row-major (M, K) operand into shared memory in

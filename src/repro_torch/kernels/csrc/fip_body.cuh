@@ -1,43 +1,54 @@
-// The pipelined pair body of K2 (FIP, fip_gemm.cu) and K3 (FFIP from the
-// Eq. 9 deltas y, ffip_gemm.cu) on Hopper's CUDA cores. The pre-add
-// (a_{i,2k-1} + b_{2k,j})(a_{i,2k} + b_{2k-1,j}) couples i and j, so the pair
-// product has no tensor-core mapping: each pair costs an output 2 FADD + 1
-// FFMA (int: 2 IADD + 1 IMAD), and that issue rate bounds the kernels at
-// prefill; at decode the bytes of B (K3: of y) bound them.
+// The pipelined pair body of K2 (FIP, fip_gemm.cu), K3 (FFIP from the Eq. 9
+// deltas y, ffip_gemm.cu) and K7's FIP and FFIP (conv_gemm.cu) on Hopper's
+// CUDA cores. The pre-add (a_{i,2k-1} + b_{2k,j})(a_{i,2k} + b_{2k-1,j})
+// couples i and j, so the pair product has no tensor-core mapping: each pair
+// costs an output 2 FADD + 1 FFMA (int: 2 IADD + 1 IMAD), and that issue rate
+// bounds the kernels at prefill; at decode the bytes of B (K3: of y) bound
+// them.
 //
-// One CTA computes one (BM x BN) output tile over a range of K, in 32-row
-// k-tiles (16 whole pairs), through
+// One CTA computes one (BM x BN) output tile of one group over a range of K,
+// in 32-row k-tiles (16 whole pairs), through
 //   - a ring of NS raw stages in shared memory filled by 16-byte cp.async
 //     copies (4-byte for the carry table; plain loads where a row is not
-//     16-byte aligned), issued NS tiles ahead of the tile computed;
+//     16-byte aligned), issued NS tiles ahead of the tile computed. The A
+//     stage comes from the kernel's A loader: DenseRows copies rows of a
+//     row-major (M, K) matrix (K2, K3); ConvRows gathers the implicit im2col
+//     matrix of a conv straight from the padded NHWC input (K7, Algorithm
+//     1's multi-digit counter split into a per-row base, computed once per
+//     CTA, and a per-column offset, once per k-tile);
 //   - a transform of each raw stage into a double-buffered f32 / int32 tile,
 //     one tile ahead of the compute: the first warps convert A (one thread
 //     a row, stored k-major, with the row's alpha), the next BN / 32 warps
-//     convert B or, for K3, rebuild it from y (one warp a 32-column group,
+//     convert B or, for FFIP, rebuild it from y (one warp a 32-column group,
 //     one lane a k row, a serial prefix sum), then, behind a barrier of
 //     their own, each lane forms its column's beta;
 //   - the pair products in a TM x TN register tile fed by 128-bit fragment
 //     loads;
-// with one barrier per k-tile.
+// with one barrier per k-tile. Groups (K7's grouped convs) are folded into
+// grid.x: group g's B (or y and carry table) is the g-th (K, N) slice, and
+// its output columns are g * N .. g * N + N - 1 of rows of stride ldo.
 //
-// K3 rebuilds b without any sweep over N: b[k][32t + c] = C[k][t] + s_c,
+// FFIP rebuilds b without any sweep over N: b[k][32t + c] = C[k][t] + s_c,
 // s_c = (((y[k][32t] + y[k][32t + 1]) + ...) + y[k][32t + c]), where C
 // (K x ceil(N/32)) is the carry table (kernels/ffip_gemm.py::carry_table):
 // the prefix of row k before column 32t, derived offline from y by chaining
 // the same serial group totals. So a CTA rebuilds any tile alone, the
 // rebuilt b does not depend on the tile width, and K3 has K2's grid.
 //
-// Sums, the same at every M and every tile geometry (batch invariance):
-// per k-tile, in pair order, cross = sum (a_o + b_e)(a_e + b_o), alpha =
-// sum a_o a_e, beta = sum b_o b_e; the tile's part (cross - alpha) - beta
-// (Eqs. 2-4, 7) goes into the split's running sum in k order. K is cut into
-// splits of `split_rows` rows, a function of K only
-// (kernels/fip_gemm.py::split_plan): a row's result is the splits' sums
-// added in split order. A CTA either sums every split itself (the running
-// total in shared memory) or, where the grid would not fill the card,
-// computes one split into a workspace slot, and reduce_units (common.cuh)
-// adds the slots in the same order: the same bits either way.
+// Sums, the same at every M, every tile geometry and either A loader (batch
+// invariance; K7 equal to K2/K3 over the materialised A): per k-tile, in
+// pair order, cross = sum (a_o + b_e)(a_e + b_o), alpha = sum a_o a_e,
+// beta = sum b_o b_e; the tile's part (cross - alpha) - beta (Eqs. 2-4, 7)
+// goes into the split's running sum in k order. K is cut into splits of
+// `split_rows` rows, a function of K only (kernels/fip_gemm.py::split_plan):
+// a row's result is the splits' sums added in split order. A CTA either
+// sums every split itself (the running total in shared memory) or, where
+// the grid would not fill the card, computes one split into a workspace
+// slot, and reduce_units (common.cuh) adds the slots in the same order: the
+// same bits either way.
 #pragma once
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace fb {
@@ -152,9 +163,11 @@ __device__ __forceinline__ T zero() {
 
 // Shared-memory layout of one instantiation. Raw rows of A and B and the
 // rows of the B tile are padded by 16 bytes, so the transform's threads,
-// one a row, read and write them without bank conflicts; the tot region
-// exists only in a launch whose CTAs sum more than one split.
-template <class G, typename In, typename BIn, typename Acc, bool FFIP>
+// one a row, read and write them without bank conflicts; AUX bytes of the A
+// loader's state follow; the tot region exists only in a launch whose CTAs
+// sum more than one split.
+template <class G, typename In, typename BIn, typename Acc, bool FFIP,
+          int AUX = 0>
 struct Layout {
   static constexpr int A_LD = BK * (int)sizeof(In) + 16;      // bytes
   static constexpr int A_RAW = G::BM * A_LD;
@@ -167,26 +180,154 @@ struct Layout {
   static constexpr int T_BT = BK * BTS * (int)sizeof(Acc);
   static constexpr int T = T_AT + T_BT + (G::BM + G::BN) * (int)sizeof(Acc);
   static constexpr int TOT = G::BM * G::BN * (int)sizeof(Acc);
-  static constexpr int NS = stages_fitting(G::NSMAX, RAW, 2 * T + TOT);
-  static constexpr int BASE = NS * RAW + 2 * T;
-  static_assert(BASE + TOT <= SMEM_MAX, "shared memory");
+  static constexpr int NS = stages_fitting(G::NSMAX, RAW, 2 * T + AUX + TOT);
+  static constexpr int BASE = NS * RAW + 2 * T;      // the loader's state
+  static constexpr int TOT_AT = BASE + AUX;
+  static_assert(TOT_AT + TOT <= SMEM_MAX, "shared memory");
+};
+
+// A conv's geometry (K7): the NHWC input, already spatially padded to
+// (h, w); M = batch * oh * ow output pixels; A column k < k_real is (kh, kw,
+// c), the group's channel c at kernel offset (kh, kw).
+struct ConvShape {
+  int h, w, cin, cin_g, kw, sh, sw, oh, ow, k_real;
 };
 
 struct PairArgs {
-  const void* a;      // (M, K) row-major, In
-  const void* b;      // (K, N) row-major: B (K2, In) or y (K3, Acc)
-  const void* carry;  // K3: (K, ceil(N / 32)) carry table, Acc
-  void* out;          // (M, N), or the (splits, M, N) workspace
-  int M, N, K;
+  const void* a;      // (M, K) row-major, In; K7: the padded NHWC input
+  const void* b;      // (groups, K, N) row-major: B (In) or y (FFIP, Acc)
+  const void* carry;  // FFIP: (groups, K, ceil(N / 32)) carry table, Acc
+  void* out;          // (M, ldo), or the (splits, M, ldo) workspace
+  int M, N, K;        // N: a group's columns
+  int groups, ldo;    // ldo = groups * N
   int split_rows;     // rows of one split (a multiple of BK)
   int split_cta;      // 1: blockIdx.z is the split; 0: a CTA sums all
   int fold_beta;
   int a_vec, b_vec;   // rows 16-byte aligned: cp.async, else plain loads
+  ConvShape conv;     // ConvRows only
 };
 
-template <class G, typename In, typename BIn, typename Acc, bool FFIP>
+// -- A loaders: the (BM x BK) raw A stage of the k-tile at k0 ----------------
+// Elements at rows past M, at columns from k_hi (K, or the split's end) and,
+// for a conv, from k_real (the evenized K's zero column) are zero: the
+// reference's zero padding, exact in the pair algebra. Both loaders put the
+// same values in the stage for the same A, so K7 sums what K2 and K3 sum
+// over the materialised im2col matrix.
+template <class G, typename In>
+struct DenseRows {
+  static constexpr int AUX = 0;
+  __device__ DenseRows(const PairArgs&, int, int, int*) {}
+  static bool vec(const PairArgs& p) {
+    return p.K % (16 / (int)sizeof(In)) == 0 && (uintptr_t)p.a % 16 == 0;
+  }
+  __device__ __forceinline__ void load(const PairArgs& p, unsigned char* r,
+                                       int a_ld, int m0, int k0,
+                                       int k_hi) const {
+    constexpr int BM = G::BM, THREADS = G::THREADS;
+    const int tid = threadIdx.x;
+    const In* A = (const In*)p.a;
+    constexpr int EA = 16 / (int)sizeof(In);       // elements a chunk
+    constexpr int CA = BK / EA;                      // chunks a row
+    if (p.a_vec) {
+      for (int i = tid; i < BM * CA; i += THREADS) {
+        const int row = i / CA, c = i % CA;
+        const int gm = m0 + row, gk = k0 + c * EA;
+        const bool ok = gm < p.M && gk < k_hi;
+        cp_async16(r + row * a_ld + c * 16,
+                   ok ? (const void*)(A + (long long)gm * p.K + gk) : p.a,
+                   ok);
+      }
+    } else {
+      for (int i = tid; i < BM * BK; i += THREADS) {
+        const int row = i / BK, c = i % BK;
+        const int gm = m0 + row, gk = k0 + c;
+        In v = zero<In>();
+        if (gm < p.M && gk < k_hi) v = A[(long long)gm * p.K + gk];
+        ((In*)(r + row * a_ld))[c] = v;
+      }
+    }
+  }
+};
+
+// Algorithm 1's multi-digit counter, split as the hardware splits it: the
+// address of A[m][k] is base(m) + offset(k). The bases of the tile's rows
+// (the window corner of each output pixel, -1 past M) are computed once per
+// CTA into shared memory; each thread keeps one chunk column (one column
+// with plain loads) of the stage, so it forms one offset a k-tile. A 16-byte
+// chunk never crosses a (kh, kw) tap: cp.async only where cin_g is a whole
+// number of chunks (4 f32, 16 int8) and the input is 16-byte aligned.
+template <class G, typename In>
+struct ConvRows {
+  static constexpr int AUX = G::BM * (int)sizeof(int);
+  const int* base;
+  int g_off;          // the group's first input channel
+  __device__ ConvRows(const PairArgs& p, int m0, int group, int* aux)
+      : base(aux), g_off(group * p.conv.cin_g) {
+    const ConvShape& c = p.conv;
+    const int per_img = c.oh * c.ow;
+    for (int r = threadIdx.x; r < G::BM; r += G::THREADS) {
+      const int m = m0 + r;
+      int b = -1;
+      if (m < p.M) {
+        const int img = m / per_img, rem = m - img * per_img;
+        const int oh = rem / c.ow, ow = rem - oh * c.ow;
+        b = ((img * c.h + oh * c.sh) * c.w + ow * c.sw) * c.cin;
+      }
+      aux[r] = b;
+    }
+  }
+  static bool vec(const PairArgs& p) {
+    return p.conv.cin_g % (16 / (int)sizeof(In)) == 0 &&
+           (uintptr_t)p.a % 16 == 0;
+  }
+  // the input offset of A column k: the tap (kh, kw), the group's channel
+  __device__ __forceinline__ int offset(const PairArgs& p, int k) const {
+    const ConvShape& c = p.conv;
+    const int row_len = c.kw * c.cin_g;
+    const int kh_i = k / row_len, rem = k - kh_i * row_len;
+    const int kw_i = rem / c.cin_g;
+    return (kh_i * c.w + kw_i) * c.cin + g_off + (rem - kw_i * c.cin_g);
+  }
+  __device__ __forceinline__ void load(const PairArgs& p, unsigned char* r,
+                                       int a_ld, int /*m0*/, int k0,
+                                       int k_hi) const {
+    constexpr int BM = G::BM, THREADS = G::THREADS;
+    const int tid = threadIdx.x;
+    const In* X = (const In*)p.a;
+    if (p.a_vec) {
+      // k_real is a whole number of chunks and K = k_real: a chunk is in
+      // or out
+      constexpr int EA = 16 / (int)sizeof(In), CA = BK / EA;
+      static_assert(THREADS % CA == 0, "one chunk column a thread");
+      const int c = tid % CA, k = k0 + c * EA;
+      const bool kv = k < k_hi;
+      const int off = kv ? offset(p, k) : 0;
+      for (int i = tid; i < BM * CA; i += THREADS) {
+        const int row = i / CA, b = base[row];
+        const bool ok = kv && b >= 0;
+        cp_async16(r + row * a_ld + c * 16,
+                   ok ? (const void*)(X + b + off) : p.a, ok);
+      }
+    } else {
+      static_assert(THREADS % BK == 0, "one column a thread");
+      const int c = tid % BK, k = k0 + c;
+      const bool kv = k < k_hi && k < p.conv.k_real;
+      const int off = kv ? offset(p, k) : 0;
+      for (int i = tid; i < BM * BK; i += THREADS) {
+        const int row = i / BK, b = base[row];
+        In v = zero<In>();
+        if (kv && b >= 0) v = X[b + off];
+        ((In*)(r + row * a_ld))[c] = v;
+      }
+    }
+  }
+};
+
+template <class G, typename In, typename BIn, typename Acc, bool FFIP,
+          template <class, typename> class AL>
 __device__ __forceinline__ void pair_body(const PairArgs& p) {
-  using L = Layout<G, In, BIn, Acc, FFIP>;
+  using Loader = AL<G, In>;
+  using L = Layout<G, In, BIn, Acc, FFIP, Loader::AUX>;
   using V4 = typename Vec4<Acc>::type;
   constexpr int BM = G::BM, BN = G::BN, TM = G::TM, TN = G::TN;
   constexpr int NS = L::NS, THREADS = G::THREADS;
@@ -194,7 +335,9 @@ __device__ __forceinline__ void pair_body(const PairArgs& p) {
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int tx = tid % G::TX, ty = tid / G::TX;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int n_blocks = (p.N + BN - 1) / BN;
+  const int grp = blockIdx.x / n_blocks;
+  const int n0 = (blockIdx.x - grp * n_blocks) * BN, m0 = blockIdx.y * BM;
   const int splits = (p.K + p.split_rows - 1) / p.split_rows;
   const int s_lo = p.split_cta ? blockIdx.z : 0;
   const int s_hi = p.split_cta ? blockIdx.z + 1 : splits;
@@ -204,40 +347,22 @@ __device__ __forceinline__ void pair_body(const PairArgs& p) {
   const bool multi = s_hi - s_lo > 1;
   const bool live = m0 + G::row(ty, 0) < p.M;
   const int ngroups = (p.N + 31) / 32;
-  const In* A = (const In*)p.a;
-  const BIn* B = (const BIn*)p.b;
-  const Acc* Cy = (const Acc*)p.carry;
+  const BIn* B = (const BIn*)p.b + (long long)grp * p.K * p.N;
+  const Acc* Cy =
+      FFIP ? (const Acc*)p.carry + (long long)grp * p.K * ngroups : nullptr;
 
   auto raw = [&](int slot) { return smem + slot * L::RAW; };
   auto tbuf = [&](int slot) { return smem + NS * L::RAW + slot * L::T; };
-  Acc* tot = (Acc*)(smem + L::BASE);
+  Acc* tot = (Acc*)(smem + L::TOT_AT);
+  const Loader a_rows(p, m0, grp, (int*)(smem + L::BASE));
+  if constexpr (Loader::AUX > 0) __syncthreads();   // the loader's state
 
   // -- issue the copies of k-tile t into raw slot t % NS ---------------------
   auto issue = [&](int t) {
     if (t < nt) {
       unsigned char* r = raw(t % NS);
       const int k0 = k_lo + t * BK;
-      // A: BM rows x BK elements
-      constexpr int EA = 16 / (int)sizeof(In);       // elements a chunk
-      constexpr int CA = BK / EA;                      // chunks a row
-      if (p.a_vec) {
-        for (int i = tid; i < BM * CA; i += THREADS) {
-          const int row = i / CA, c = i % CA;
-          const int gm = m0 + row, gk = k0 + c * EA;
-          const bool ok = gm < p.M && gk < k_hi;
-          cp_async16(r + row * L::A_LD + c * 16,
-                     ok ? (const void*)(A + (long long)gm * p.K + gk) : p.a,
-                     ok);
-        }
-      } else {
-        for (int i = tid; i < BM * BK; i += THREADS) {
-          const int row = i / BK, c = i % BK;
-          const int gm = m0 + row, gk = k0 + c;
-          In v = zero<In>();
-          if (gm < p.M && gk < k_hi) v = A[(long long)gm * p.K + gk];
-          ((In*)(r + row * L::A_LD))[c] = v;
-        }
-      }
+      a_rows.load(p, r, L::A_LD, m0, k0, k_hi);
       // B or y: BK rows x BN columns
       unsigned char* rb = r + L::A_RAW;
       constexpr int EB = 16 / (int)sizeof(BIn);
@@ -428,8 +553,8 @@ __device__ __forceinline__ void pair_body(const PairArgs& p) {
   }
   cp_async_wait<0>();
 
-  Acc* o = (Acc*)p.out +
-           (p.split_cta ? (long long)blockIdx.z * p.M * p.N : 0LL);
+  Acc* o = (Acc*)p.out + (long long)grp * p.N +
+           (p.split_cta ? (long long)blockIdx.z * p.M * p.ldo : 0LL);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + G::row(ty, i);
@@ -438,70 +563,94 @@ __device__ __forceinline__ void pair_body(const PairArgs& p) {
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + G::col(tx, j);
       if (gn < p.N)
-        o[(long long)gm * p.N + gn] =
+        o[(long long)gm * p.ldo + gn] =
             multi ? tot[(i * TN + j) * THREADS + tid] : acc[i][j];
     }
   }
 }
 
-// K2's and K3's kernels: the same body, two names (profiles tell them apart).
+// K2's, K3's and K7's kernels: the same body, four names (profiles tell
+// them apart; kernels/conv_gemm.py's are grouped by their conv_ prefix).
 template <class G, typename In, typename Acc>
 __global__ void __launch_bounds__(G::THREADS) fip_pair_kernel(PairArgs p) {
-  pair_body<G, In, In, Acc, false>(p);
+  pair_body<G, In, In, Acc, false, DenseRows>(p);
 }
 
 template <class G, typename In, typename Acc>
 __global__ void __launch_bounds__(G::THREADS) ffip_pair_kernel(PairArgs p) {
-  pair_body<G, In, Acc, Acc, true>(p);
+  pair_body<G, In, Acc, Acc, true, DenseRows>(p);
 }
 
-template <class G, typename In, typename BIn, typename Acc, bool FFIP>
+template <class G, typename In, typename Acc>
+__global__ void __launch_bounds__(G::THREADS)
+conv_fip_pair_kernel(PairArgs p) {
+  pair_body<G, In, In, Acc, false, ConvRows>(p);
+}
+
+template <class G, typename In, typename Acc>
+__global__ void __launch_bounds__(G::THREADS)
+conv_ffip_pair_kernel(PairArgs p) {
+  pair_body<G, In, Acc, Acc, true, ConvRows>(p);
+}
+
+template <class G, typename In, typename BIn, typename Acc, bool FFIP,
+          template <class, typename> class AL>
 cudaError_t launch_geom(const PairArgs& p, Acc* out, Acc* ws,
                         cudaStream_t stream) {
-  using L = Layout<G, In, BIn, Acc, FFIP>;
+  constexpr bool CONV = std::is_same_v<AL<G, In>, ConvRows<G, In>>;
+  using L = Layout<G, In, BIn, Acc, FFIP, AL<G, In>::AUX>;
   void (*kern)(PairArgs);
-  if constexpr (FFIP)
+  if constexpr (CONV && FFIP)
+    kern = conv_ffip_pair_kernel<G, In, Acc>;
+  else if constexpr (CONV)
+    kern = conv_fip_pair_kernel<G, In, Acc>;
+  else if constexpr (FFIP)
     kern = ffip_pair_kernel<G, In, Acc>;
   else
     kern = fip_pair_kernel<G, In, Acc>;
   const int splits = (p.K + p.split_rows - 1) / p.split_rows;
   const bool multi = !p.split_cta && splits > 1;
-  const int smem = L::BASE + (multi ? L::TOT : 0);
+  const int smem = L::TOT_AT + (multi ? L::TOT : 0);
   static bool opted_in = false;     // once per instantiation
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BASE + L::TOT);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::TOT_AT + L::TOT);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
   const long long m_blocks = (p.M + G::BM - 1) / G::BM;
-  if (m_blocks > 65535 || splits > 65535) return cudaErrorInvalidValue;
-  dim3 grid((p.N + G::BN - 1) / G::BN, (unsigned)m_blocks,
-            p.split_cta ? splits : 1);
+  const long long n_blocks = (long long)(p.N + G::BN - 1) / G::BN * p.groups;
+  if (m_blocks > 65535 || splits > 65535 || n_blocks >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  dim3 grid((unsigned)n_blocks, (unsigned)m_blocks, p.split_cta ? splits : 1);
   PairArgs q = p;
   q.out = p.split_cta && splits > 1 ? (void*)ws : (void*)out;
   kern<<<grid, G::THREADS, smem, stream>>>(q);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (p.split_cta && splits > 1)
-    rt::launch_reduce<Acc>(ws, out, splits, 1, (long long)p.M * p.N, stream);
+    rt::launch_reduce<Acc>(ws, out, splits, (long long)p.M * p.ldo, stream);
   return cudaGetLastError();
 }
 
-// geom: 0 decode (16 x 32), 1 mid (64 x 64), 2 wide (128 x 128).
-template <typename In, typename BIn, typename Acc, bool FFIP>
+// geom: 0 decode (16 x 32), 1 mid (64 x 64), 2 wide (128 x 128). AL: the A
+// loader, DenseRows (K2, K3) or ConvRows (K7).
+template <typename In, typename BIn, typename Acc, bool FFIP,
+          template <class, typename> class AL = DenseRows>
 cudaError_t launch_pair(PairArgs p, int geom, Acc* out, Acc* ws,
                         cudaStream_t stream) {
-  if (p.split_rows <= 0 || p.split_rows % BK) return cudaErrorInvalidValue;
-  const int ea = 16 / (int)sizeof(In), eb = 16 / (int)sizeof(BIn);
-  p.a_vec = p.K % ea == 0 && (uintptr_t)p.a % 16 == 0;
+  if (p.split_rows <= 0 || p.split_rows % BK || p.groups < 1 ||
+      p.ldo < p.groups * p.N)
+    return cudaErrorInvalidValue;
+  const int eb = 16 / (int)sizeof(BIn);
+  p.a_vec = AL<GDecode, In>::vec(p);
   p.b_vec = p.N % eb == 0 && (uintptr_t)p.b % 16 == 0;
   if (geom == 0)
-    return launch_geom<GDecode, In, BIn, Acc, FFIP>(p, out, ws, stream);
+    return launch_geom<GDecode, In, BIn, Acc, FFIP, AL>(p, out, ws, stream);
   if (geom == 1)
-    return launch_geom<GMid, In, BIn, Acc, FFIP>(p, out, ws, stream);
+    return launch_geom<GMid, In, BIn, Acc, FFIP, AL>(p, out, ws, stream);
   if (geom == 2)
-    return launch_geom<GWide, In, BIn, Acc, FFIP>(p, out, ws, stream);
+    return launch_geom<GWide, In, BIn, Acc, FFIP, AL>(p, out, ws, stream);
   return cudaErrorInvalidValue;
 }
 

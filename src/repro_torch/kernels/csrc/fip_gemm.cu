@@ -32,8 +32,8 @@ extern "C" int fip_gemm_launch(const void* a, const void* b, void* ws,
                                int split_rows, int split_cta, int dtype,
                                int fold_beta, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  fb::PairArgs p{a, b, nullptr, out, M, N, K, split_rows, split_cta,
-                 fold_beta, 0, 0};
+  fb::PairArgs p{a, b, nullptr, out, M, N, K, 1, N, split_rows,
+                 split_cta, fold_beta, 0, 0, {}};
   if (dtype == 0) return launch<float, float>(p, geom, out, ws, s);
   if (dtype == 1) return launch<__nv_bfloat16, float>(p, geom, out, ws, s);
   if (dtype == 2) return launch<int8_t, int>(p, geom, out, ws, s);

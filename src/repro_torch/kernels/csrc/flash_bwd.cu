@@ -47,16 +47,11 @@
 // d a pair (s and dp twice, the split products twice).
 #include <math.h>
 
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
-__device__ __forceinline__ bool kept(int qp, int kp, int Sq, int Sk,
-                                     int window, int causal) {
-  bool ok = qp < Sq && kp < Sk;
-  if (causal) ok = ok && qp >= kp;
-  return ok && (window <= 0 || qp - kp < window);
-}
+using ftc::kept;
 
 // ---------------------------------------------------------------------------
 // f32: the CUDA-core passes
@@ -320,7 +315,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tcb {
 
-using bf16 = __nv_bfloat16;
+using ftc::bf16;
+using ftc::frag_a;
+using ftc::load_tile;
+using ftc::mma_nk;
+using ftc::pack;
+using ftc::pitch;
 constexpr int BLK = 64;       // queries (dq pass) or keys (dk/dv pass) a CTA
 constexpr int WARPS = BLK / 16;
 constexpr int THREADS = 32 * WARPS;
@@ -330,40 +330,6 @@ constexpr int THREADS = 32 * WARPS;
 template <int D, int DV>
 __host__ __device__ constexpr int step() {
   return D <= 64 && DV <= 64 ? 64 : 32;
-}
-
-// Row pitch of a shared tile of w bf16 values: an odd number of 16-byte
-// chunks, so the eight rows of an ldmatrix land on eight bank quads.
-__host__ __device__ constexpr int pitch(int w) {
-  return (w / 8) % 2 ? 2 * w + 32 : 2 * w + 16;
-}
-
-// Load rows row0 .. row0 + ROWS of a row-major (n_rows, w) bf16 matrix into
-// a (ROWS x W) shared tile; rows past n_rows and columns past w read zero.
-template <int ROWS, int W>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const bf16* __restrict__ src,
-                                          int row0, int n_rows, int w,
-                                          bool vec) {
-  constexpr int CH = W / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    const int gr = row0 + r, gc = c * 8;
-    unsigned char* d = dst + r * pitch(W) + c * 16;
-    if (vec) {                       // w % 8 == 0: a chunk is in or out
-      const bool ok = gr < n_rows && gc < w;
-      rt::cp_async16(d, ok ? (const void*)(src + (long long)gr * w + gc)
-                           : (const void*)src, ok);
-    } else {
-      const unsigned short* s = (const unsigned short*)src;
-      unsigned short v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        v[e] = gr < n_rows && gc + e < w ? s[(long long)gr * w + gc + e] : 0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ((unsigned short*)d)[e] = v[e];
-    }
-  }
 }
 
 // n_rows f32 values from src + row0 into dst[0 .. ROWS), zero past n_rows.
@@ -376,11 +342,6 @@ __device__ __forceinline__ void load_vec(float* dst,
     rt::cp_async4(dst + i, ok ? (const void*)(src + row0 + i)
                               : (const void*)src, ok);
   }
-}
-
-__device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<unsigned*>(&h);
 }
 
 // The A fragments (16 x 16) of hi = bf16(x) and lo = bf16(x - hi) for an f32
@@ -403,21 +364,6 @@ __device__ __forceinline__ void split(const float (&c0)[4],
   split2(c1[2], c1[3], hi[3], lo[3]);   // row g + 8
 }
 
-// acc[16 x 8 n] += A (16 x 16 k, a) . B, B taken from a row-major
-// (rows = n, columns = k) tile: s = q k^T reads k's rows as B's columns.
-// Covers 16 columns: tiles 2 nb and 2 nb + 1.
-template <int W>
-__device__ __forceinline__ void mma_nk(float (&c0)[4], float (&c1)[4],
-                                       const unsigned (&a)[4],
-                                       const unsigned char* tile, int n0,
-                                       int k0, int lane) {
-  unsigned b[4];
-  rt::ldsm_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * pitch(W) +
-                     (k0 + ((lane >> 3) & 1) * 8) * 2);
-  rt::mma(c0, a, b[0], b[1]);
-  rt::mma(c1, a, b[2], b[3]);
-}
-
 // acc += (hi + lo) . B, B taken from a row-major (rows = k, columns = n)
 // tile: dv = p^T do reads do's rows as B's k.
 template <int W>
@@ -433,15 +379,6 @@ __device__ __forceinline__ void mma_kn2(float (&c0)[4], float (&c1)[4],
   rt::mma(c0, lo, b[0], b[1]);
   rt::mma(c1, hi, b[2], b[3]);
   rt::mma(c1, lo, b[2], b[3]);
-}
-
-// The A fragment of rows row0 .. row0 + 15, columns k0 .. k0 + 15.
-template <int W>
-__device__ __forceinline__ void frag_a(unsigned (&a)[4],
-                                       const unsigned char* tile, int row0,
-                                       int k0, int lane) {
-  rt::ldsm_x4(a, tile + (row0 + (lane & 15)) * pitch(W) +
-                     (k0 + (lane >> 4) * 8) * 2);
 }
 
 // s (or s^T) and dp (or dp^T) of one warp's 16 rows against N rows of the
@@ -519,14 +456,14 @@ flash_bwd_dq_tc_kernel(Args p) {
     if (t < nsteps) {
       unsigned char* r = ring + (t % 2) * (K_BYTES + V_BYTES);
       const int k0 = k_begin + t * STEP;
-      load_tile<STEP, D>(r, kb, k0, p.Sk, p.d, p.vec);
-      load_tile<STEP, DV>(r + K_BYTES, vb, k0, p.Sk, p.dv_w, p.vec);
+      load_tile<STEP, D, THREADS>(r, kb, k0, p.Sk, p.d, p.vec);
+      load_tile<STEP, DV, THREADS>(r + K_BYTES, vb, k0, p.Sk, p.dv_w, p.vec);
     }
     rt::cp_async_commit();
   };
 
-  load_tile<BLK, D>(Qs, qb, q0, p.Sq, p.d, p.vec);
-  load_tile<BLK, DV>(dOs, dob, q0, p.Sq, p.dv_w, p.vec);
+  load_tile<BLK, D, THREADS>(Qs, qb, q0, p.Sq, p.d, p.vec);
+  load_tile<BLK, DV, THREADS>(dOs, dob, q0, p.Sq, p.dv_w, p.vec);
   load_vec<BLK>(lse_s, p.lse + (long long)bh * p.Sq, q0, p.Sq);
   issue(0);
 
@@ -633,16 +570,16 @@ flash_bwd_dkdv_tc_kernel(Args p) {
       unsigned char* r = ring + (t % 2) * SLOT;
       const int q0 = q_begin + t * STEP;
       float* lv = (float*)(r + Q_BYTES + DO_BYTES);
-      load_tile<STEP, D>(r, qb, q0, p.Sq, p.d, p.vec);
-      load_tile<STEP, DV>(r + Q_BYTES, dob, q0, p.Sq, p.dv_w, p.vec);
+      load_tile<STEP, D, THREADS>(r, qb, q0, p.Sq, p.d, p.vec);
+      load_tile<STEP, DV, THREADS>(r + Q_BYTES, dob, q0, p.Sq, p.dv_w, p.vec);
       load_vec<STEP>(lv, lseb, q0, p.Sq);
       load_vec<STEP>(lv + STEP, deltab, q0, p.Sq);
     }
     rt::cp_async_commit();
   };
 
-  load_tile<BLK, D>(Ks, kb, k0, p.Sk, p.d, p.vec);
-  load_tile<BLK, DV>(Vs, vb, k0, p.Sk, p.dv_w, p.vec);
+  load_tile<BLK, D, THREADS>(Ks, kb, k0, p.Sk, p.d, p.vec);
+  load_tile<BLK, DV, THREADS>(Vs, vb, k0, p.Sk, p.dv_w, p.vec);
   issue(0);
 
   float dk[D / 8][4], dv[DV / 8][4];

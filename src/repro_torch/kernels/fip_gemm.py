@@ -13,9 +13,9 @@ FFMA per pair and output) and by the weight bytes at decode. Per k-tile it
 keeps ``fip_tile``'s order, ``part = cross - alpha (- beta)`` then ``out +=
 part``.
 
-Also home of what K2 and K3 share: the tile geometries the pair body is
-compiled for (:data:`PAIR_GEOMS`, chosen by M in :func:`pair_blocks`), the
-k-split plan (:func:`split_plan`, a function of K
+Also home of what K2, K3 and K7's FIP/FFIP share: the tile geometries the
+pair body is compiled for (:data:`PAIR_GEOMS`, chosen by M in
+:func:`pair_blocks`), the k-split plan (:func:`split_plan`, a function of K
 only, so a row's sums do not depend on M) and the launch plan
 (:func:`launch_plan`: where the output grid would leave the card idle, one
 split a CTA into a workspace, added in split order by a second pass).
@@ -79,15 +79,17 @@ def split_plan(k: int) -> Tuple[int, int]:
     return SPLIT_ROWS, -(-k // SPLIT_ROWS)
 
 
-def launch_plan(m: int, n: int, k: int, bm: int, bn: int) -> bool:
-    """Whether a launch runs one split a CTA (into a (splits, M, N)
+def launch_plan(m: int, n: int, k: int, bm: int, bn: int,
+                groups: int = 1) -> bool:
+    """Whether a launch runs one split a CTA (into a (splits, M, groups * N)
     workspace, then the in-order reduction): only where there is more than
-    one split, the (m, n) grid would not fill the card and the partials fit
-    the workspace bound. Otherwise each CTA sums all splits itself."""
+    one split, the (m, n) grid of each of ``groups`` (K7's grouped convs)
+    would not fill the card and the partials fit the workspace bound.
+    Otherwise each CTA sums all splits itself."""
     _, splits = split_plan(k)
-    grid = -(-m // bm) * -(-n // bn)
+    grid = -(-m // bm) * -(-n // bn) * groups
     return (splits > 1 and grid < _FILL[PAIR_GEOMS[(bm, bn)]]
-            and splits * m * n * 4 <= compat.WORKSPACE_BYTES)
+            and splits * m * n * groups * 4 <= compat.WORKSPACE_BYTES)
 
 
 def launch_pair(lib_fn, a: Tensor, b: Tensor, extra, *, bm: int, bn: int,

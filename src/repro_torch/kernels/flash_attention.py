@@ -5,8 +5,15 @@ and ``_flash_bwd`` (``_bwd_kernel``) with the CUDA C++ kernels
 
 K4: FlashAttention-2 online softmax over (BH, Sq, d) x (BH, Sk, d) with
 causal masking and a sliding window (a runtime int, ``<= 0`` means full).
-Score blocks stay in shared memory and registers, so the kernel is bound by
-its operations at prefill lengths; q, k, v and o cross device memory once.
+Scores stay in registers: q, k, v and o cross device memory once, and those
+bytes bound the kernel at the served and trained shapes. bf16 inputs run on
+the tensor cores (``mma.sync`` m16n8k16, f32 accumulation): 16 query rows a
+warp against 64-key blocks from a ``cp.async`` double buffer, the online
+softmax in registers, l summed from the f32 p, p rounded to bf16 (as the
+reference rounds it to v's dtype) straight from the accumulators into the A
+fragments of PV, v's fragments by ``ldmatrix.trans``. Its body is templated
+on the width D (64, 128): a narrower d runs zero-filled, which is exact.
+f32 inputs keep a CUDA-core kernel (no TF32).
 
 K8: dq, dk, dv from the forward's log-sum-exp, with ``delta = sum(do * o)``
 per row. The TPU kernel accumulates dq across key blocks into one output

@@ -29,14 +29,15 @@ _CONTIG_TAG = "contiguous"
 
 
 def mac_blocks(m: int) -> Tuple[int, int, int]:
-    """(bm, bn, bk) of the CUDA-core tile body K7 and f32 K1 are compiled
-    for (``csrc/gemm_kernels.cuh``). The reference sizes its blocks from a 6 MiB
-    v5e VMEM budget; on the card the limits are the 227 KB of shared memory
-    and 255 registers a thread. The body holds a (bm, 32) A tile and a
-    (32, 64) B tile in shared memory in the accumulation type (16 KB at
-    bm = 64, so several CTAs fit an SM) and a bm/16 x 4 accumulator per
-    thread in registers. bk = 32 keeps whole (odd, even) pairs in a tile.
-    bm = 16 when M <= 16 (decode: M = slots) wastes fewer rows than 64."""
+    """(bm, bn, bk) of the CUDA-core tile body f32 K1 and K7's baseline are
+    compiled for (``csrc/gemm_kernels.cuh``). The reference sizes its
+    blocks from a 6 MiB v5e VMEM budget; on the card the limits are the
+    227 KB of shared memory and 255 registers a thread. The body holds a
+    (bm, 32) A tile and a (32, 64) B tile in shared memory in the
+    accumulation type (16 KB at bm = 64, so several CTAs fit an SM) and a
+    bm/16 x 4 accumulator per thread in registers. bk = 32 keeps whole
+    (odd, even) pairs in a tile. bm = 16 when M <= 16 (decode: M = slots)
+    wastes fewer rows than 64."""
     return (16 if m <= 16 else 64), 64, 32
 
 

@@ -160,6 +160,100 @@ def test_fused_equals_materialized_in_the_same_blocks(algo, dtype):
         assert torch.equal(got, ref), (bm, bn, bk)
 
 
+# The pair body's tiles, which K7's FIP/FFIP take on the card (conv_blocks
+# picks 64 x 64 or 128 x 128; explicit blocks may name any of them)
+PAIR_TILES = [(16, 32, 32), (64, 64, 32), (128, 128, 32)]
+# a grouped conv (AlexNet's conv2 pattern) and a Cin 3 conv (the stems:
+# plain loads on the card), both with an odd K
+TILE_CASES = [
+    (11, 9, 6, 12, 3, 3, 1, 1, 3),
+    (13, 13, 3, 8, 5, 5, 2, 2, 1),
+]
+
+
+@pytest.mark.parametrize("bm,bn,bk", PAIR_TILES)
+@pytest.mark.parametrize("case", TILE_CASES, ids=_ids(TILE_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("algo", ["fip", "ffip"])
+def test_fused_conv_plain_at_pair_tiles_matches_pallas(algo, dtype, case, bm,
+                                                       bn, bk):
+    """K7's plain version in each tile the card runs FIP/FFIP in (the pair
+    body's, chosen by :func:`conv_blocks`) against the reference's fused
+    kernel in interpret mode: f32 at the GEMM bar, int8 exactly."""
+    h, w, cin, cout, kh, kw, stride, pad, groups = case
+    x, k = _operands(h, w, cin, cout, kh, kw, groups, dtype, seed=bm)
+    got = cg.conv_gemm_fused(_t(x), _t(k), stride=stride, pad=pad,
+                             groups=groups, algo=algo, bm=bm, bn=bn, bk=bk)
+    want = np.asarray(jcg.conv_gemm_fused(
+        jnp.asarray(x), jnp.asarray(k), stride=stride, pad=pad,
+        groups=groups, algo=algo))
+    if dtype == "int8":
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        kk = kh * kw * cin // groups
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-3 * max(1, kk / 64))
+
+
+# (M, N a group, evenized K, groups) of the card checks' convs at batch 8:
+# ResNet-50's conv1, s2b1.c2, s3b1.c1, s4b2.c2, s5b3.c3 and AlexNet's conv1,
+# conv2
+CARD_CONVS = [(8 * 112 * 112, 64, 148, 1), (8 * 56 * 56, 64, 576, 1),
+              (8 * 28 * 28, 128, 256, 1), (8 * 14 * 14, 256, 2304, 1),
+              (8 * 7 * 7, 2048, 512, 1), (8 * 55 * 55, 96, 364, 1),
+              (8 * 27 * 27, 128, 1200, 2)]
+
+
+def test_conv_blocks_are_pair_tiles():
+    """For FIP and FFIP :func:`conv_blocks` picks a tile the pair body is
+    compiled for at every conv the card checks (and at batch 1), never a
+    128-column tile where N <= 64, and 128 x 128 only where its launch
+    (split one a CTA where K2's and K3's launch plan splits) fills the card;
+    the baseline keeps the CUDA-core body's blocks."""
+    from repro_torch.kernels.fip_gemm import (PAIR_GEOMS, launch_plan,
+                                              pair_geom, split_plan)
+    for m8, n, k, groups in CARD_CONVS:
+        for m in (m8, m8 // 8):
+            for algo in ("fip", "ffip"):
+                bm, bn, bk = cg.conv_blocks(m, n, k, algo, groups)
+                assert pair_geom(bm, bn, bk) == PAIR_GEOMS[(bm, bn)]
+                if n <= 64:
+                    assert bn < 128, (m, n)
+                if (bm, bn) == (128, 128):
+                    ctas = -(-m // 128) * -(-n // 128) * groups
+                    if launch_plan(m, n, k, 128, 128, groups=groups):
+                        ctas *= split_plan(k)[1]
+                    assert ctas >= compat.SMS * 9 // 10, (m, n, k)
+            assert cg.conv_blocks(m, n, k, "baseline") == ops.mac_blocks(m)
+    assert cg.conv_blocks(8 * 56 * 56, 64, 576, "ffip") == (64, 64, 32)
+    assert cg.conv_blocks(8 * 55 * 55, 96, 364, "fip") == (128, 128, 32)
+    assert cg.conv_blocks(8 * 7 * 7, 2048, 512, "ffip") == (64, 64, 32)
+    # the grid alone is 26 CTAs; its five splits a CTA fill the card
+    assert cg.conv_blocks(8 * 14 * 14, 256, 2304, "fip") == (128, 128, 32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_conv_carry_stack_is_each_groups_carry_table(dtype):
+    """K7's FFIP reads one carry table a group: ``carry_stack`` of the
+    (G, K, N) y stack is ``carry_table_plain`` of each group's y, and each
+    32-column group's carry plus its own prefix sum rebuilds that group's
+    weights (exactly, for int8)."""
+    from repro_torch.kernels.ffip_gemm import carry_table_plain, rebuild_b
+    _, k = _operands(5, 5, 6, 150, 3, 3, 3, dtype, seed=5)
+    stack = cg._kernel_to_stack(_t(k), 3)            # (3, 18, 50)
+    y = cg._y_even(stack)
+    carry = cg.carry_stack(y)
+    assert carry.shape == (3, 18, 2) and carry.dtype == y.dtype
+    for g in range(3):
+        assert torch.equal(carry[g], carry_table_plain(y[g]))
+        b = rebuild_b(y[g])
+        if dtype == "int8":
+            assert torch.equal(b, stack[g].to(torch.int32))
+        else:
+            np.testing.assert_allclose(b.numpy(), stack[g].numpy(),
+                                       rtol=1e-5, atol=1e-5)
+
+
 def test_weight_derivations_memoized():
     """The group stack and the Eq. 9 y deltas are derived once per weight;
     a second forward only hits the memo."""

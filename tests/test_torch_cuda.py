@@ -11,9 +11,11 @@ tests/test_kernels.py (rtol 1e-4, atol 1e-3 * max(1, K // 64)); flash uses
 the reference flash bar (rtol = atol = 2e-3) on f32 o/lse, and the bf16
 output rounding (2**-8 relative) on bf16 o; the paged kernel K5 the same
 bars, with rows that have no valid key exactly 0. The fused conv K7 takes the
-GEMM bars (its K is KH*KW*Cin_g). The selective scan K6 holds h_final and
-h_starts within rtol = atol = 1e-4 of the plain f32 values (the reference
-kernel's bar in tests/test_selective_scan.py) and y within one bf16 ulp
+GEMM bars against its plain version (its K is KH*KW*Cin_g), and equals K1-K3
+over the materialised A bit for bit (the same bodies, nesting and plans).
+The selective scan K6 holds h_final and h_starts within rtol = atol = 1e-4
+of the plain f32 values (the reference kernel's bar in
+tests/test_selective_scan.py) and y within one bf16 ulp
 (the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. The
 flash backward K8 holds its f32 dq/dk/dv within rtol 1e-4, atol 1e-4 *
 max|plain| (the same products summed in another block order) and, once
@@ -154,12 +156,16 @@ def test_carry_table_kernel_equals_plain(dev, k, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,window,causal", [(128, 0, True), (77, 0, True),
-                                              (100, 16, True),
-                                              (64, 0, False)])
-def test_flash_kernel_matches_plain(dev, dtype, sq, window, causal):
+@pytest.mark.parametrize("sq,window,causal,d", [
+    (128, 0, True, 64), (77, 0, True, 64), (100, 16, True, 64),
+    (64, 0, False, 64),
+    (256, 0, True, 64),      # the trained sequence
+    (16, 0, True, 64),       # the shortest served bucket: one warp a CTA
+    (128, 0, True, 128),     # K4's second tensor-core instantiation
+    (77, 0, True, 40)])      # d 40 runs the d 64 body, zero-filled
+def test_flash_kernel_matches_plain(dev, dtype, sq, window, causal, d):
     g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn((8, sq, 64), generator=g, device=dev).to(dtype)
+    q, k, v = (torch.randn((8, sq, d), generator=g, device=dev).to(dtype)
                for _ in range(3))
     o, lse = _flash_fwd(q, k, v, window, causal=causal)
     o_ref, lse_ref = _flash_fwd_plain(q, k, v, window, causal=causal)
@@ -254,11 +260,12 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
     geom = conv_gemm.ConvGeom(h=h + 2 * pad, w=w + 2 * pad, cin=cin, kh=kh,
                               kw=kw, sh=stride, sw=stride, groups=groups,
                               ng=cout // groups)
-    bm, bn, bk = ops.mac_blocks(b * geom.m)
     for algo in ("baseline", "fip", "ffip"):
         fold = dtype == torch.int8 and algo != "baseline"
         bg = {"baseline": stack, "fip": conv_gemm._evenize_k(stack),
               "ffip": conv_gemm._y_even(stack)}[algo]
+        bm, bn, bk = conv_gemm.conv_blocks(b * geom.m, cout // groups,
+                                           bg.shape[1], algo, groups)
         got = conv_gemm.fused_conv_raw(xp, stack, kh=kh, kw=kw,
                                        stride=stride, groups=groups,
                                        algo=algo, fold_beta=fold)
@@ -270,23 +277,20 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
 
 @pytest.mark.parametrize("algo", ["baseline", "fip", "ffip"])
 def test_conv_kernel_equals_gemm_on_materialised_a(dev, algo):
-    """K7 sums what K1 and K2 sum over the materialised A, in the same order,
-    at K 162. FIP's equality rests on K 162 being under one 512-row split
-    of K2's plan (past it K2 adds split totals, K7 sums K in one sweep:
-    test_conv_fip_equals_gemm_past_one_split). K7's FFIP body keeps 16-row
-    half-tile parts and the in-kernel carry sweep, K3 32-row tile parts
-    and the carry table: K7 and K3 sum the same products in different
-    nestings at every K, so f32 FFIP is held to the GEMM bar (int8, exact
-    for any nesting, bit for bit). Bit equality of K7 with K2/K3 comes back
-    with K7's redesign on the pair body."""
+    """K7 sums what K1, K2 and K3 sum over the materialised A, in the same
+    nesting, at K 162 (f32, two groups): the baseline on f32 K1's CUDA-core
+    body, FIP and FFIP on K2's and K3's pair body with the conv loader (K3's
+    carry table of each group's y, K2's and K3's split plan). So f32 is bit
+    for bit for all three, and so is int8 FFIP (integer sums are exact in
+    any nesting)."""
     x, kern = _conv_operands(2, 14, 14, 36, 72, 3, 3, 2, torch.float32, dev)
     got = conv_gemm.conv_gemm_fused(x, kern, stride=1, pad=1, groups=2,
                                     algo=algo)
     ref = conv2d_via_gemm(x, kern, stride=1, pad=1, groups=2,
                           gemm_fn=lambda a, b: ops.matmul(a, b, algo=algo))
     torch.cuda.synchronize()
+    assert torch.equal(got, ref), float((got - ref).abs().max())
     if algo == "ffip":
-        _compare(got, ref, torch.float32, 3 * 3 * 18)
         x, kern = _conv_operands(2, 14, 14, 36, 72, 3, 3, 2, torch.int8,
                                  dev)
         xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
@@ -296,14 +300,14 @@ def test_conv_kernel_equals_gemm_on_materialised_a(dev, algo):
                               gemm_fn=lambda a, b: ops.matmul(a, b,
                                                               algo=algo))
         torch.cuda.synchronize()
-    assert torch.equal(got, ref), float((got - ref).abs().max())
+        assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 def test_conv_fip_equals_gemm_past_one_split(dev, dtype):
     """K7's FIP against K2 over the materialised A at K 648, over one
-    512-row split of K2's plan: the same products, K2 adding its two split
-    totals, K7 one sweep over K; f32 at the GEMM bar, int8 bit for bit."""
+    512-row split of K2's plan: K7 takes K2's split plan, so both add the
+    same two split totals in order; bit for bit in f32 and int8."""
     x, kern = _conv_operands(2, 14, 14, 72, 72, 3, 3, 1, dtype, dev)
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
     got = conv_gemm.fused_conv_raw(xp, conv_gemm._kernel_to_stack(kern, 1),
@@ -312,7 +316,7 @@ def test_conv_fip_equals_gemm_past_one_split(dev, dtype):
                           gemm_fn=lambda a, b: ops.matmul(a, b, algo="fip"))
     torch.cuda.synchronize()
     assert got.shape == ref.shape
-    _compare(got, ref, dtype, 3 * 3 * 72)
+    assert torch.equal(got, ref), float((got - ref).abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -311,6 +311,27 @@ def test_flash_fwd_matches_pallas(sq, sk, causal, window):
                                atol=2e-3)
 
 
+@pytest.mark.parametrize("d", [64, 40])
+@pytest.mark.parametrize("sq,sk,causal,window", FLASH_CASES)
+def test_flash_fwd_bf16_matches_pallas(sq, sk, causal, window, d):
+    """K4's plain version on bf16 inputs, as the card runs K4 on the tensor
+    cores (d 64; d 40 runs the d 64 body zero-filled there), against the
+    reference's kernel in interpret mode on the same bf16 values: o within
+    2**-7 (the bf16 output's rounding), lse within 2e-3."""
+    rng = np.random.default_rng(sq + window + d)
+    x = [rng.standard_normal((3, s, d), np.float32) for s in (sq, sk, sk)]
+    (jq, q), (jk, k), (jv, v) = (_pair(a, "bfloat16") for a in x)
+    o, lse = _flash_fwd(q, k, v, window, causal=causal)
+    jo, jlse = j_flash_fwd(jq, jk, jv, window, causal=causal, bq=32, bk=32,
+                           interpret=True)
+    assert o.dtype == torch.bfloat16
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(jo.astype(jnp.float32)),
+                               rtol=2 ** -7, atol=2 ** -7)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=2e-3,
+                               atol=2e-3)
+
+
 def test_flash_fully_masked_row_is_zero():
     """Causal with a window of 2 over 4 keys: query rows 5.. see no key
     (they would need k in (q-2, q], beyond Sk), so o is exactly 0 there
