@@ -1,18 +1,29 @@
 """K5: paged flash attention. Replaces the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention_paged``
-(``_paged_fwd_kernel``) with the CUDA C++ kernel ``csrc/flash_paged.cu``.
+(``_paged_fwd_kernel``) with the CUDA C++ kernels of ``csrc/flash_paged.cu``.
 
 Online softmax over a page POOL through a per-sequence page table: every
 attention call of paged decode and of chunked prefill. Pallas picks the pool
 page per grid step with scalar-prefetch index maps; on the card a CTA reads
-the page ids itself and gathers each key's K/V row, so no contiguous copy of
-the cache is made. Bound on the H100: the bytes of the valid K/V rows.
+its split's page ids once and copies each 16-key tile's K/V rows with
+16-byte ``cp.async``, so no contiguous copy of the cache is made. Bound on
+the H100: the bytes of the valid K/V rows.
+
+The keys of a sequence go in splits of :func:`split_plan`'s ``kps`` keys
+counted from key 0 (split-KV): one CTA per (16 rows, kv head, sequence,
+split) keeps an f32 partial (m, l, acc) in shared memory, and the splits of
+one (16 rows, kv head, sequence), a thread-block cluster, merge each row
+over its splits in split order through distributed shared memory: one
+launch, no workspace. The plan depends on ``max_pages * ps`` alone, never
+on B, Sq or the lengths, and the kernel body on (dtype, d, dv) alone (bf16
+on the tensor cores, f32 on the CUDA cores), so a row's result does not
+depend on the chunk or batch it is computed in.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,10 +35,27 @@ NEG_INF = -1e30
 counter = compat.launch_counter("flash_paged")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 11
+_SIG = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 KERNEL_DMAX = 576
 KERNEL_DVMAX = 512
+# the split plan: splits of 64 keys (four 16-key tiles), widened by
+# multiples of 64 so that a sequence has at most MAX_SPLITS of them (the
+# kernel merges a sequence's splits inside one thread-block cluster, whose
+# portable size is 8)
+SPLIT_KEYS = 64
+MAX_SPLITS = 8
+
+
+def split_plan(max_keys: int) -> Tuple[int, int]:
+    """(keys per split, splits) for sequences of up to ``max_keys = max_pages
+    * ps`` keys: splits of :data:`SPLIT_KEYS` keys counted from key 0,
+    widened by multiples of it where more than :data:`MAX_SPLITS` would be
+    needed. A function of the pool's key capacity alone: never of B, Sq or
+    the lengths."""
+    units = -(-max_keys // SPLIT_KEYS)
+    kps = SPLIT_KEYS * -(-units // MAX_SPLITS)
+    return kps, -(-max_keys // kps)
 
 
 def _vec(x, b: int, device) -> Tensor:
@@ -128,15 +156,16 @@ def flash_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             f"k_pool{tuple(k_pool.shape)} v_pool{tuple(v_pool.shape)} "
             f"page_table{tuple(page_table.shape)} {q.dtype}")
     pt = page_table.to(torch.int32).contiguous()
-    ln = _vec(lengths, b, q.device).to(torch.int32).contiguous()
-    qs = _vec(q_start, b, q.device).to(torch.int32).contiguous()
+    ln = _vec(lengths, b, q.device).to(torch.int64).contiguous()
+    qs = _vec(q_start, b, q.device).to(torch.int64).contiguous()
     compat.require_cuda(q, k_pool, v_pool, pt, ln, qs)
     o = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    kps, n_splits = split_plan(max_pages * ps)
     lib = compat.load("flash_paged", {"flash_paged_launch": _SIG})
     err = lib.flash_paged_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pt.data_ptr(),
-        ln.data_ptr(), qs.data_ptr(), o.data_ptr(), b, h, sq, d, dv, n_pages,
-        ps, kv, max_pages, int(window), int(causal),
+        ln.data_ptr(), qs.data_ptr(), o.data_ptr(), b, h, sq, d, dv,
+        n_pages, ps, kv, max_pages, int(window), int(causal), kps, n_splits,
         1.0 / math.sqrt(d) if scale is None else float(scale),
         _DTYPE_CODES[q.dtype], compat.stream_ptr(q))
     counter.bump()

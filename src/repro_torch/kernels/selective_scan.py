@@ -23,11 +23,14 @@ pipes busy. The exponential is the accurate ``expf`` (no fast math), and each
 product and sum is rounded as the plain version rounds it.
 
 K9 walks the chunks in reverse inside the same CTA geometry: from each
-chunk's ``h_starts`` entry (written by K6) it recomputes h_{t-1} sub-tile by
-sub-tile into shared memory and runs the adjoint recurrence, keeping dh and
-dA in registers; dB and dC come out as per-32-channel-block partials that
-the wrapper sums (the reference sums its per-d-block partials outside the
-kernel too). :func:`selective_scan_trainable` is differentiable through
+chunk's ``h_starts`` entry (written by K6) one forward pass keeps the state
+entering every sub-tile of 128 / N steps (in a scratch buffer,
+:func:`bwd_scratch_floats`), then each sub-tile, in reverse, recomputes its
+h_{t-1} and exp(dt A) once into registers and runs the adjoint recurrence
+over them, keeping dh and dA in registers; dB and dC come out as
+per-32-channel-block partials that the wrapper sums (the reference sums
+its per-d-block partials outside the kernel too).
+:func:`selective_scan_trainable` is differentiable through
 :class:`SelectiveScan` (K6 forward, K9 backward); :func:`selective_scan` is
 forward-only, as the reference's is.
 """
@@ -47,7 +50,7 @@ bwd_counter = compat.launch_counter("selective_scan_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SIG = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_SIG = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_SIG = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # channels a K9 CTA owns: its dB/dC partials come one per block of these
 BWD_CHANNELS = 32
 # N = 4 * states per thread; the kernel is built for these
@@ -225,6 +228,14 @@ def selective_scan_bwd_plain(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
     return dx, ddt, db_part.sum(dim=2), dc_part.sum(dim=2), dacc.sum(dim=0)
 
 
+def bwd_scratch_floats(bt: int, di: int, n: int, chunk: int) -> int:
+    """Floats of K9's start-state scratch: per (batch row, channel block),
+    the state entering each sub-tile of 128 / N steps of a chunk, N / 4
+    states for each of the CTA's 128 threads."""
+    n_blk = -(-di // BWD_CHANNELS)
+    return bt * n_blk * -(-chunk // (128 // n)) * n * BWD_CHANNELS
+
+
 def selective_scan_bwd(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
                        a: Tensor, h_starts: Tensor, dy: Tensor, *,
                        chunk: int = 128, bd: int = 512
@@ -259,12 +270,14 @@ def selective_scan_bwd(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
     db_part = torch.empty((bt, s, n_blk, n), dtype=f32, device=x.device)
     dc_part = torch.empty_like(db_part)
     da_part = torch.empty((bt, di, n), dtype=f32, device=x.device)
+    starts = torch.empty(bwd_scratch_floats(bt, di, n, chunk), dtype=f32,
+                         device=x.device)
     lib = compat.load("selective_scan_bwd",
                       {"selective_scan_bwd_launch": _BWD_SIG})
     err = lib.selective_scan_bwd_launch(
         *(t.data_ptr() for t in ops), dx.data_ptr(), ddt.data_ptr(),
-        db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(), bt, s,
-        di, n, chunk, compat.stream_ptr(x))
+        db_part.data_ptr(), dc_part.data_ptr(), da_part.data_ptr(),
+        starts.data_ptr(), bt, s, di, n, chunk, compat.stream_ptr(x))
     bwd_counter.bump()
     compat.check(err, "selective_scan_bwd")
     return dx, ddt, db_part.sum(dim=2), dc_part.sum(dim=2), da_part.sum(dim=0)

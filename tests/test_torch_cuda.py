@@ -19,9 +19,10 @@ tests/test_selective_scan.py) and y within one bf16 ulp
 (the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. The
 flash backward K8 holds its f32 dq/dk/dv within rtol 1e-4, atol 1e-4 *
 max|plain| (the same products summed in another block order) and, once
-cast, one bf16 ulp beyond that atol; the scan backward K9 its five gradients within rtol = atol =
-1e-4. K3's carry-table kernel is bit for bit (the plain version's adds in
-its order). Batch invariance is bit for bit
+cast, one bf16 ulp beyond that atol; the scan backward K9 its five
+gradients bit for bit. K5's rows are bit for bit the same whatever chunk
+or batch they sit in. K3's carry-table kernel is bit for bit (the plain
+version's adds in its order). Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
 """
 import numpy as np
@@ -185,6 +186,9 @@ PAGED_CASES = [
     (3, 16, 4, 5, 64, 64, 8, 8, 0, None),           # GQA group 4
     (3, 8, 8, 7, 64, 64, 16, 8, 20, None),          # window
     (2, 16, 1, 2, 576, 512, 16, 4, 0, 192 ** -0.5),  # absorbed-MLA shape
+    (4, 8, 8, 1, 64, 64, 16, 32, 0, None),          # lengths 0, 64, 65, 512
+    (2, 8, 4, 3, 128, 128, 16, 8, 0, None),         # d 128
+    (3, 8, 8, 5, 40, 40, 16, 8, 0, None),           # d 40
 ]
 
 
@@ -204,6 +208,11 @@ def test_paged_kernel_matches_plain(dev, dtype, b, h, kv, sq, d, dv, ps, mp,
     q_start = (lengths - sq).clamp_min(0)
     if sq == 64:
         lengths[:], q_start[:] = 128, 64    # the second chunk of a prompt
+    if ps * mp == 512:
+        # 8 splits of 64 keys: lengths on, just past and at the last split
+        # boundary
+        lengths = torch.tensor([0, 64, 65, 512], device=dev)
+        q_start = (lengths - sq).clamp_min(0)
     o = flash_attention_paged(q, kp, vp, pt, lengths, q_start, window,
                               scale=scale)
     want = flash_attention_paged_plain(q, kp, vp, pt, lengths, q_start,
@@ -215,6 +224,71 @@ def test_paged_kernel_matches_plain(dev, dtype, b, h, kv, sq, d, dv, ps, mp,
                                atol=tol)
     if sq != 64:
         assert torch.count_nonzero(o[0]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 36])
+def test_paged_kernel_unaligned_pools(dev, dtype, d):
+    """Pools that start one element past a 16-byte boundary, and (d 36,
+    bf16) rows that are not a whole number of 16-byte chunks, take the
+    kernel's element-wise loaders: the same bar against the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    b, h, kv, sq, ps, mp = 3, 8, 4, 2, 16, 8
+    n_pages = b * mp
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    pools = []
+    for _ in range(2):
+        flat = torch.randn(n_pages * ps * kv * d + 1, generator=g,
+                           device=dev).to(dtype)
+        pools.append(flat[1:].view(n_pages, ps, kv, d))
+    kp, vp = pools
+    assert kp.data_ptr() % 16 and vp.data_ptr() % 16
+    pt = torch.randperm(n_pages, generator=g, device=dev).reshape(
+        b, mp).to(torch.int32)
+    lengths = torch.tensor([0, 37, 128], device=dev)
+    q_start = (lengths - sq).clamp_min(0)
+    o = flash_attention_paged(q, kp, vp, pt, lengths, q_start)
+    want = flash_attention_paged_plain(q, kp, vp, pt, lengths, q_start)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert torch.count_nonzero(o[0]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 2)])
+def test_paged_kernel_row_invariant(dev, dtype, h, kv):
+    """A row's bits do not depend on the call it sits in: sequence 0's rows
+    inside a 64-row chunk at B 4 equal the same rows in a chunk of 7, each
+    row alone as a decode step (Sq 1, lengths = q_pos + 1), and the chunk
+    at B 1. Sequence 0's keys span two of the four 64-key splits (lengths
+    100 of 256), so its decode rows see one or two live splits."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, d, ps, mp = 4, 64, 16, 16
+    n_pages = b * mp
+    q = torch.randn((b, h, 64, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dtype)
+    pt = torch.randperm(n_pages, generator=g, device=dev).reshape(
+        b, mp).to(torch.int32)
+    q_start = torch.tensor([36, 10, 150, 0], device=dev)
+    chunk = flash_attention_paged(q, kp, vp, pt, q_start + 64, q_start)
+    alone = flash_attention_paged(q[:1], kp, vp, pt[:1], q_start[:1] + 64,
+                                  q_start[:1])
+    assert torch.equal(alone[0], chunk[0])
+    lo = 20
+    seven = flash_attention_paged(q[:, :, lo:lo + 7].contiguous(), kp, vp,
+                                  pt, q_start + lo + 7, q_start + lo)
+    assert torch.equal(seven[0], chunk[0, :, lo:lo + 7])
+    for s in (0, 27, 28, 63):
+        pos = q_start + s
+        one = flash_attention_paged(q[:, :, s:s + 1].contiguous(), kp, vp,
+                                    pt, pos + 1, pos)
+        assert torch.equal(one[0, :, 0], chunk[0, :, s]), s
+    torch.cuda.synchronize()
 
 
 def test_launch_counters_count_kernel_launches(dev):
@@ -502,10 +576,13 @@ def test_flash_bwd_kernel_matches_plain(dev, dtype, bh, s, d, window,
     (2, 32, 16, 8, 8),             # the CPU tests' shape
     (1, 40, 100, 4, 8),            # ragged channel block, N 4
     (2, 256, 8192, 16, 128),       # falcon-mamba-7b at training batch 2
+    (2, 64, 96, 32, 32),           # N 32: 4-step sub-tiles, two chunks
+    (1, 48, 40, 64, 16),           # N 64: 2-step sub-tiles, ragged block
 ])
 def test_selective_scan_bwd_kernel_matches_plain(dev, bt, s, di, n, chunk):
-    """K9's dx, ddt, dB, dC and dA within rtol = atol = 1e-4 of the plain
-    f32 values (the reference kernel's bar)."""
+    """K9's dx, ddt, dB, dC and dA equal the plain f32 values bit for bit:
+    both recompute h from K6's h_starts with K6's rounding and sum over N
+    and over the channel blocks in the same orders."""
     from repro_torch.kernels.selective_scan import (selective_scan_bwd,
                                                     selective_scan_bwd_plain)
     x, dt, b, c, a, h0 = _scan_operands(bt, s, di, n, torch.float32, dev)
@@ -514,9 +591,8 @@ def test_selective_scan_bwd_kernel_matches_plain(dev, bt, s, di, n, chunk):
     got = selective_scan_bwd(x, dt, b, c, a, starts, dy, chunk=chunk)
     want = selective_scan_bwd_plain(x, dt, b, c, a, starts, dy, chunk=chunk)
     torch.cuda.synchronize()
-    for a_, b_ in zip(got, want):
-        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-4)
+    for name, a_, b_ in zip(("dx", "ddt", "dB", "dC", "dA"), got, want):
+        assert torch.equal(a_, b_), name
 
 
 def test_backward_functions_launch_k8_and_k9_once(dev):

@@ -40,8 +40,10 @@ from repro.serve.batcher import BatchServer as JServer
 from repro.serve.batcher import Request as JRequest
 from repro_torch import bridge, configs
 from repro_torch.kernels import compat
-from repro_torch.kernels.flash_paged import (flash_attention_paged,
-                                             flash_attention_paged_plain)
+from repro_torch.kernels.flash_paged import (MAX_SPLITS, SPLIT_KEYS,
+                                             flash_attention_paged,
+                                             flash_attention_paged_plain,
+                                             split_plan)
 from repro_torch.models import attention as A
 from repro_torch.models.model import Model
 from repro_torch.serve.batcher import BatchServer, Request
@@ -267,6 +269,23 @@ def test_k5_cpu_path_is_the_plain_version():
     assert torch.equal(got, flash_attention_paged_plain(*args, lengths,
                                                         q_start, 0))
     assert compat.launch_counts()["flash_paged"] == before
+
+
+@pytest.mark.parametrize("max_pages,ps", [(1, 1), (16, 16), (32, 16),
+                                          (5, 13), (64, 16), (300, 16)])
+def test_k5_split_plan_depends_on_key_capacity_only(max_pages, ps):
+    """K5's split-KV plan: splits of a multiple of 64 keys counted from key
+    0, at most MAX_SPLITS of them (one thread-block cluster), covering
+    max_pages * ps keys exactly. It takes the pool's key capacity alone (no
+    B, Sq or lengths), so every call on one pool, whatever its batch and
+    chunk, launches the same splits."""
+    keys = max_pages * ps
+    kps, n_splits = split_plan(keys)
+    assert kps % SPLIT_KEYS == 0 and kps % 16 == 0
+    assert 1 <= n_splits <= MAX_SPLITS
+    assert (n_splits - 1) * kps < keys <= n_splits * kps
+    if keys <= SPLIT_KEYS * MAX_SPLITS:
+        assert kps == SPLIT_KEYS
 
 
 # -- the model over page pools ------------------------------------------------
