@@ -30,8 +30,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bf16 and f32 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
    widths, B 2 S 256 (two chunks), B 1 S 128 and S 64, f32
    (SCAN_BWD_CASES). Tolerances: int8
-   exact; K6's h_final and h_starts rtol = atol = 1e-4 of the plain f32
-   values and bf16 y one ulp, the carried state bit for bit; K8's f32
+   exact; K6's y, h_final and h_starts bit for bit (beside the earlier
+   bars, rtol = atol = 1e-4 of the plain f32 values and bf16 y one ulp),
+   the carried state bit for bit; K8's f32
    dq/dk/dv rtol 1e-4, atol 1e-4 * max|plain|, cast to bf16 one ulp beyond
    that atol; K9's five gradients bit for bit; bf16 and f32
    GEMMs and K7 the
@@ -39,14 +40,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sides summing the same products in f32 in another order; flash o at 2**-7
    (one bf16 rounding of o) and lse at 2e-3; K5 at 2**-7, with exact zeros
    for a sequence of length 0. Each call is timed with CUDA events, L2
-   flushed between launches (K1-K6, K8, K9 and their library yardsticks by
-   CUDA-graph replay, the time around the call beside it), beside its plain
+   flushed between launches (K1-K6, K8, K9, the carry table and their
+   library yardsticks by CUDA-graph replay, the time around the call beside
+   it; the floor of such a reading, a one-element add_ replayed the same
+   way, is printed first), beside its plain
    version (timed on the call that checks it, after a warm call for the
    cheap K4/K5 ones), its library yardstick and its bound. The GEMM lines
    start with the registers and spills (the build's ``-Xptxas -v``) of each
    instantiation of K1's tensor-core body and of K2/K3's pair body, the
-   K4, K5, K7, K8 and K9 lines with those of K4's tensor-core body, K5's
-   kernels, K7's FIP/FFIP pair kernels, K8's tensor-core passes and K9.
+   K4-K9 lines with those of K4's tensor-core body, K5's kernels, K6,
+   K7's FIP/FFIP pair kernels, K8's tensor-core passes and K9; K6 and K9
+   print their issue-slot floors (scan_fwd_issue_ms, scan_bwd_issue_ms).
    K3's carry-table kernel is held bit for bit to its plain version on
    each weight's y and timed on
    the card (the derivation runs once per weight, memoized beside y; the
@@ -405,6 +409,22 @@ def graph_ms(fn, reps: int = 20) -> float:
     return time_ms(graph.replay, reps)
 
 
+# The floor of a graph_ms reading: a one-element add_ replayed the same way
+# (L2 flushed, events around the replay), read once at the start of phase
+# kernels (the least of three readings after a warm one: the card idles
+# through the build); the shortest kernels' times are read against it.
+_replay_floor_ms = None
+
+
+def replay_floor_ms(dev) -> float:
+    global _replay_floor_ms
+    if _replay_floor_ms is None:
+        z = torch.zeros(1, device=dev)
+        graph_ms(lambda: z.add_(1))
+        _replay_floor_ms = min(graph_ms(lambda: z.add_(1)) for _ in range(3))
+    return _replay_floor_ms
+
+
 def timed(fn):
     """(fn's result, its device ms): one call between CUDA events, for the
     plain versions, whose checking call is also their timing."""
@@ -507,21 +527,24 @@ def check_carry(y: torch.Tensor, carry: torch.Tensor, dtype: str,
     ok = torch.equal(carry, want)
     abs_err = float((carry.double() - want.double()).abs().max())
     fn = lambda: carry_table(y)                  # noqa: E731
-    ms = time_ms(fn, reps_for(time_ms(fn, 1)), warm=False)
-    lib_ms = yardstick_ms(lambda: torch.cumsum(y, 1))
+    one = time_ms(fn, 1)
+    call_ms = time_ms(fn, reps_for(one), warm=False)
+    ms = graph_ms(fn, reps_for(one))
+    lib_ms = yardstick_ms(lambda: torch.cumsum(y, 1), replay=True)
     t_bytes = (y.numel() + carry.numel()) * 4 / HBM_BYTES_S * 1e3
     t_ops = k * max(0, n - GROUP) / ISSUE_RATE_S * 1e3  # one add an element
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     print(f"  ffip_carry_table y ({k}, {n}) {y.dtype} -> "
           f"{tuple(carry.shape)} {'ok ' if ok else 'BAD'} (bit for bit) "
-          f"max_abs={abs_err:.3g}  {ms:.4f} ms on the card (first derivation "
-          f"{first_ms:.2f} ms host clock)  plain {plain_ms:.3f} ms  cumsum "
-          f"{lib_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})",
+          f"max_abs={abs_err:.3g}  {ms:.4f} ms (graph replay; {call_ms:.4f} "
+          f"ms around the call; first derivation {first_ms:.2f} ms host "
+          f"clock)  plain {plain_ms:.3f} ms  cumsum {lib_ms:.4f} ms (graph "
+          f"replay)  bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
     return dict(kernel="ffip_carry_table", k=k, n=n, dtype=dtype, ok=ok,
                 max_abs_err=abs_err, max_rel_err=0.0 if ok else float("nan"),
-                tol="bit for bit", ms=ms, first_ms=first_ms,
+                tol="bit for bit", ms=ms, call_ms=call_ms, first_ms=first_ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -537,7 +560,8 @@ def check_gemms(dev):
 
     for source, key in (("baseline_gemm", "baseline_tc"),
                         ("fip_gemm", "fip_pair_kernel"),
-                        ("ffip_gemm", "ffip_pair_kernel")):
+                        ("ffip_gemm", "ffip_pair_kernel"),
+                        ("ffip_gemm", "carry_table_kernel")):
         for name, regs in ptxas_lines(source, key):
             print(f"  ptxas {name}: {regs}", flush=True)
     records, carried = [], set()
@@ -805,7 +829,8 @@ def check_paged(dev):
                   f"{zeros}  {ms:.4f} ms (graph replay; {call_ms:.4f} ms "
                   f"around the call)  plain {plain_ms:.3f} ms  gather+sdpa "
                   f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms "
-                  f"(graph replay)  bound {bound_ms:.5f} ms ({bound_by})",
+                  f"(graph replay)  bound {bound_ms:.5f} ms ({bound_by})  "
+                  f"{ms / replay_floor_ms(dev):.2f}x the replay floor",
                   flush=True)
             del q, kp, vp, o, want
     return records
@@ -940,18 +965,50 @@ def scan_bound(bt: int, s: int, di: int, n: int, chunk: int, elt: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# K6's instructions, counted from its loops (csrc/selective_scan.cu), per
+# (t, d, n): in the step loop the accurate expf's 8, dt a, (dt x) b, the h
+# update's multiply and add and h c (13), one shared store of the thread's
+# products a step, and a 16-byte shared load of (dt, dt x) a channel every
+# two steps and of (b, c) for every two (step, state)s; per (t, d) in the
+# sum over N, N / 4 16-byte shared loads, N - 1 adds, and the rounding,
+# address and store of y (3).
+SCAN_FWD_STEP_INSTR = 13
+SCAN_FWD_Y_INSTR = 3
+
+
+def scan_fwd_instr(spt: int, n: int) -> float:
+    """K6's instructions a (t, d, n) at ``spt`` states a thread."""
+    step = SCAN_FWD_STEP_INSTR + 1 / spt + 1 / (2 * spt) + 1 / 2
+    return step + (n / 4 + n - 1 + SCAN_FWD_Y_INSTR) / n
+
+
+def scan_fwd_issue_ms(bt: int, s: int, di: int, n: int, spt: int) -> float:
+    """K6's issue-slot floor: :func:`scan_fwd_instr` over every (t, d, n),
+    a warp instruction for 32 of them, at one warp instruction a clock on
+    each of the 4 schedulers of the 132 SMs at the boost clock."""
+    return (bt * s * di * n * scan_fwd_instr(spt, n) / 32
+            / (4 * 132 * BOOST_CLOCK_HZ) * 1e3)
+
+
 def check_scan(dev, served_lengths):
     """K6 against its plain version (SCAN_CASES, and falcon-mamba-7b's
-    prefill at each of ``served_lengths``): h_final and h_starts
-    within rtol = atol = 1e-4 of the plain f32 values (the bar
+    prefill at each of ``served_lengths``): y, h_final and h_starts equal
+    to the plain version's bit for bit (the same rounded products and sums
+    in the same order), beside the earlier bars, which stay: h_final and
+    h_starts within rtol = atol = 1e-4 of the plain f32 values (the bar
     tests/test_selective_scan.py holds the reference kernel to), y within
-    one bf16 ulp in bf16 (both round an f32 sum, taken in another order,
-    once) and 1e-4 in f32. Then a state carried across two 128-step calls
-    must equal one 256-step call bit for bit. PyTorch has no call that
-    computes a selective scan, so there is no library yardstick."""
-    from repro_torch.kernels.selective_scan import (selective_scan,
+    one bf16 ulp in bf16 and 1e-4 in f32. Then a state carried across two
+    128-step calls must equal one 256-step call bit for bit. PyTorch has no
+    call that computes a selective scan, so there is no library
+    yardstick; the issue-slot floor (:func:`scan_fwd_issue_ms`) stands
+    beside the bound, and the graph-replay floor beside the time."""
+    from repro_torch.kernels.selective_scan import (scan_plan,
+                                                    selective_scan,
                                                     selective_scan_plain)
 
+    for name, regs in ptxas_lines("selective_scan", "selective_scan_kernel"):
+        print(f"  ptxas {name}: {regs}", flush=True)
+    floor = replay_floor_ms(dev)
     records = []
     g = torch.Generator(device=dev).manual_seed(5)
 
@@ -986,23 +1043,30 @@ def check_scan(dev, served_lengths):
             y_txt = f"y max_abs {_err(y, y_ref)[0]:.3g}"
         state_err = max(_err(h, h_ref)[0], _err(starts, starts_ref)[0])
         abs_err = max(_err(y, y_ref)[0], state_err)
-        ok = y_ok and state_ok
+        exact = sum(int(torch.equal(p, q)) for p, q in
+                    ((y, y_ref), (h, h_ref), (starts, starts_ref)))
+        ok = y_ok and state_ok and exact == 3
         call_ms = time_ms(kern, 20)
         ms = graph_ms(kern)
         bound_ms, bound_by = scan_bound(bt, s, di, n, chunk,
                                         y.element_size())
+        plan = scan_plan(bt, di, n)
+        issue_ms = scan_fwd_issue_ms(bt, s, di, n, plan.states)
         records.append(dict(kernel="selective_scan", case=label, b=bt, s=s,
                             di=di, n=n, chunk=chunk, dtype=dname, ok=ok,
-                            max_abs_err=abs_err, ms=ms, call_ms=call_ms,
-                            plain_ms=plain_ms,
+                            exact_outputs=exact, max_abs_err=abs_err, ms=ms,
+                            call_ms=call_ms, plain_ms=plain_ms,
                             library_ms=None, bound_ms=bound_ms,
-                            bound_by=bound_by, tol=tol))
+                            bound_by=bound_by, tol=f"bit for bit; {tol}"))
         print(f"  selective_scan {label:13s} B={bt} S={s:<3d} di={di} N={n} "
-              f"chunk {chunk} {dname:4s} {'ok ' if ok else 'BAD'} {y_txt}, "
-              f"h/h_starts max_abs {state_err:.3g} "
-              f"({tol})  {ms:.4f} ms (graph replay; {call_ms:.4f} ms around "
-              f"the call)  plain {plain_ms:.3f} ms  library none  "
-              f"bound {bound_ms:.5f} ms ({bound_by})", flush=True)
+              f"chunk {chunk} {dname:4s} {'ok ' if ok else 'BAD'} "
+              f"{exact}/3 bit for bit (y, h_final, h_starts); {y_txt}, "
+              f"h/h_starts max_abs {state_err:.3g} ({tol})  {ms:.4f} ms "
+              f"(graph replay, {ms / floor:.2f}x its floor; {call_ms:.4f} "
+              f"ms around the call)  plain {plain_ms:.3f} ms  library none  "
+              f"bound {bound_ms:.5f} ms ({bound_by})  issue floor "
+              f"{issue_ms:.4f} ms ({plan.states} state(s) a thread, "
+              f"{plan.warps_per_sm:.2f} warps an SM)", flush=True)
         del args, y, h, starts, y_ref, h_ref, starts_ref
     # a state carried across two calls equals one call
     x, dt, b, c, a, h0 = operands(1, 256, 8192, 16, torch.bfloat16, 0.1)
@@ -2300,6 +2364,9 @@ def main(argv=None) -> int:
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     print("phase kernels: hand-written kernel vs plain version", flush=True)
+    print(f"  graph-replay floor: a one-element add_ by CUDA-graph replay, L2 "
+          f"flushed before each replay as for the kernels: "
+          f"{replay_floor_ms(dev):.4f} ms", flush=True)
     recs = check_gemms(dev)
     recs += (check_flash(dev) + check_paged(dev)
             + check_convs(dev) + check_scan(dev, [
@@ -2564,7 +2631,8 @@ def main(argv=None) -> int:
                         == (k, n, dt))
             shape = (f"y K={k} N={n} f32 (of {dt} weights) -> ({k}, "
                      f"{-(-n // 32)}), once per weight, memoized beside y; "
-                     f"library: torch.cumsum(y, 1)")
+                     f"ms by CUDA-graph replay; "
+                     f"library: torch.cumsum(y, 1), by CUDA-graph replay")
         elif name == "flash_fwd":
             head = next(r for r in recs_k if (r["case"], r["dtype"])
                         == HEADLINE_FLASH)

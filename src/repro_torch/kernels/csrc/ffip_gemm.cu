@@ -24,43 +24,141 @@ static int launch(const fb::PairArgs& p, int geom, void* out, void* ws,
                                                   (Acc*)ws, stream);
 }
 
-// dtype: 0 = f32 a with f32 y, 1 = bf16 a with f32 y, 2 = int8 a with int32
-// y; carry: the (K, ceil(N / 32)) table in y's type. geom, split_rows,
-// split_cta and ws as for fip_gemm_launch.
 // The carry table C of y (K x T, T = ceil(N / 32)) on the card, in the order
-// of kernels/ffip_gemm.py::carry_table_plain: C[k][0] = 0; C[k][t + 1] the
-// total of group t, y[k][32t] + y[k][32t + 1] + ... + y[k][32t + 31] added
-// left to right; then the totals chained left to right, C[k][t + 1] =
-// C[k][t] + total_t. Two passes: one thread a (row, group) forms a group's
-// total (coalesced writes), then one thread a row chains its T - 1 totals in
-// place. The same adds in the same order as the plain version: the same
-// bits in f32, exact in int32.
-template <typename T>
-__global__ void carry_totals_kernel(const T* __restrict__ y,
-                                    T* __restrict__ c, int K, int N, int Tn) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)K * Tn) return;
-  const int k = (int)(i / Tn), t = (int)(i % Tn);
-  if (t == 0) {
-    c[i] = T(0);
-    return;
-  }
-  const T* g = y + (long long)k * N + 32LL * (t - 1);
-  T total = __ldg(g);
-#pragma unroll
-  for (int j = 1; j < 32; ++j) total = total + __ldg(g + j);
-  c[i] = total;
-}
+// of kernels/ffip_gemm.py::carry_table_plain: C[k][0] = 0; C[k][t + 1] =
+// C[k][t] + total_t, where total_t = y[k][32t] + y[k][32t + 1] + ... +
+// y[k][32t + 31], added left to right (the ragged last group carries into
+// nothing). One pass: a CTA owns CT_ROWS rows and walks their carrying
+// columns in tiles of CT_GROUPS groups. Each tile arrives by 16-byte loads
+// (coalesced; element by element only at a tile's misaligned edges),
+// issued one tile ahead into registers, and is stored to shared memory with
+// a group's 32 words at a stride of 33, so that the warp of one row's 32
+// groups, one thread a group, reads conflict-free as each thread forms its
+// group's total left to right; then one thread a row chains the tile's
+// totals onto the row's running carry, left to right, and the (CT_ROWS x
+// CT_GROUPS) block of carries is stored coalesced. The same adds in the
+// same order as the plain version: the same bits in f32, exact in int32.
+// Bound: the bytes of y, read once.
+// 4 rows a CTA and registers capped for 5 CTAs an SM: the 576 CTAs of K
+// 2304 run in one wave, each with a tile of 16-byte loads in flight
+constexpr int CT_ROWS = 4;
+constexpr int CT_GROUPS = 32;
+constexpr int CT_W = 32 * CT_GROUPS;              // columns a tile
+constexpr int CT_THREADS = CT_ROWS * CT_GROUPS;   // one (row, group) each
+constexpr int CT_CPR = CT_W / 4 + 1;              // 16-byte chunks a row
+constexpr int CT_ITEMS = (CT_ROWS * CT_CPR + CT_THREADS - 1) / CT_THREADS;
 
 template <typename T>
-__global__ void carry_chain_kernel(T* __restrict__ c, int K, int Tn) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K || Tn < 3) return;
-  T* row = c + (long long)k * Tn;
-  T run = row[1];
-  for (int t = 2; t < Tn; ++t) {
-    run = run + row[t];
-    row[t] = run;
+__global__ void __launch_bounds__(CT_THREADS, 5)
+carry_table_kernel(const T* __restrict__ y, T* __restrict__ c, int K, int N,
+                   int Tn, int vec) {
+  static_assert(sizeof(T) == 4, "f32 or int32");
+  __shared__ T tile[CT_ROWS][CT_GROUPS * 33];
+  // group totals, then the carries; rows of CT_GROUPS + 4 for 16-byte reads
+  __shared__ __align__(16) T tot[CT_ROWS][CT_GROUPS + 4];
+  __shared__ __align__(16) T car[CT_ROWS][CT_GROUPS + 4];
+  const int k0 = blockIdx.x * CT_ROWS;
+  const int tid = threadIdx.x;
+  const int cols = 32 * (Tn - 1);     // the full groups that carry
+  const int ntiles = (cols + CT_W - 1) / CT_W;
+  if (tid < CT_ROWS && k0 + tid < K) c[(long long)(k0 + tid) * Tn] = T(0);
+
+  union Chunk {
+    uint4 u;
+    T e[4];
+  };
+  uint4 raw[CT_ITEMS];
+  // item it of a tile: row it / CT_CPR, 16-byte chunk it % CT_CPR counted
+  // from the aligned element at or before the tile's first in that row:
+  // element `at`, its first column `off` from the tile's (-3 .. CT_W), and
+  // `lim`, the tile's columns in this row
+  auto span = [&](int it, int c0, long long& at, int& off,
+                  int& lim) -> bool {
+    const int r = it / CT_CPR;
+    if (r >= CT_ROWS || k0 + r >= K) return false;
+    const long long e0 = (long long)(k0 + r) * N + c0;
+    lim = min(CT_W, cols - c0);
+    off = 4 * (it % CT_CPR) - (int)(e0 & 3);
+    at = e0 + off;
+    return off < lim;
+  };
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int i = 0; i < CT_ITEMS; ++i) {
+      long long at;
+      int off, lim;
+      Chunk v;
+      v.u = make_uint4(0, 0, 0, 0);
+      if (span(tid + i * CT_THREADS, c0, at, off, lim)) {
+        if (vec && off >= 0 && off + 4 <= lim) {
+          // with a 256-byte L2 prefetch: a tile's row is 4 KB in a run
+          asm volatile(
+              "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, "
+              "[%4];"
+              : "=r"(v.u.x), "=r"(v.u.y), "=r"(v.u.z), "=r"(v.u.w)
+              : "l"(y + at));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (off + e >= 0 && off + e < lim) v.e[e] = y[at + e];
+        }
+      }
+      raw[i] = v.u;
+    }
+  };
+  auto stage = [&](int c0) {
+#pragma unroll
+    for (int i = 0; i < CT_ITEMS; ++i) {
+      const int it = tid + i * CT_THREADS;
+      long long at;
+      int off, lim;
+      if (!span(it, c0, at, off, lim)) continue;
+      Chunk v;
+      v.u = raw[i];
+      T* row = tile[it / CT_CPR];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = off + e;
+        if (col >= 0 && col < lim) row[(col >> 5) * 33 + (col & 31)] = v.e[e];
+      }
+    }
+  };
+
+  const int r = tid / CT_GROUPS, g = tid % CT_GROUPS;
+  static_assert(CT_GROUPS % 4 == 0, "the chain reads 16 bytes of totals");
+  T run = T(0);                       // row tid's carry (tid < CT_ROWS)
+  if (ntiles > 0) load(0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int c0 = i * CT_W;
+    const int ng = min(CT_GROUPS, Tn - 1 - c0 / 32);   // groups that carry
+    stage(c0);
+    __syncthreads();                  // the tile is in shared memory
+    if (i + 1 < ntiles) load(c0 + CT_W);   // in flight over the sums
+    if (g < ng) {
+      const T* grp = tile[r] + g * 33;
+      T total = grp[0];
+#pragma unroll
+      for (int j = 1; j < 32; ++j) total = total + grp[j];
+      tot[r][g] = total;
+    }
+    __syncthreads();                  // the tile's totals
+    if (tid < CT_ROWS) {
+#pragma unroll 4
+      for (int j0 = 0; j0 < ng; j0 += 4) {
+        Chunk v, o;
+        v.u = *reinterpret_cast<const uint4*>(&tot[tid][j0]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (j0 + e < ng)
+            run = (i == 0 && j0 + e == 0) ? v.e[0] : run + v.e[e];
+          o.e[e] = run;
+        }
+        *reinterpret_cast<uint4*>(&car[tid][j0]) = o.u;
+      }
+    }
+    __syncthreads();                  // the tile's carries
+    if (g < ng && k0 + r < K)
+      c[(long long)(k0 + r) * Tn + c0 / 32 + g + 1] = car[r][g];
   }
 }
 
@@ -68,10 +166,9 @@ template <typename T>
 static int carry_launch(const void* y, void* c, int K, int N,
                         cudaStream_t s) {
   const int Tn = (N + 31) / 32;
-  const long long cells = (long long)K * Tn;
-  carry_totals_kernel<T><<<(unsigned)((cells + 255) / 256), 256, 0, s>>>(
-      (const T*)y, (T*)c, K, N, Tn);
-  carry_chain_kernel<T><<<(K + 127) / 128, 128, 0, s>>>((T*)c, K, Tn);
+  const int vec = ((uintptr_t)y & 15) == 0;
+  carry_table_kernel<T><<<(K + CT_ROWS - 1) / CT_ROWS, CT_THREADS, 0, s>>>(
+      (const T*)y, (T*)c, K, N, Tn, vec);
   return (int)cudaGetLastError();
 }
 
@@ -84,6 +181,9 @@ extern "C" int carry_table_launch(const void* y, void* carry, int K, int N,
                 : carry_launch<float>(y, carry, K, N, s);
 }
 
+// dtype: 0 = f32 a with f32 y, 1 = bf16 a with f32 y, 2 = int8 a with int32
+// y; carry: the (K, ceil(N / 32)) table in y's type. geom, split_rows,
+// split_cta and ws as for fip_gemm_launch.
 extern "C" int ffip_gemm_launch(const void* a, const void* y,
                                 const void* carry, void* ws, void* out, int M,
                                 int N, int K, int geom, int split_rows,

@@ -20,8 +20,8 @@
 //
 // The TPU kernel runs its sequence grid axis reversed and in order on one
 // core, carrying dh and dA in VMEM scratch from one chunk to the next. Here
-// one CTA owns a (batch row, 32-channel block) for the whole sequence, K6's
-// geometry: four threads a channel, N/4 states each, dh and dA in
+// one CTA owns a (batch row, 32-channel block) for the whole sequence:
+// four threads a channel, N/4 states each, dh and dA in
 // registers, the chunks walked in reverse inside the CTA. Within a chunk the
 // steps go in sub-tiles of TS = 128 / N steps (8 at N = 16), so that a
 // sub-tile's h_{t-1} and exp(dt A), TS x N/4 of each a thread, fit in

@@ -7,22 +7,27 @@ kernels ``csrc/selective_scan.cu`` and ``csrc/selective_scan_bwd.cu``.
 
 per batch row and channel, with the (di, N) state in f32. The TPU kernel
 carries h in VMEM scratch from one grid step to the next along a sequential
-sequence axis; on the card nothing carries between blocks, so one CTA owns a
-(batch row, 32-channel block) for the whole sequence with h in registers
-(four threads a channel, N/4 states each, y summed over N by two warp
-shuffles). x/dt tiles and the B/C rows are staged in shared memory with
-coalesced loads, 32 steps at a time.
+sequence axis; on the card nothing carries between blocks, so each state's
+recurrence is one thread's loop over the whole sequence with h in a
+register. :func:`scan_plan` picks the geometry: states a thread, threads a
+channel and channels a 128-thread CTA, so that batch 1 at falcon-mamba-7b's
+width fills the card (one state a thread there, 31 warps an SM). Operands
+arrive by 16-byte loads a tile ahead into a shared ring, converted to f32
+once; each step writes its products h_t * C_t to a shared tile, and after
+the tile's steps one thread a (step, channel) sums them into y in
+:func:`_sum_states`'s order, off the recurrence's chain.
 
 K6's bound at the served prefill shape (B 1, S 128, di 8192, N 16, bf16):
-the S * di * N = 16.8 M exponentials on the special-function units (16 per
-SM per clock, 132 SMs, 1.98 GHz: ~4 us) against ~8 MB of inputs and outputs
-(~2.4 us at 3.35 TB/s), so operations bound it. The recurrence is a serial
-chain in t for each state; exp(dt * A) and dt * x * B do not depend on h and
-are issued ahead of it, and four independent chains per thread keep the
-pipes busy. The exponential is the accurate ``expf`` (no fast math), and each
-product and sum is rounded as the plain version rounds it.
+issue slots, about 16.4 instructions a (t, d, n) with the accurate expf's 8
+(``chip_smoke.py``'s ``scan_fwd_issue_ms``: ~8 us), above the S * di * N =
+16.8 M exponentials on the special-function units (16 per SM per clock:
+~4 us) and ~8 MB of inputs and outputs (~2.4 us at 3.35 TB/s). The
+exponential is the accurate ``expf`` (no fast math), and each product and
+sum is rounded as the plain version rounds it, so the kernel's bits are the
+plain version's.
 
-K9 walks the chunks in reverse inside the same CTA geometry: from each
+K9 walks the chunks in reverse, one CTA a (batch row, 32-channel block),
+four threads a channel with N/4 states each: from each
 chunk's ``h_starts`` entry (written by K6) one forward pass keeps the state
 entering every sub-tile of 128 / N steps (in a scratch buffer,
 :func:`bwd_scratch_floats`), then each sub-tile, in reverse, recomputes its
@@ -37,7 +42,7 @@ forward-only, as the reference's is.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -49,12 +54,48 @@ counter = compat.launch_counter("selective_scan")
 bwd_counter = compat.launch_counter("selective_scan_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_SIGS = {
+    "selective_scan_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    "selective_scan_plan": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
 _BWD_SIG = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # channels a K9 CTA owns: its dB/dC partials come one per block of these
 BWD_CHANNELS = 32
-# N = 4 * states per thread; the kernel is built for these
+# the state sizes N the kernels are built for
 KERNEL_STATES = (4, 8, 16, 32, 64)
+# K6's launch plan (csrc/selective_scan.cu::make_plan mirrors it): a CTA of
+# SCAN_THREADS threads; for each N the states a thread it is built for,
+# fewest threads first; the first that puts SCAN_WARPS_PER_SM warps on each
+# of the card's SMs is taken, else the last
+SCAN_THREADS = 128
+SCAN_STATES_PER_THREAD = {4: (1,), 8: (2, 1), 16: (2, 1), 32: (2,), 64: (4,)}
+SCAN_WARPS_PER_SM = 24
+
+
+class ScanPlan(NamedTuple):
+    states: int         # consecutive states a thread
+    lanes: int          # threads a channel (N / states)
+    channels: int       # channels a CTA
+    grid: Tuple[int, int]   # (CTAs along di, batch rows)
+    warps_per_sm: float
+
+
+def scan_plan(bt: int, di: int, n: int) -> ScanPlan:
+    """K6's launch geometry for a (B, di, N) scan: more lanes a channel
+    (fewer states a thread) until the grid puts SCAN_WARPS_PER_SM warps on
+    every SM, the kernel's steps being latency-bound with fewer."""
+    if n not in SCAN_STATES_PER_THREAD:
+        raise ValueError(f"selective_scan: N must be one of {KERNEL_STATES}, "
+                         f"got {n}")
+    for spt in SCAN_STATES_PER_THREAD[n]:
+        lanes = n // spt
+        ch = SCAN_THREADS // lanes
+        gx = -(-di // ch)
+        warps = bt * gx * SCAN_THREADS / 32 / compat.SMS
+        if warps >= SCAN_WARPS_PER_SM:
+            break
+    return ScanPlan(spt, lanes, ch, (gx, bt), warps)
 
 
 def _blocks(x: Tensor, chunk: int, bd: int) -> Tuple[int, int]:
@@ -101,8 +142,9 @@ def selective_scan_plain(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
 def _sum_states(p: Tensor) -> Tensor:
     """Sum over the last (state) axis in the kernel's order: four partial
     sums of N/4 consecutive states, each taken in order, then (0 + 1) +
-    (2 + 3), as the kernel's four threads of a channel and their two
-    shuffles add them (in order, for N not a multiple of 4). Near a
+    (2 + 3), as K6's sum over its tile of products and K9's four threads of
+    a channel and their two shuffles add them (in order, for N not a
+    multiple of 4). Near a
     cancellation another order moves a bf16 y by more than its ulp."""
     n = p.shape[-1]
     lanes = 4 if n % 4 == 0 else 1
@@ -150,7 +192,7 @@ def selective_scan(x: Tensor, dt: Tensor, b: Tensor, c: Tensor, a: Tensor,
     h_fin = torch.empty_like(h32)
     starts = torch.empty((bt, s // chunk, di, n), dtype=torch.float32,
                          device=x.device)
-    lib = compat.load("selective_scan", {"selective_scan_launch": _SIG})
+    lib = compat.load("selective_scan", _SIGS)
     err = lib.selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a32.data_ptr(), h32.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
@@ -159,6 +201,18 @@ def selective_scan(x: Tensor, dt: Tensor, b: Tensor, c: Tensor, a: Tensor,
     counter.bump()
     compat.check(err, "selective_scan")
     return y, h_fin.to(h0.dtype), starts
+
+
+def kernel_plan(bt: int, di: int, n: int) -> Tuple[int, int, int, int]:
+    """The plan ``selective_scan_launch`` takes on the card for (B, di, N):
+    (states a thread, lanes a channel, channels a CTA, CTAs along di), read
+    from the built kernel's ``selective_scan_plan`` (the mirror of
+    :func:`scan_plan`)."""
+    lib = compat.load("selective_scan", _SIGS)
+    out = (ctypes.c_int * 4)()
+    compat.check(lib.selective_scan_plan(bt, di, n, out),
+                 "selective_scan_plan")
+    return tuple(out)
 
 
 def _sum_channels(p: Tensor) -> Tensor:

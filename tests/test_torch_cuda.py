@@ -15,8 +15,9 @@ GEMM bars against its plain version (its K is KH*KW*Cin_g), and equals K1-K3
 over the materialised A bit for bit (the same bodies, nesting and plans).
 The selective scan K6 holds h_final and h_starts within rtol = atol = 1e-4
 of the plain f32 values (the reference kernel's bar in
-tests/test_selective_scan.py) and y within one bf16 ulp
-(the f32 sums differ in order, then round once) in bf16, 1e-4 in f32. The
+tests/test_selective_scan.py) and y within one bf16 ulp in bf16, 1e-4 in
+f32, and, with the plain version's adds in its order, equals it bit for bit
+at falcon-mamba-7b's width (and its launch plan is scan_plan's). The
 flash backward K8 holds its f32 dq/dk/dv within rtol 1e-4, atol 1e-4 *
 max|plain| (the same products summed in another block order) and, once
 cast, one bf16 ulp beyond that atol; the scan backward K9 its five
@@ -140,7 +141,8 @@ def test_pair_kernels_every_geometry_ragged(dev, m, k, n, blocks, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("k,n", [(16, 288), (9, 257), (6, 31), (130, 32),
-                                 (2304, 5760)])
+                                 (2304, 5760), (1, 5760), (7, 33),
+                                 (9, 4097), (2304, 33)])
 def test_carry_table_kernel_equals_plain(dev, k, n, dtype):
     """K3's carry table derived on the card equals the plain derivation bit
     for bit (the same adds in the same order; f32 and int32), ragged N and
@@ -494,6 +496,39 @@ def test_selective_scan_matches_plain(dev, dtype, bt, s, di, n, chunk,
     torch.cuda.synchronize()
     assert got[2].shape == (bt, s // chunk, di, n)
     _scan_close(got, want)
+
+
+@pytest.mark.parametrize("bt,s,di,n,chunk,dtype", [
+    *[(1, s, 8192, 16, 128, dt) for s in (17, 33, 64, 112, 128)
+      for dt in (torch.bfloat16, torch.float32)],
+    *[(1, 128, 8192, n, 128, torch.bfloat16) for n in (4, 8, 32, 64)],
+    (1, 128, 100, 16, 128, torch.bfloat16),   # ragged di: unaligned rows
+    (1, 112, 100, 16, 128, torch.float32),
+    (2, 256, 8192, 16, 128, torch.bfloat16),  # two states a thread
+    (2, 40, 96, 8, 8, torch.bfloat16),        # chunk 8: checkpoints in-loop
+])
+def test_selective_scan_bit_for_bit(dev, bt, s, di, n, chunk, dtype):
+    """K6's y, h_final and h_starts equal the plain version's bit for bit:
+    the same rounded products and sums, y's in _sum_states's order."""
+    args = _scan_operands(bt, s, di, n, dtype, dev, seed=s + n)
+    got = selective_scan(*args, chunk=chunk)
+    want = selective_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
+
+
+@pytest.mark.parametrize("bt,di,n", [(1, 8192, 16), (2, 8192, 16),
+                                     (1, 8192, 4), (1, 8192, 8),
+                                     (1, 8192, 32), (1, 8192, 64),
+                                     (1, 100, 16), (4, 8192, 16)])
+def test_selective_scan_kernel_takes_its_plan(dev, bt, di, n):
+    """The plan the kernel launches with is scan_plan's."""
+    from repro_torch.kernels.selective_scan import kernel_plan, scan_plan
+    plan = scan_plan(bt, di, n)
+    assert kernel_plan(bt, di, n) == (plan.states, plan.lanes,
+                                      plan.channels, plan.grid[0])
 
 
 def test_selective_scan_state_carries_across_calls(dev):
