@@ -16,18 +16,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    int8 (beta folded, as the int8 dense layer calls them); the flash kernel
    K4 at BH = 4 x 36 over the prefill buckets S in {16, 32, 64, 128} and
    the trained S 256 (d 64, causal), d 128, d 40, a window of 32 and
-   non-causal, bf16 and f32 (FLASH_CASES); the paged kernel K5 at decode
+   non-causal, bf16 and f32, and at deepseek-v2-lite-16b's MLA widths (d
+   192 against dv 128, BH = 4 x 16, S 16-128 and 512, bf16; the f32 kernels
+   must refuse them) (FLASH_CASES); the paged kernel K5 at decode
    (B 4, H = KV = 36, Sq 1 and 4, d 64, pages of 16, 16 pages a sequence,
    lengths 17-256 and one of 0), a
-   64-row prefill chunk, GQA group 4, a window of 40 and an MLA-like d 576,
-   dv 512, in bf16 and f32; the fused conv K7 at seven ResNet-50 / AlexNet
+   64-row prefill chunk, GQA group 4, a window of 40 and the absorbed MLA's
+   d 576, dv 512 at decode and in a 64-row chunk, in bf16 and f32; the fused conv K7 at seven ResNet-50 / AlexNet
    convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
    (beta folded), each in the tile ``conv_blocks`` picks; the selective
    scan K6 at falcon-mamba-7b's prefill (B 1, S 16 / 64 / 128, di 8192,
    N 16, bf16), two chunks at B 2, f32, a nonzero
    h0, and a state carried across two calls (SCAN_CASES); the flash backward
    K8 at BH 144, d 64, S 256 / 128 / 200, a window of 32 and non-causal,
-   bf16 and f32 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
+   bf16 and f32, and at MLA's d 192 / dv 128, BH 2 x 16, S 256, bf16
+   (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
    widths, B 2 S 256 (two chunks), B 1 S 128 and S 64, f32
    (SCAN_BWD_CASES). Tolerances: int8
    exact; K6's y, h_final and h_starts bit for bit (beside the earlier
@@ -127,7 +130,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once more at AdamWConfig's default learning rate through the kernels and
    through the plain path: where the plain path's last loss falls below its
    first, the kernels' must too.
-11. Print the kernels line (JSON), then the result line.
+11. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
+   widths and 27 layers, bf16, random weights from --seed, served as in 4.
+   with ffip, fip, baseline and int8 ffip (every prefill dispatch launches
+   K4 at d 192 / dv 128 once per layer, decode attends through the absorbed
+   einsums and launches no attention kernel) and paged as in 6. (flash
+   ffip at decode_chunk 4, int8 at 1: K5 on the absorbed latent, H 16, one
+   kv head, d 576, dv 512). First and second tokens are held under the same
+   bars to a replay of each served run through the plain path (``Replay``:
+   the same dispatches, batches and padding, the served ids fed back), since
+   an expert's capacity depends on every token of a dispatch; the kernels'
+   prefill of each prompt alone against the plain one's is a float sound
+   reading as before, and a middle MoE layer's attn.wo taken from the next
+   layer the planted fault. Then trained as in 10. at MOE_TRAIN_RUNS' depth
+   (K4 + K8 once per layer a step; the aux loss finite) with its gradient
+   reading.
+12. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -197,21 +215,27 @@ GEMM_CASES = tuple(
                     (4096, 65024))))
     for m in ms for k, n in kns)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
-# K4 checks at BH = 4 x 36 (minicpm-2b's heads at 4 slots or training batch
-# 4): (label, S, d, window, causal), each in bf16 and f32. S 16-128 are the
-# served prefill buckets, S 256 the trained sequence; d 128 runs the second
-# tensor-core instantiation, d 40 the first zero-filled.
+# K4 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36
+# (minicpm-2b's heads at 4 slots or training batch 4), bf16 and f32: S
+# 16-128 are the served prefill buckets, S 256 the trained sequence; d 128
+# runs the second tensor-core instantiation, d 40 the first zero-filled. At
+# BH = 4 x 16, deepseek-v2-lite-16b's MLA prefill: d 192 (nope 128 + rope
+# 64) against dv 128, bf16 only (the f32 kernel takes d <= 128 and dv == d;
+# check_flash_refusal holds it to that), the served buckets and S 512.
+BF16_F32 = ("bf16", "f32")
+MLA_D, MLA_DV = 192, 128
 FLASH_CASES = (
-    ("S 16", 16, 64, 0, True),
-    ("S 32", 32, 64, 0, True),
-    ("S 64", 64, 64, 0, True),
-    ("S 128", 128, 64, 0, True),
-    ("S 256", 256, 64, 0, True),
-    ("S 128 d 128", 128, 128, 0, True),
-    ("S 128 d 40", 128, 40, 0, True),
-    ("window 32", 256, 64, 32, True),
-    ("non-causal", 128, 64, 0, False),
-)
+    ("S 16", 144, 16, 64, 64, 0, True, BF16_F32),
+    ("S 32", 144, 32, 64, 64, 0, True, BF16_F32),
+    ("S 64", 144, 64, 64, 64, 0, True, BF16_F32),
+    ("S 128", 144, 128, 64, 64, 0, True, BF16_F32),
+    ("S 256", 144, 256, 64, 64, 0, True, BF16_F32),
+    ("S 128 d 128", 144, 128, 128, 128, 0, True, BF16_F32),
+    ("S 128 d 40", 144, 128, 40, 40, 0, True, BF16_F32),
+    ("window 32", 144, 256, 64, 64, 32, True, BF16_F32),
+    ("non-causal", 144, 128, 64, 64, 0, False, BF16_F32),
+) + tuple((f"MLA S {s}", 4 * 16, s, MLA_D, MLA_DV, 0, True, ("bf16",))
+          for s in (16, 32, 64, 128, 512))
 HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
@@ -303,8 +327,10 @@ VISION_FLOAT_BAR = 1e-3
 VISION_INT8_BAR = 0.35
 # K5 checks: (label, B, H, KV, Sq, d, dv, page size, max_pages, window,
 # scale). Decode lengths are drawn from 17-256 with the first set to 0 (its
-# rows must be exact zeros); the prefill chunk is a prompt's second 64-row
-# chunk (q_start 64, lengths 128).
+# rows must be exact zeros); a prefill chunk is a prompt's second 64-row
+# chunk (q_start 64, lengths 128). The MLA cases are deepseek-v2-lite-16b's
+# absorbed paged attention: H 16, one kv head, k = [latent 512, rope 64],
+# v = the latent, the pre-absorption scale 192^-1/2.
 PAGED_CASES = (
     ("decode", 4, 36, 36, 1, 64, 64, 16, 16, 0, None),
     ("decode Sq 4", 4, 36, 36, 4, 64, 64, 16, 16, 0, None),
@@ -312,6 +338,7 @@ PAGED_CASES = (
     ("GQA group 4", 4, 36, 9, 1, 64, 64, 16, 16, 0, None),
     ("window 40", 4, 36, 36, 4, 64, 64, 16, 16, 40, None),
     ("MLA-like", 4, 16, 1, 1, 576, 512, 16, 16, 0, 192 ** -0.5),
+    ("MLA prefill chunk", 1, 16, 1, 64, 576, 512, 16, 16, 0, 192 ** -0.5),
 )
 HEADLINE_PAGED = ("decode", "bf16")
 # The paged workload: 4 slots, max_len 256 in pages of 16, prefill chunks of
@@ -321,15 +348,18 @@ PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
 # Depth of the paged identity runs (chunk widths, gather vs contiguous): the
 # first layers of the same weights, to keep the whole run short.
 IDENTITY_LAYERS = 8
-# K8 checks at BH = 4 x 36, d 64 (minicpm-2b's attention at training batch
-# 4): (label, S, window, causal), each in bf16 and f32. S 256 is the trained
-# sequence; S 200 leaves a ragged last block.
+# K8 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36,
+# d 64 (minicpm-2b's attention at training batch 4), bf16 and f32: S 256 is
+# the trained sequence; S 200 leaves a ragged last block. At BH = 2 x 16,
+# deepseek-v2-lite-16b's MLA training (batch 2 x 256): d 192 against dv 128,
+# bf16 only.
 FLASH_BWD_CASES = (
-    ("S 256", 256, 0, True),
-    ("S 128", 128, 0, True),
-    ("S 200", 200, 0, True),
-    ("window 32", 256, 32, True),
-    ("non-causal", 128, 0, False),
+    ("S 256", 144, 256, 64, 64, 0, True, BF16_F32),
+    ("S 128", 144, 128, 64, 64, 0, True, BF16_F32),
+    ("S 200", 144, 200, 64, 64, 0, True, BF16_F32),
+    ("window 32", 144, 256, 64, 64, 32, True, BF16_F32),
+    ("non-causal", 144, 128, 64, 64, 0, False, BF16_F32),
+    ("MLA S 256", 2 * 16, 256, MLA_D, MLA_DV, 0, True, ("bf16",)),
 )
 HEADLINE_FLASH_BWD = ("S 256", "bf16")
 # K9 checks at falcon-mamba-7b's widths, f32 as the Function passes them:
@@ -347,6 +377,14 @@ HEADLINE_SCAN_BWD = "train B 2 S 256"
 # more than the card's 80 GB; 48 layers (5.3 B params, ~64 GB) leave room
 # for the activations and AdamW's f32 slices.
 TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
+# phase moe: deepseek-v2-lite-16b (MLA + MoE) served at its published widths
+# and 27 layers (15.7 B parameters, 31 GB in bf16), and trained at 10 of 27:
+# an MoE layer's bf16 params and grads and f32 AdamW moments take 7.0 GB
+# (6.54 GiB), the untied embedding and unembedding 5.0 GB. 9 layers peaked
+# at 61.5 GiB on the H100, so 10 (1 dense + 9 MoE) take ~68 GiB and 11 would
+# leave under 5 GiB of the card's 79 for the allocator; 27 would need ~188 GB.
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_TRAIN_RUNS = ((MOE_ARCH, 10, 2, 256),)
 TRAIN_STEPS = 8
 # AdamW's peak learning rate in phase train (WSD, 2 warmup steps of 8, as
 # the launcher schedules minicpm-2b). At AdamWConfig's default (3e-4) the
@@ -650,14 +688,46 @@ def check_gemms(dev):
     return records
 
 
+def ptxas_of(source: str, key: str, inst: str) -> str:
+    """The ptxas line (registers; spills) of the kernel of ``source`` whose
+    demangled name holds ``key`` and the instantiation text ``inst``, or
+    "not built here" when this process found the kernel built."""
+    for name, regs in ptxas_lines(source, key):
+        if inst in name.replace(" ", ""):
+            return regs
+    return "not built here"
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The first of SDPA's fused backends (flash, memory-efficient, cuDNN)
+    that takes these operands, or why none does; the default call then
+    runs it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    why = []
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            torch.cuda.synchronize()
+            return name
+        except RuntimeError as e:
+            why.append(f"{name}: {str(e).splitlines()[0][:80]}")
+    return "none (" + "; ".join(why) + ")"
+
+
 def check_flash(dev):
     """K4 against its plain version at FLASH_CASES, bf16 (tensor cores) and
     f32 (CUDA cores): o within 2**-7 (bf16) or 2e-3 (f32), lse within 2e-3.
     K4 and the library yardstick (scaled_dot_product_attention, a boolean
-    mask for the window) are both timed by CUDA-graph replay, L2 flushed.
-    Bound: q, k, v and o read or written once and lse written once, against
-    4 d flops per kept (q, k) pair (the QK and PV products) at the bf16
-    tensor-core peak, or the f32 CUDA-core peak for f32."""
+    mask for the window; the backend that takes MLA's dv != d is named) are
+    both timed by CUDA-graph replay, L2 flushed. Bound: q and k (width d),
+    v and o (width dv) read or written once and lse written once, against
+    2 (d + dv) flops per kept (q, k) pair (the QK and PV products) at the
+    bf16 tensor-core peak, or the f32 CUDA-core peak for f32."""
     from repro_torch.kernels.flash_attention import _flash_fwd, _flash_fwd_plain
     import torch.nn.functional as F
 
@@ -665,8 +735,7 @@ def check_flash(dev):
         print(f"  ptxas {name}: {regs}", flush=True)
     records = []
     g = torch.Generator(device=dev).manual_seed(1)
-    bh = 4 * 36
-    for label, s, d, window, causal in FLASH_CASES:
+    for label, bh, s, d, dv, window, causal, dtypes in FLASH_CASES:
         pos = torch.arange(s, device=dev)
         keep = torch.ones((s, s), dtype=torch.bool, device=dev)
         if causal:
@@ -674,9 +743,11 @@ def check_flash(dev):
         if window > 0:
             keep &= (pos[:, None] - pos[None, :]) < window
         pairs = int(keep.sum())
-        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            q, k, v = (torch.randn((bh, s, d), generator=g, device=dev).to(
-                dtype) for _ in range(3))
+        for dname in dtypes:
+            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+            q, k = (torch.randn((bh, s, d), generator=g, device=dev).to(
+                dtype) for _ in range(2))
+            v = torch.randn((bh, s, dv), generator=g, device=dev).to(dtype)
             kern = lambda: _flash_fwd(q, k, v, window,        # noqa: E731
                                       causal=causal)
             o, lse = kern()
@@ -696,33 +767,63 @@ def check_flash(dev):
             else:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q[None], k[None], v[None], is_causal=causal)
+            backend = (sdpa_backend(q[None], k[None], v[None], causal)
+                       if dv != d else None)
             call_ms = time_ms(kern, 20)
             ms = graph_ms(kern)
             lib_ms = yardstick_ms(lib, replay=True)
             peak = PEAK_OPS_S["bf16" if dtype == torch.bfloat16
                               else "cuda_core"]
-            t_ops = 4.0 * bh * pairs * d / peak * 1e3
-            t_bytes = ((4 * bh * s * d * q.element_size() + bh * s * 4)
+            t_ops = 2.0 * (d + dv) * bh * pairs / peak * 1e3
+            t_bytes = ((2 * bh * s * (d + dv) * q.element_size() + bh * s * 4)
                        / HBM_BYTES_S * 1e3)
             bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                                   else (t_ops, "operations"))
-            records.append(dict(kernel="flash_fwd", case=label, bh=bh, s=s,
-                                d=d, window=window, causal=causal,
-                                dtype=dname, ok=ok,
-                                max_abs_err=max(o_err, lse_err), ms=ms,
-                                call_ms=call_ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, kept_pairs=pairs * bh,
-                                tol=f"o {o_tol:g}, lse 2e-3"))
+            rec = dict(kernel="flash_fwd", case=label, bh=bh, s=s, d=d,
+                       dv=dv, window=window, causal=causal, dtype=dname,
+                       ok=ok, max_abs_err=max(o_err, lse_err), ms=ms,
+                       call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, kept_pairs=pairs * bh,
+                       tol=f"o {o_tol:g}, lse 2e-3")
+            extra = ""
+            if dv != d:
+                rec["sdpa_backend"] = backend
+                rec["ptxas"] = ptxas_of("flash_fwd", "_tc_kernel",
+                                        f"<{d},{dv},4>")
+                extra = (f"  sdpa backend {backend}; ptxas <{d}, {dv}, 4>: "
+                         f"{rec['ptxas']}")
+            records.append(rec)
             lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
             print(f"  flash_fwd     {label:11s} BH={bh} S={s:<3d} d={d:<3d} "
-                  f"{dname:4s} {'ok ' if ok else 'BAD'} o_err={o_err:.3g} "
-                  f"lse_err={lse_err:.3g}  {ms:.4f} ms (graph replay; "
-                  f"{call_ms:.4f} ms around the call)  plain "
+                  f"dv={dv:<3d} {dname:4s} {'ok ' if ok else 'BAD'} "
+                  f"o_err={o_err:.3g} lse_err={lse_err:.3g}  {ms:.4f} ms "
+                  f"(graph replay; {call_ms:.4f} ms around the call)  plain "
                   f"{plain_ms:.3f} ms  sdpa {lib_txt}  bound "
-                  f"{bound_ms:.5f} ms ({bound_by})", flush=True)
+                  f"{bound_ms:.5f} ms ({bound_by}){extra}", flush=True)
             del q, k, v, o, lse, o_ref, lse_ref
     return records
+
+
+def check_flash_refusal(dev) -> list:
+    """The f32 flash kernels take d <= 128 and dv == d: at MLA's d 192 /
+    dv 128 in f32 both wrappers must raise (naming ROADMAP queue 2 section
+    A), never fall back. Returns what failed to raise."""
+    from repro_torch.kernels.flash_attention import _flash_bwd, _flash_fwd
+
+    q = torch.zeros((2, 16, MLA_D), device=dev)
+    v = torch.zeros((2, 16, MLA_DV), device=dev)
+    lse = torch.zeros((2, 16), device=dev)
+    missed = []
+    for name, call in (("flash_fwd", lambda: _flash_fwd(q, q, v)),
+                       ("flash_bwd", lambda: _flash_bwd(q, q, v, v, lse, v))):
+        try:
+            call()
+            missed.append(f"{name} took f32 d {MLA_D} / dv {MLA_DV}")
+        except ValueError as e:
+            print(f"  {name} f32 d {MLA_D} dv {MLA_DV}: refused ({e})",
+                  flush=True)
+    return missed
 
 
 def paged_bound(q, k_pool, v_pool, page_table, lengths, q_start, window):
@@ -778,7 +879,7 @@ def check_paged(dev):
                              device=dev).to(dtype)
             pt = torch.randperm(n_pages, generator=g, device=dev).reshape(
                 b, mp).to(torch.int32)
-            if label == "prefill chunk":
+            if "prefill chunk" in label:
                 lengths = torch.full((b,), 128, device=dev)
                 q_start = torch.full((b,), 64, device=dev)
             else:
@@ -798,7 +899,7 @@ def check_paged(dev):
             abs_err, _ = _err(o, want)
             ok = _allclose(o, want, 2 ** -7, 2 ** -7)
             zeros = "n/a"
-            if label != "prefill chunk":
+            if "prefill chunk" not in label:
                 zeros = bool(torch.count_nonzero(o[0]) == 0)
                 ok = ok and zeros
             k_pos = torch.arange(mp * ps, device=dev)
@@ -1092,14 +1193,18 @@ def check_scan(dev, served_lengths):
     return records
 
 
-def flash_bwd_bound(bh: int, s: int, d: int, pairs: int, elt: int):
-    """(bound_ms, bound_by) of one K8 call: q, k, v, o and do read once in
-    their type and lse in f32; dq, dk, dv written once in f32; against 10 d
-    flops per kept (q, k) pair (s, dp, dv, dk, dq: a multiply and an add
-    each) at the bf16 tensor-core peak."""
-    nbytes = bh * s * d * (5 * elt + 3 * 4) + bh * s * 4
+def flash_bwd_bound(bh: int, s: int, d: int, pairs: int, elt: int,
+                    dv: int = 0):
+    """(bound_ms, bound_by) of one K8 call: q and k (width d), v, o and do
+    (width dv) read once in their type and lse in f32; dq, dk (width d) and
+    dv written once in f32; against 6 d + 4 dv flops per kept (q, k) pair
+    (s, dk, dq at width d; dp, dv at width dv: a multiply and an add each)
+    at the bf16 tensor-core peak."""
+    dv = dv or d
+    nbytes = (bh * s * (2 * d + 3 * dv) * elt + bh * s * (2 * d + dv) * 4
+              + bh * s * 4)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 10.0 * d * pairs * bh / PEAK_OPS_S["bf16"] * 1e3
+    t_ops = (6.0 * d + 4.0 * dv) * pairs * bh / PEAK_OPS_S["bf16"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1111,7 +1216,8 @@ def check_flash_bwd(dev):
     atol (a row that keeps one key has dp - delta = 0 up to the order of two
     sums: its dq is ~1e-8 in the plain version and 0 in the kernel). o and lse
     come from K4. K8 and the library yardstick (``sdpa_backward``) are both
-    timed by CUDA-graph replay."""
+    timed by CUDA-graph replay. At MLA's d 192 / dv 128 the passes' ptxas
+    registers and spills print beside the time."""
     from repro_torch.kernels.flash_attention import (_flash_bwd,
                                                      _flash_bwd_plain,
                                                      _flash_fwd)
@@ -1120,8 +1226,7 @@ def check_flash_bwd(dev):
         print(f"  ptxas {name}: {regs}", flush=True)
     records = []
     g = torch.Generator(device=dev).manual_seed(11)
-    bh, d = 4 * 36, 64
-    for label, s, window, causal in FLASH_BWD_CASES:
+    for label, bh, s, d, dv, window, causal, dtypes in FLASH_BWD_CASES:
         pos = torch.arange(s, device=dev)
         keep = torch.ones((s, s), dtype=torch.bool, device=dev)
         if causal:
@@ -1129,10 +1234,12 @@ def check_flash_bwd(dev):
         if window > 0:
             keep &= (pos[:, None] - pos[None, :]) < window
         pairs = int(keep.sum())
-        for dname, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-            q, k, v, do = (torch.randn((bh, s, d), generator=g,
-                                       device=dev).to(dtype)
-                           for _ in range(4))
+        for dname in dtypes:
+            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+            q, k = (torch.randn((bh, s, d), generator=g, device=dev).to(dtype)
+                    for _ in range(2))
+            v, do = (torch.randn((bh, s, dv), generator=g,
+                                 device=dev).to(dtype) for _ in range(2))
             o, lse = _flash_fwd(q, k, v, window, causal=causal)
             kern = lambda: _flash_bwd(q, k, v, o, lse, do, window,  # noqa
                                       causal=causal)
@@ -1160,23 +1267,32 @@ def check_flash_bwd(dev):
             lib_op, lib_ms, lib_err = sdpa_backward(
                 q, k, v, do, bias, causal and window <= 0, want[0])
             bound_ms, bound_by = flash_bwd_bound(bh, s, d, pairs,
-                                                 q.element_size())
-            records.append(dict(kernel="flash_bwd", case=label, bh=bh, s=s,
-                                d=d, window=window, causal=causal,
-                                dtype=dname, ok=ok, max_abs_err=max(errs),
-                                bf16_ulps=ulps, ms=ms, call_ms=call_ms,
-                                plain_ms=plain_ms, library_ms=lib_ms,
-                                library_op=lib_op, bound_ms=bound_ms,
-                                bound_by=bound_by, kept_pairs=pairs * bh,
-                                tol="rtol 1e-4, atol 1e-4 max|plain|; bf16 "
-                                    "cast 1 ulp beyond that atol"))
+                                                 q.element_size(), dv)
+            rec = dict(kernel="flash_bwd", case=label, bh=bh, s=s, d=d,
+                       dv=dv, window=window, causal=causal, dtype=dname,
+                       ok=ok, max_abs_err=max(errs), bf16_ulps=ulps, ms=ms,
+                       call_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library_op=lib_op,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       kept_pairs=pairs * bh,
+                       tol="rtol 1e-4, atol 1e-4 max|plain|; bf16 cast 1 "
+                           "ulp beyond that atol")
+            extra = ""
+            if dv != d:
+                rec["ptxas"] = {
+                    p_: ptxas_of("flash_bwd", f"flash_bwd_{p_}_tc_kernel",
+                                 f"<{d},{dv}>") for p_ in ("dq", "dkdv")}
+                extra = "  ptxas " + "; ".join(
+                    f"{k_} <{d}, {dv}>: {v_}" for k_, v_ in
+                    rec["ptxas"].items())
+            records.append(rec)
             print(f"  flash_bwd     {label:10s} BH={bh} S={s:<3d} d={d} "
-                  f"{dname:4s} {'ok ' if ok else 'BAD'} dq/dk/dv max_abs "
-                  f"{max(errs):.3g}, bf16 cast {ulps:.2f} ulp  {ms:.4f} ms "
-                  f"(graph replay; {call_ms:.4f} ms around the call)  plain "
-                  f"{plain_ms:.3f} ms  {lib_op} {lib_ms} ms (its dq off the "
-                  f"plain by {lib_err})  bound {bound_ms:.5f} ms "
-                  f"({bound_by})", flush=True)
+                  f"dv={dv} {dname:4s} {'ok ' if ok else 'BAD'} dq/dk/dv "
+                  f"max_abs {max(errs):.3g}, bf16 cast {ulps:.2f} ulp  "
+                  f"{ms:.4f} ms (graph replay; {call_ms:.4f} ms around the "
+                  f"call)  plain {plain_ms:.3f} ms  {lib_op} {lib_ms} ms "
+                  f"(its dq off the plain by {lib_err})  bound "
+                  f"{bound_ms:.5f} ms ({bound_by}){extra}", flush=True)
             del q, k, v, do, o, lse, got, want, bias
     return records
 
@@ -1185,13 +1301,14 @@ def sdpa_backward(q, k, v, do, bias, is_causal: bool, plain_dq):
     """(op, ms, max |dq - plain dq|) of scaled_dot_product_attention's own
     backward kernel, called directly on the saved outputs of its forward at
     (1, BH, S, d), as SDPA picks them: flash attention's for bf16 with no
-    mask, memory-efficient attention's for f32 or a mask (an additive bias).
-    Timed alone by CUDA-graph replay; (op, None, None) where the call is
-    refused."""
+    mask and v of q's width, memory-efficient attention's for f32, a mask
+    (an additive bias) or dv != d. Timed alone by CUDA-graph replay; (op,
+    None, None) where the call is refused."""
     aten = torch.ops.aten
     q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
     try:
-        if q.dtype == torch.bfloat16 and bias is None:
+        if (q.dtype == torch.bfloat16 and bias is None
+                and v.shape[-1] == q.shape[-1]):
             op = "flash_attention_backward"
             o, lse, cq, ck, mq, mk, seed, off = \
                 aten._scaled_dot_product_flash_attention(
@@ -1389,21 +1506,101 @@ def plain_scan():
         ssm.ssk = ssk
 
 
+@contextlib.contextmanager
+def plain_flash():
+    """The attention layers call K4's, K8's and K5's plain versions instead
+    of the kernels while this is open, whatever the device (the plain path
+    of the MLA model: its attention in the formulation the kernels compute,
+    where attention_impl="naive" would run the absorbed decode's algebra on
+    the prompt, another rounding of the same function). The flash Function
+    keeps its shape: the plain forward, and the plain backward under
+    autograd."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_paged as fp
+    from repro_torch.models import attention as A
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, window, causal):
+            o, lse = fa._flash_fwd_plain(q, k, v, window, causal=causal)
+            ctx.save_for_backward(q, k, v, o, lse)
+            ctx.window, ctx.causal = int(window), bool(causal)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            dq, dk, dv = fa._flash_bwd_plain(q, k, v, o, lse, do.contiguous(),
+                                             ctx.window, causal=ctx.causal)
+            return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+    def flash(q, k, v, window=0, causal=True):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return PlainFlash.apply(q, k, v, window, causal)
+        return fa._flash_fwd_plain(q, k, v, window, causal=causal)[0]
+
+    saved = A.flash_attention, A.flash_attention_paged
+    A.flash_attention = flash
+    A.flash_attention_paged = fp.flash_attention_paged_plain
+    try:
+        yield
+    finally:
+        A.flash_attention, A.flash_attention_paged = saved
+
+
+@contextlib.contextmanager
+def routing(recorded=None):
+    """The MoE routers' expert choices while this is open. Without
+    ``recorded`` each top-k (in call order) is kept in the yielded list;
+    with it, each top-k returns the recorded experts instead, their
+    probabilities gathered from this forward's own router. So two forwards
+    of the same weights and batch can be compared with the same discrete
+    choices: a near-tie between the 6th and 7th of 64 experts flips on a
+    bf16 difference anywhere upstream and moves every later gradient of
+    that token, which is routing, not arithmetic."""
+    from repro_torch.models import moe
+
+    orig, calls = moe.top_k, []
+    replay = iter(recorded) if recorded is not None else None
+
+    def record(probs, k):
+        vals, idx = orig(probs, k)
+        calls.append(idx)
+        return vals, idx
+
+    def fixed(probs, k):
+        idx = next(replay)
+        return torch.gather(probs, -1, idx), idx
+
+    moe.top_k = record if recorded is None else fixed
+    try:
+        yield calls
+    finally:
+        moe.top_k = orig
+    if replay is not None and next(replay, None) is not None:
+        raise RuntimeError("the replayed forward routed fewer times than "
+                           "the recorded one")
+
+
 class PlainPath:
     """The plain path on one prompt set: torch.matmul (float) or the plain
     int8 algebra, plain attention and the plain selective scan, one prompt
     at a time. It keeps each prompt's prefill logits and cache, so that a
     decode step fed a served first token gives the plain logits of the
-    served second token."""
+    served second token. With ``kernels_plain`` the attention keeps the
+    model's own formulation and runs the flash kernels' plain versions
+    (``plain_flash``) instead of attention_impl="naive"."""
 
-    def __init__(self, model, params, prompts, quantized: bool):
+    def __init__(self, model, params, prompts, quantized: bool,
+                 kernels_plain: bool = False):
         from repro_torch.core.gemm import GemmConfig
         from repro_torch.core.quant import attach_quantized_weights
         from repro_torch.models.model import Model
 
-        self.model = Model(dataclasses.replace(model.cfg,
-                                               attention_impl="naive"),
-                           device=model.device)
+        self.kernels_plain = kernels_plain
+        self.model = Model(model.cfg if kernels_plain else dataclasses.replace(
+            model.cfg, attention_impl="naive"), device=model.device)
         self.gemm = (GemmConfig(algo="ffip", impl="torch", quantized=True,
                                 k_chunk=64)
                      if quantized else GemmConfig(algo="baseline",
@@ -1427,6 +1624,8 @@ class PlainPath:
         stack.enter_context(use_gemm(self.gemm))
         stack.enter_context(torch.no_grad())
         stack.enter_context(plain_scan())
+        if self.kernels_plain:
+            stack.enter_context(plain_flash())
         return stack
 
     def second(self, rid: int, first_tok: int) -> torch.Tensor:
@@ -1536,6 +1735,108 @@ def int8_step_faults(params, n_layers: int):
     }
 
 
+@contextlib.contextmanager
+def record_samples():
+    """Every id tensor the served run's greedy sampling returns, kept in
+    call order while this is open: a replay feeds them back."""
+    from repro_torch.models import transformer as T
+
+    orig, calls = T.sample_fn, []
+
+    def recording(params, hidden, cfg):
+        ids = orig(params, hidden, cfg)
+        calls.append(ids)
+        return ids
+
+    T.sample_fn = recording
+    try:
+        yield calls
+    finally:
+        T.sample_fn = orig
+
+
+class Replay:
+    """The plain path through a served run's own dispatches: the same
+    BatchServer schedule, batches, padding and cache positions, with
+    torch.matmul (float) or the plain int8 algebra and the attention
+    kernels' plain versions (``plain_flash``), the served run's sampled ids
+    fed back at every dispatch (``record_samples``) so that each dispatch
+    sees the served tokens, and its expert choices (``routing``), so that
+    a near-tied choice that flipped on a bf16 difference does not stand in
+    for the arithmetic. It keeps each request's
+    plain first-token logits (its prefill dispatch's row) and second-token
+    logits (its slot's row in the first decode dispatch after it). For an
+    MoE model this is the comparison that holds: the capacity of an expert
+    depends on every token of a dispatch, so one prompt alone is another
+    function of the weights. Same interface as PlainPath for
+    ``token_readings``."""
+
+    def __init__(self, model, params, prompts, samples, routes,
+                 max_new: int, *, quantized: bool, **server_kw):
+        from repro_torch.core.gemm import GemmConfig
+        from repro_torch.models import transformer as T
+        from repro_torch.models.model import Model
+        from repro_torch.serve.batcher import BatchServer, Request
+
+        plain = Model(model.cfg, device=model.device)
+        self.first, self._second = {}, {}
+        logits, waiting, decoding = [], {}, [False]
+        orig_sample, orig_place = T.sample_fn, BatchServer._place
+        orig_steps = Model.sample_steps
+
+        def sample(p, hidden, cfg):
+            i = len(logits)
+            if i >= len(samples):
+                raise RuntimeError("the replay dispatched more than the "
+                                   "served run")
+            lg = T.logits_fn(p, hidden, cfg).float().reshape(-1, cfg.vocab)
+            logits.append(lg)
+            if decoding[0]:
+                for slot, rid in waiting.items():
+                    self._second[rid] = lg[slot]
+                waiting.clear()
+            return samples[i]
+
+        def place(srv, slot_i, req, first):
+            orig_place(srv, slot_i, req, first)
+            lg = logits[-1]
+            self.first[req.rid] = lg[slot_i if lg.shape[0] > 1 else 0]
+            if srv.slots[slot_i].req is req:
+                waiting[slot_i] = req.rid
+
+        def steps(m, *a, **kw):
+            decoding[0] = True
+            try:
+                return orig_steps(m, *a, **kw)
+            finally:
+                decoding[0] = False
+
+        T.sample_fn, BatchServer._place, Model.sample_steps = (sample, place,
+                                                                steps)
+        try:
+            srv = BatchServer(plain, device=plain.device, quantized=quantized,
+                              gemm_algo="ffip",
+                              gemm_impl="torch" if quantized else None,
+                              **server_kw)
+            if quantized:     # chunk the plain int8 cross term, as PlainPath
+                srv._gemm_cfg = GemmConfig(algo="ffip", impl="torch",
+                                           quantized=True, k_chunk=64)
+            for i, prompt in enumerate(prompts):
+                srv.submit(Request(rid=i, prompt=prompt,
+                                   max_new_tokens=max_new))
+            with torch.no_grad(), plain_flash(), routing(routes):
+                srv.run_until_drained(params)
+        finally:
+            T.sample_fn, BatchServer._place, Model.sample_steps = (
+                orig_sample, orig_place, orig_steps)
+        if len(logits) != len(samples):
+            raise RuntimeError(f"the replay dispatched {len(logits)} "
+                               f"samplings, the served run {len(samples)}")
+
+    def second(self, rid: int, first_tok: int) -> torch.Tensor:
+        return self._second[rid]
+
+
 class Readings:
     """Token readings against the plain path, and the witnesses of each
     bar: every sound reading must lie below it, every reading of a planted
@@ -1604,10 +1905,11 @@ def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
         label = tag + ("int8-" if quantized else "") + algo
         torch.cuda.reset_peak_memory_stats()
         compat.reset_counters()
-        srv, done, wall = serve(model, params, prompts, max_new=max_new,
-                                batch_slots=4, max_len=256,
-                                quantized=quantized, gemm_algo=algo,
-                                gemm_impl="cuda")
+        with record_samples() as samples, routing() as routes:
+            srv, done, wall = serve(model, params, prompts, max_new=max_new,
+                                    batch_slots=4, max_len=256,
+                                    quantized=quantized, gemm_algo=algo,
+                                    gemm_impl="cuda")
         counts = compat.launch_counts()
         st = dict(srv.stats)
         tokens = sum(len(r.out_tokens) for r in done)
@@ -1626,7 +1928,8 @@ def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
               f"{counts}", flush=True)
         runs.append(dict(label=label, algo=algo, quantized=quantized,
                          done=done, counts=counts, stats=st, wall_s=wall,
-                         budget_ok=budget_ok, peak_gib=peak))
+                         budget_ok=budget_ok, peak_gib=peak, samples=samples,
+                         routes=routes))
         del srv
         torch.cuda.empty_cache()      # the next run's weights start afresh
     return runs
@@ -2027,6 +2330,146 @@ def run_ssm(args, readings: Readings, problems):
     return runs
 
 
+def run_moe(args, readings: Readings, problems):
+    """deepseek-v2-lite-16b at its published widths and 27 layers through
+    the MLA + MoE path: served contiguous four ways (every prefill dispatch
+    through K4 at d 192 / dv 128 once per layer, decode through the
+    absorbed einsums, the projections and routers through K1-K3) and paged
+    through K5 (absorbed: H 16, one kv head, d 576, dv 512), tokens held to
+    a replay of each served run through the plain path, planted faults
+    read, one dispatch of each kind profiled; then trained (MOE_TRAIN_RUNS)
+    through K4 + K8. Returns (served runs, paged runs, train records)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    m, e = cfg.mla, cfg.moe
+    print(f"phase moe: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, MLA kv_lora {m.kv_lora_rank} / rope {m.rope_head_dim} / "
+          f"nope {m.nope_head_dim} / v {m.v_head_dim}, MoE {e.n_experts} "
+          f"experts top-{e.top_k} of d_ff {e.d_ff_expert} + {e.n_shared} "
+          f"shared, capacity factor {e.capacity_factor}, first "
+          f"{cfg.first_k_dense} dense, vocab {cfg.vocab}, untied, "
+          f"{cfg.param_dtype}; n_layers {cfg.n_layers} (published, no cut), "
+          f"{cfg.param_count() / 1e9:.2f} B params", flush=True)
+    model = Model(cfg)
+    params = model.init(args.seed)
+    prompts = served_prompts(cfg.vocab, args.seed)
+    n = cfg.n_layers
+    n_moe = n - cfg.first_k_dense
+    print(f"  4 slots, max_len 256, prompt lengths "
+          f"{[len(p) for p in prompts]}, {args.max_new} new tokens each; "
+          f"weights from seed {args.seed} in {time.perf_counter() - t0:.1f} "
+          f"s; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    runs = drive_main_path(model, params, prompts, args.max_new,
+                           tag="deepseek ")
+    gemm = {"ffip": "ffip_gemm_y", "fip": "fip_gemm",
+            "baseline": "baseline_gemm"}
+    for r in runs:
+        c, st = r["counts"], r["stats"]
+        want_k4 = n * st["prefill_dispatches"]
+        print(f"  [{r['label']}] flash_fwd {c['flash_fwd']} = {n} layers x "
+              f"{st['prefill_dispatches']} prefill dispatches: "
+              f"{c['flash_fwd'] == want_k4}", flush=True)
+        if not r["budget_ok"]:
+            problems.append(f"{r['label']}: a request missed its token budget")
+        if c[gemm[r["algo"]]] == 0:
+            problems.append(f"{r['label']}: {gemm[r['algo']]} never launched")
+        if c["flash_fwd"] != want_k4:
+            problems.append(f"{r['label']}: flash_fwd launched "
+                            f"{c['flash_fwd']} times, want {want_k4} (once "
+                            f"per layer per prefill dispatch, never at "
+                            f"decode)")
+        if any(c.get(k) for k in ("flash_paged", "conv_gemm",
+                                  "selective_scan")):
+            problems.append(f"{r['label']}: paged, conv or scan kernels "
+                            f"launched {c}")
+    print(f"phase moe serve: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    contiguous = dict(batch_slots=4, max_len=256)
+    for r in runs:
+        tier = "int8" if r["quantized"] else "float"
+        plain = Replay(model, params, prompts, r["samples"], r["routes"],
+                       args.max_new, quantized=r["quantized"], **contiguous)
+        readings.read(r["label"], r["done"], plain, tier)
+        del plain
+    alone = PlainPath(model, params, prompts, False, kernels_plain=True)
+    for r in runs:
+        if not r["quantized"]:
+            readings.deviation(r["label"], kernel_deviation(
+                model, params, prompts, alone, r["algo"]))
+    del alone
+    label, faulty = wrong_layer(params, "attn", "wo", n_moe)
+    for quantized in (True, False):
+        with record_samples() as samples, routing() as routes:
+            _, done, _ = serve(model, faulty, prompts, max_new=2,
+                               quantized=quantized, gemm_algo="ffip",
+                               gemm_impl="cuda", **contiguous)
+        tier = "int8" if quantized else "float"
+        plain = Replay(model, params, prompts, samples, routes, 2,
+                       quantized=quantized, **contiguous)
+        readings.read(f"deepseek planted fault: {label}, {tier} ffip", done,
+                      plain, tier, fault=True)
+        del plain
+    del faulty
+    free_device()
+    print(f"phase moe check: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # paged through K5: the absorbed MLA over page pools of the latent and
+    # the rope key, prefix sharing, copy on write, 64-row prefill chunks
+    t1 = time.perf_counter()
+    paged_prompts = make_prompts(cfg.vocab, 8,
+                                 np.random.default_rng(args.seed), 16, 65,
+                                 shared_prefix=64)
+    print(f"  paged: {PAGED_SLOTS} slots, max_len {PAGED_MAX_LEN}, pages of "
+          f"{PAGE_SIZE}, prefill chunks of {PREFILL_CHUNK}; prompt lengths "
+          f"{[len(p) for p in paged_prompts]}", flush=True)
+    paged_runs = []
+    for tag, quantized, chunk in (("ffip", False, 4), ("int8-ffip", True, 1)):
+        with record_samples() as samples, routing() as routes:
+            rec, found = serve_paged(
+                model, params, paged_prompts, args.max_new,
+                f"deepseek paged flash {tag}", gemm_algo="ffip",
+                quantized=quantized, decode_chunk=chunk,
+                paged_attention="flash", prefill_chunk=PREFILL_CHUNK)
+        problems.extend(found)
+        paged_runs.append(rec)
+        plain = Replay(model, params, paged_prompts, samples, routes,
+                       args.max_new, quantized=quantized,
+                       batch_slots=PAGED_SLOTS,
+                       max_len=PAGED_MAX_LEN, paged=True, page_size=PAGE_SIZE,
+                       prefill_chunk=PREFILL_CHUNK, decode_chunk=chunk)
+        readings.read(rec["label"], rec["done"], plain,
+                      "int8" if quantized else "float")
+        del plain
+        free_device()
+    print(f"phase moe paged: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # one dispatch of each kind, counted and profiled: K4 once per layer in
+    # the contiguous prefill, K5 once per layer in either paged dispatch
+    steps = {f"deepseek {k}": v for k, v in contiguous_steps(
+        model, params, 128).items()}
+    steps.update({f"deepseek {k}": v for k, v in paged_steps(
+        model, params).items()})
+    print_profile(steps, lambda phase: {
+        "flash_fwd": n if phase == "deepseek prefill" else 0,
+        "flash_paged": n if "paged" in phase else 0}, problems)
+    del steps, model, params
+    free_device()
+    print(f"phase moe serving: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    train_recs, _ = run_train(args, problems, runs=MOE_TRAIN_RUNS)
+    free_device()
+    print(f"phase moe train: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase moe: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, paged_runs, train_recs
+
+
 @contextlib.contextmanager
 def plain_recurrence():
     """The Mamba1 mixer's fused scan replaced, while this is open, by
@@ -2080,8 +2523,10 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
     """One step's loss and per-stacked-leaf gradient relative L2 error
-    through the kernels against the plain path (plain attention, or
-    autograd through the plain f32 recurrence) at the first IDENTITY_LAYERS
+    through the kernels against the plain path (plain attention; for MLA
+    the flash Function's plain versions, with the kernel side's expert
+    choices; or autograd through the plain f32 recurrence) at the first
+    IDENTITY_LAYERS
     layers, same weights and batch; then the same reading of a planted
     fault on the kernel side. Returns (largest sound reading, the fault's
     reading)."""
@@ -2097,19 +2542,34 @@ def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
     batch = {k: torch.from_numpy(v).to(model.device)
              for k, v in data.items()}
     if cfg.family == "ssm":
-        plain_model, scope = model, plain_recurrence()
+        plain_model, scope = model, plain_recurrence
         group, name = "ssm", "out_proj"
+    elif cfg.mla is not None:
+        # MLA: the flash Function's plain versions (K4's and K8's), in the
+        # formulation the kernels compute
+        plain_model, scope = model, plain_flash
+        group, name = "attn", "wo"
     else:
         plain_model = Model(dataclasses.replace(cfg_id,
                                                 attention_impl="naive"))
-        scope, group, name = contextlib.nullcontext(), "attn", "wo"
-    loss_k, g_k = one_step_grads(model, params, batch)
-    with scope:
+        scope, group, name = contextlib.nullcontext, "attn", "wo"
+    # an MoE model's plain side takes the kernel side's expert choices
+    # (``routing``), the planted fault's run as the sound one's
+    moe = cfg.moe is not None
+    with routing() as chosen:
+        loss_k, g_k = one_step_grads(model, params, batch)
+    with scope(), routing(chosen if moe else None):
         loss_p, g_p = one_step_grads(plain_model, params, batch)
     sound = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
     del g_k
-    label, faulty = wrong_layer(params, group, name, n_id)
-    loss_f, g_f = one_step_grads(model, faulty, batch)
+    label, faulty = wrong_layer(params, group, name,
+                                params["layers"][group][name]["w"].shape[0])
+    with routing() as chosen:
+        loss_f, g_f = one_step_grads(model, faulty, batch)
+    if moe:
+        del g_p
+        with scope(), routing(chosen):
+            _, g_p = one_step_grads(plain_model, params, batch)
     fault = {k: _rel_l2(g_f[k], g_p[k]) for k in g_p}
     top = max(sound, key=sound.get)
     worst = max(fault, key=fault.get)
@@ -2166,24 +2626,26 @@ def profile_train_step(model, out, tcfg, batch):
     return dict(wall_ms=wall_ms, busy_ms=busy, device_ms=device_ms)
 
 
-def run_train(args, problems):
-    """Train minicpm-2b and falcon-mamba-7b at full width (TRAIN_RUNS)
-    through ``train.loop.train``: AdamW with the launcher's minicpm choice
-    (WSD, 2 warmup steps over 8), batches from the port's pipeline. Every
-    step must launch K4 and K8 (K6 and K9) once per layer and nothing else
-    of the kernels; losses and gradient norms finite; the last loss below
-    the first. Then the gradient readings, and for attention models the lr
-    witness. Returns (records, readings)."""
+def run_train(args, problems, runs=TRAIN_RUNS):
+    """Train ``runs`` (minicpm-2b and falcon-mamba-7b, TRAIN_RUNS; phase moe
+    deepseek-v2-lite-16b, MOE_TRAIN_RUNS) at full width through
+    ``train.loop.train``: AdamW with the launcher's minicpm choice (WSD, 2
+    warmup steps over 8), batches from the port's pipeline. Every step must
+    launch K4 and K8 (K6 and K9) once per layer and nothing else of the
+    kernels; losses and gradient norms finite (and an MoE model's aux loss);
+    the last loss below the first. Then the gradient readings, and for the
+    dense model the lr witness. Returns (records, readings)."""
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import compat
+    from repro_torch.models import transformer as T
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import LoopConfig, train
     from repro_torch.train.step import TrainConfig
 
     records, readings = [], []
-    for arch, n_layers, batch_size, seq in TRAIN_RUNS:
+    for arch, n_layers, batch_size, seq in runs:
         t0 = time.perf_counter()
         full = configs.get_config(arch)
         cfg = dataclasses.replace(full, n_layers=n_layers)
@@ -2258,18 +2720,28 @@ def run_train(args, problems):
                                       vocab=cfg.vocab, seed=args.seed))
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in data.batch_at(TRAIN_STEPS).items()}
+        aux = None
+        if cfg.moe is not None:
+            with torch.no_grad():
+                aux = float(T.forward(out["params"], batch["tokens"],
+                                      cfg)[1])
+            print(f"  [{arch} train] aux loss of the trained weights on the "
+                  f"next batch {aux:.6f} (finite {np.isfinite(aux)})",
+                  flush=True)
+            if not np.isfinite(aux):
+                problems.append(f"{arch} train: the aux loss is not finite")
         prof = profile_train_step(model, out, tcfg, batch)
         records.append(dict(arch=arch, n_layers=n_layers, batch=batch_size,
                             seq=seq, losses=losses, grad_norms=norms,
                             step_s=times, ms_per_step=ms_step,
-                            tokens_per_s=tok_s, peak_gib=peak,
+                            tokens_per_s=tok_s, peak_gib=peak, aux=aux,
                             counts=counts, profile=prof))
         del out, model, batch
         free_device()
         readings.append((arch, *grad_reading(arch, cfg, args.seed,
                                              batch_size, seq)))
         free_device()
-        if cfg.family != "ssm":
+        if cfg.family == "dense":
             lr_witness(arch, cfg, args.seed, batch_size, seq, problems)
             free_device()
         print(f"phase train {arch}: {time.perf_counter() - t0:.1f} s",
@@ -2375,6 +2847,7 @@ def main(argv=None) -> int:
                     args.seed)])
             + check_flash_bwd(dev) + check_scan_bwd(dev))
     bad = [r for r in recs if not r["ok"]]
+    bad += check_flash_refusal(dev)
     print(f"phase kernels: {len(recs)} checks, {len(bad)} failed, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if bad:
@@ -2588,12 +3061,20 @@ def main(argv=None) -> int:
                  "selective_scan_bwd"):
         totals[name] += sum(r["counts"][name] for r in train_recs)
     print(f"phase train: {time.perf_counter() - t0:.1f} s", flush=True)
+    free_device()
+
+    # 10. the MLA + MoE path: deepseek-v2-lite-16b served through K1-K5 and
+    # trained through K4 + K8
+    moe_runs, moe_paged, moe_train = run_moe(args, readings, problems)
+    for name in totals:
+        totals[name] += sum(r["counts"].get(name, 0)
+                            for r in moe_runs + moe_paged + moe_train)
     readings.gate()
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 10. the kernels line and the result line
+    # 11. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]

@@ -1,7 +1,8 @@
 """Architecture registry + reduced (smoke) config derivation.
 
 The port carries the archs whose path it has ported so far (the dense
-minicpm-2b and the Mamba1 falcon-mamba-7b); ``smoke_config`` is a copy of
+minicpm-2b, the Mamba1 falcon-mamba-7b and the MLA + MoE
+deepseek-v2-lite-16b); ``smoke_config`` is a copy of
 the reference's, so a smoke config here has the same widths as its
 counterpart there."""
 from __future__ import annotations
@@ -12,10 +13,12 @@ from repro_torch.configs.base import (EncoderConfig, MLAConfig,  # noqa: F401
                                       MoEConfig, ModelConfig, SHAPES,
                                       SHAPE_BY_NAME, ShapeConfig, SSMConfig,
                                       shape_supported)
+from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 
 ARCHS = {
+    "deepseek-v2-lite-16b": _deepseek,
     "falcon-mamba-7b": _falcon_mamba,
     "minicpm-2b": _minicpm,
 }

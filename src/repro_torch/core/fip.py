@@ -144,6 +144,29 @@ def pair_swap_rows(b: Tensor) -> Tensor:
     return b.reshape(k // 2, 2, n).flip(1).reshape(k, n)
 
 
+# ---------------------------------------------------------------------------
+# §3.2.1 proof replay helpers (tests replay the induction with them)
+# ---------------------------------------------------------------------------
+
+def h_terms(a: Tensor, b: Tensor, j: int) -> Tensor:
+    """Eqs. (11)/(12): h^{(j)}_{i,k} for output column j (0-based here).
+
+    h_{i,2k-1}^{(j)} = a_{i,2k} + b_{2k-1,j};  h_{i,2k}^{(j)} = a_{i,2k-1} + b_{2k,j}
+    i.e. h^{(j)} = pair_swap(a) + b[:, j].
+    """
+    return (pair_swap(a.to(acc_dtype(a.dtype)))
+            + b[:, j][None, :].to(acc_dtype(b.dtype)))
+
+
+def g_terms_by_recurrence(a: Tensor, b: Tensor, j: int) -> Tensor:
+    """g^{(j)} built strictly by the Eq. (8) recurrence (j is 0-based)."""
+    y = make_y(b)
+    g = pair_swap(a.to(acc_dtype(a.dtype)))
+    for jj in range(j + 1):
+        g = g + y[:, jj][None, :]
+    return g
+
+
 def ffip_matmul_scan(a: Tensor, y: Tensor, *, beta: Optional[Tensor] = None,
                      bias_folded: Optional[Tensor] = None) -> Tensor:
     """FFIP via the literal Eqs. (7)-(9) column recurrence: the g terms of

@@ -29,8 +29,9 @@ Tensor = torch.Tensor
 Algo = Literal["baseline", "fip", "ffip"]
 Impl = Literal["torch", "ref", "cuda"]
 # None -> the kernels' static defaults (ops.choose_blocks); (bm, bn, bk) ->
-# explicit override. ("auto", the tuned schedule, comes with the tune port.)
-Block = Union[None, Tuple[int, int, int]]
+# explicit override; "auto" -> the tuned schedule, which comes with the tune
+# port (ROADMAP queue 1, item 14) and raises until then.
+Block = Union[None, str, Tuple[int, int, int]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +74,17 @@ def _pad_even_k(a: Tensor, b: Tensor):
 
 def resolve_blocks(cfg: GemmConfig) -> Tuple[int, int, int]:
     """(0, 0, 0) means the kernels' static default."""
+    if cfg.block == "auto":
+        raise NotImplementedError(
+            "GemmConfig.block='auto' needs the tuned schedule cache, which "
+            "comes with the tune port (ROADMAP queue 1, item 14)")
     if cfg.block is None:
         return (0, 0, 0)
     if isinstance(cfg.block, (tuple, list)) and len(cfg.block) == 3:
         bm, bn, bk = cfg.block
         return (int(bm), int(bn), int(bk))
-    raise ValueError(f"GemmConfig.block must be None or (bm, bn, bk); "
-                     f"got {cfg.block!r}")
+    raise ValueError(f"GemmConfig.block must be None, 'auto' or "
+                     f"(bm, bn, bk); got {cfg.block!r}")
 
 
 def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None) -> Tensor:

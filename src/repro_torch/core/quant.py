@@ -1,17 +1,22 @@
 """Integer quantization and the paper's ML-specific (F)FIP optimizations
 (§3.3, §4.4) on the serving path. Counterpart of ``repro/core/quant.py``.
 
+  * affine quantization (``QuantParams``, min/max ``calibrate``,
+    ``quantize`` / ``dequantize``; int8, uint8, int16, uint16) and the
+    §4.1/§4.4 pre-add widths (``d_bit_growth``, ``preadd_bits``),
   * per-output-channel asymmetric int8 weights, prepared offline with beta
     folded into the integer bias (Eq. 15) and the colsums precomputed,
   * per-token-row asymmetric int8 activations, quantized at run time,
-  * the zero-point adjuster (Eq. 20): AR_ij = zb_j * rowsum(A)_i.
+  * the zero-point adjuster (Eq. 20): AR_ij = zb_j * rowsum(A)_i,
+  * the whole float -> int (F)FIP -> float layer (``quantized_dense_ffip``).
 
 Rounding is ``torch.round``: half to even, as ``jnp.round``. Every integer
 result is bit-exact against the reference.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +29,74 @@ _INT_INFO = {
     torch.int8: (-128, 127),
     torch.uint8: (0, 255),
     torch.int16: (-(2 ** 15), 2 ** 15 - 1),
+    torch.uint16: (0, 2 ** 16 - 1),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantParams:
+    """Affine quantization: real = scale * (q - zero_point)."""
+    scale: Tensor              # () or (channels,)
+    zero_point: Tensor         # same shape as scale, stored int32
+    dtype: torch.dtype         # target integer dtype
+    axis: Optional[int] = None  # channel axis, None = per-tensor
+
+
+def d_bit_growth(a_signed: bool, b_signed: bool) -> int:
+    """§4.1: d = 1 if a and b are both signed or both unsigned, else 2."""
+    return 1 if a_signed == b_signed else 2
+
+
+def preadd_bits(w: int, a_signed: bool, b_signed: bool) -> int:
+    """§4.4: bits needed for the pre-add (a ± b sums): w + d."""
+    return w + d_bit_growth(a_signed, b_signed)
+
+
+def calibrate(x: Tensor, dtype=torch.int8, *, symmetric: bool = True,
+              axis: Optional[int] = None) -> QuantParams:
+    """Min/max calibration producing QuantParams (f32 scale, int32 zero
+    point), per tensor or per channel along ``axis``."""
+    qmin, qmax = _INT_INFO[dtype]
+    x = x.to(torch.float32)
+    dims = (tuple(i for i in range(x.dim()) if i != axis)
+            if axis is not None else tuple(range(x.dim())))
+    if symmetric:
+        amax = torch.amax(torch.abs(x), dim=dims)
+        # signed: +/-qmax around 0. unsigned: +/-(range/2) around midpoint zp.
+        bound = qmax if qmin < 0 else (qmax - qmin) // 2
+        scale = torch.clamp_min(amax / bound, 1e-12)
+        zp = (torch.zeros_like(scale, dtype=torch.int32) if qmin < 0
+              else torch.full_like(scale, (qmax + 1) // 2,
+                                   dtype=torch.int32))
+    else:
+        xmin = torch.amin(x, dim=dims)
+        xmax = torch.amax(x, dim=dims)
+        scale = torch.clamp_min((xmax - xmin) / (qmax - qmin), 1e-12)
+        zp = torch.clamp(torch.round(qmin - xmin / scale),
+                         qmin, qmax).to(torch.int32)
+    return QuantParams(scale=scale, zero_point=zp, dtype=dtype, axis=axis)
+
+
+def _channel_shape(qp: QuantParams, t: Tensor, ndim: int) -> Tensor:
+    if qp.axis is None:
+        return t
+    shape = [1] * ndim
+    shape[qp.axis] = -1
+    return t.reshape(shape)
+
+
+def quantize(x: Tensor, qp: QuantParams) -> Tensor:
+    qmin, qmax = _INT_INFO[qp.dtype]
+    scale = _channel_shape(qp, qp.scale, x.dim())
+    zp = _channel_shape(qp, qp.zero_point, x.dim())
+    q = torch.round(x.to(torch.float32) / scale) + zp
+    return torch.clamp(q, qmin, qmax).to(qp.dtype)
+
+
+def dequantize(q: Tensor, qp: QuantParams) -> Tensor:
+    scale = _channel_shape(qp, qp.scale, q.dim())
+    zp = _channel_shape(qp, qp.zero_point, q.dim())
+    return (q.to(torch.int32) - zp).to(torch.float32) * scale
 
 
 def int_gemm_baseline(aq: Tensor, bq: Tensor, za, zb) -> Tensor:
@@ -166,3 +238,33 @@ def attach_quantized_weights(params, *, dtype=torch.int8,
                 for key, val in node.items()}
 
     return walk(params)
+
+
+def quantized_dense_ffip(x: Tensor, w: Tensor, bias: Optional[Tensor],
+                         xq: QuantParams, wq: QuantParams, *,
+                         algo: str = "ffip") -> Tensor:
+    """Full quantized dense layer: float in -> quant -> (F)FIP int GEMM ->
+    dequant. beta(W_q) is computed once from the quantized weights and
+    folded into the integer bias (Eq. 15), so the (F)FIP beta subtraction
+    costs nothing at inference."""
+    aq = quantize(x, xq)
+    bq = quantize(w, wq)
+    k = aq.shape[-1]
+    if k % 2 != 0:
+        raise ValueError("pad K to even before quantized FFIP")
+    a32 = aq.to(torch.int32)
+    b32 = bq.to(torch.int32)
+    beta_folded = fip.fold_beta_into_bias(b32)                    # Eq. (15)
+    if algo == "ffip":
+        raw = fip.fip_matmul_beta_folded(
+            fip.pair_swap(a32), fip.pair_swap_rows(b32), beta_folded)
+    else:
+        raw = fip.fip_matmul_beta_folded(a32, b32, beta_folded)   # == A_q B_q
+    colsum_b = torch.sum(b32, dim=0, keepdim=True, dtype=torch.int32)
+    acc = (raw - xq.zero_point * colsum_b
+           - zero_point_adjuster(aq, wq.zero_point)
+           + k * xq.zero_point * wq.zero_point)
+    out = acc.to(torch.float32) * (xq.scale * wq.scale)
+    if bias is not None:
+        out = out + bias
+    return out

@@ -1,9 +1,9 @@
 // K8: flash-attention backward. Replaces the Pallas kernel
 // repro/kernels/flash_attention.py::_flash_bwd (_bwd_kernel).
 //
-// q, o, do: (BH, Sq, d), k, v: (BH, Sk, d) in bf16 or f32; lse: (BH, Sq) f32
-// from the forward (K4). Outputs dq: (BH, Sq, d), dk, dv: (BH, Sk, d), all
-// f32 (the wrapper casts them to the inputs' types), and the scratch delta:
+// q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv), o, do: (BH, Sq, dv) in
+// bf16 or f32; lse: (BH, Sq) f32 from the forward (K4). Outputs dq: (BH, Sq,
+// d), dk: (BH, Sk, d), dv: (BH, Sk, dv), all f32 (the wrapper casts them to the inputs' types), and the scratch delta:
 // (BH, Sq) f32. Causal masking and a sliding window (a runtime int; <= 0
 // means full attention) on positions q_pos = row, k_pos = column, as K4.
 //
@@ -33,8 +33,13 @@
 // (hi = bf16(x), lo = bf16(x - hi)) and issue two MMAs: the residual is
 // below 2^-16 of x, inside the bar of the f32 version, where one bf16
 // rounding of p (as FlashAttention-2 does) is not. The passes are templated
-// on (D, DV), the widths of q/k and of v, instantiated at 32, 64 and 128; a
-// narrower d runs zero-padded to the next one.
+// on (D, DV), the widths of q/k and of v, instantiated at (32, 32), (64, 64),
+// (128, 128) and MLA's (192, 128); a narrower width runs zero-padded to the
+// next one. At (192, 128) the dk/dv pass holds 16 x 192 + 16 x 128 f32
+// accumulators a warp (160 registers a thread before fragments): with
+// 32-query steps ptxas spilled 100 bytes, so that pass walks 16-query steps
+// there (kv_step), which leaves its p^T and ds^T tiles half the registers.
+// The f32 passes take d <= 128 and dv == d.
 //
 // f32 keeps the CUDA-core passes: delta per row, then dk/dv (one CTA per
 // 64-key block walking 32-row query blocks, four threads a key), then dq
@@ -332,6 +337,13 @@ __host__ __device__ constexpr int step() {
   return D <= 64 && DV <= 64 ? 64 : 32;
 }
 
+// Query rows of the dk/dv pass's inner block: step(), or 16 past d 128,
+// where the dk and dv accumulators take 160 registers a thread.
+template <int D, int DV>
+__host__ __device__ constexpr int kv_step() {
+  return D > 128 ? 16 : step<D, DV>();
+}
+
 // n_rows f32 values from src + row0 into dst[0 .. ROWS), zero past n_rows.
 template <int ROWS>
 __device__ __forceinline__ void load_vec(float* dst,
@@ -541,7 +553,7 @@ flash_bwd_dq_tc_kernel(Args p) {
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_tc_kernel(Args p) {
-  constexpr int STEP = step<D, DV>();
+  constexpr int STEP = kv_step<D, DV>();
   constexpr int K_BYTES = BLK * pitch(D), V_BYTES = BLK * pitch(DV);
   constexpr int Q_BYTES = STEP * pitch(D), DO_BYTES = STEP * pitch(DV);
   constexpr int SLOT = Q_BYTES + DO_BYTES + 2 * STEP * (int)sizeof(float);
@@ -663,13 +675,13 @@ cudaError_t opt_in(K kernel, int bytes) {
 
 template <int D, int DV>
 cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
-  constexpr int STEP = step<D, DV>();
+  constexpr int STEP = step<D, DV>(), DKDV_STEP = kv_step<D, DV>();
   constexpr int SMEM_DQ = BLK * (pitch(D) + pitch(DV)) +
                           2 * STEP * (pitch(D) + pitch(DV)) +
                           2 * BLK * (int)sizeof(float);
   constexpr int SMEM_KV = BLK * (pitch(D) + pitch(DV)) +
-                          2 * (STEP * (pitch(D) + pitch(DV)) +
-                               2 * STEP * (int)sizeof(float));
+                          2 * (DKDV_STEP * (pitch(D) + pitch(DV)) +
+                               2 * DKDV_STEP * (int)sizeof(float));
   cudaError_t e = opt_in(flash_bwd_dq_tc_kernel<D, DV>, SMEM_DQ);
   if (e != cudaSuccess) return e;
   flash_bwd_dq_tc_kernel<D, DV>
@@ -688,30 +700,35 @@ cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, o and do share it; lse, delta, dq, dk
 // and dv are f32).
+// d is the width of q and k, dv_w that of v, o and do: bf16 takes d <= 192
+// with dv_w <= 128, f32 d <= 128 with dv_w == d.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* lse,
                                 const void* dout, void* delta, void* dq,
                                 void* dk, void* dv, int BH, int Sq, int Sk,
-                                int d, int window, int causal, float scale,
-                                int dtype, void* stream) {
-  if (BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || d < 1 || d > f32::DMAX)
+                                int d, int dv_w, int window, int causal,
+                                float scale, int dtype, void* stream) {
+  if (BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || d < 1 || dv_w < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (d > f32::DMAX || dv_w != d) return (int)cudaErrorInvalidValue;
     return (int)f32::launch_f32(q, k, v, o, (const float*)lse, dout,
                                 (float*)delta, (float*)dq, (float*)dk,
                                 (float*)dv, BH, Sq, Sk, d, window, causal,
                                 scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 1 || d > 192 || dv_w > 128) return (int)cudaErrorInvalidValue;
   using tcb::bf16;
   const void* ptrs[] = {q, k, v, o, dout};
-  bool aligned = d % 8 == 0;
+  bool aligned = d % 8 == 0 && dv_w % 8 == 0;
   for (const void* ptr : ptrs) aligned = aligned && (uintptr_t)ptr % 16 == 0;
   tcb::Args p{(const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
               (const bf16*)dout, (const float*)lse, (float*)delta,
-              (float*)dq, (float*)dk, (float*)dv, Sq, Sk, d, d, window,
+              (float*)dq, (float*)dk, (float*)dv, Sq, Sk, d, dv_w, window,
               causal, scale, (int)aligned};
-  if (d <= 32) return (int)tcb::launch<32, 32>(p, BH, s);
-  if (d <= 64) return (int)tcb::launch<64, 64>(p, BH, s);
-  return (int)tcb::launch<128, 128>(p, BH, s);
+  if (d <= 32 && dv_w <= 32) return (int)tcb::launch<32, 32>(p, BH, s);
+  if (d <= 64 && dv_w <= 64) return (int)tcb::launch<64, 64>(p, BH, s);
+  if (d <= 128) return (int)tcb::launch<128, 128>(p, BH, s);
+  return (int)tcb::launch<192, 128>(p, BH, s);
 }

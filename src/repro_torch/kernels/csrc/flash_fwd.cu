@@ -1,8 +1,8 @@
 // K4: flash-attention forward (FlashAttention-2 online softmax). Replaces the
 // Pallas kernel repro/kernels/flash_attention.py::_flash_fwd (_fwd_kernel).
 //
-// q: (BH, Sq, d), k/v: (BH, Sk, d) -> o: (BH, Sq, d) in q's type, lse: (BH, Sq)
-// f32. Causal masking and a sliding window (a runtime int; <= 0 means full
+// q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> o: (BH, Sq, dv) in q's
+// type, lse: (BH, Sq) f32. Causal masking and a sliding window (a runtime int; <= 0 means full
 // attention) on positions q_pos = row, k_pos = column, as the reference.
 // Masked scores are -1e30 and their p is zeroed after exp, and l is clamped
 // at 1e-30, so a fully masked row gives exactly 0 (reference lines 58-62,
@@ -23,13 +23,19 @@
 // accumulator registers straight into the A fragments of PV, with v's
 // fragments by ldmatrix.trans. Only the summation order differs from the
 // plain version. Templated on (D, DV), the widths of q/k and of v in shared
-// memory (v's width passed apart from q's), instantiated at (64, 64) and
-// (128, 128): a narrower d runs zero-filled to the next, which is exact
-// (zero columns add nothing to s, and o's extra columns are not written).
+// memory (v's width passed apart from q's), instantiated at (64, 64),
+// (128, 128) and MLA's (192, 128) (q/k concatenate nope 128 + rope 64
+// against v 128): a narrower width runs zero-filled to the next, which is
+// exact (zero columns add nothing to s, and o's extra columns are not
+// written). Up to d 128 a warp keeps its q fragments in registers for the
+// whole walk; at (192, 128) the 16 x 128 f32 accumulator, the scores and 48
+// registers of q fragments would pass the 255 a thread has (ptxas spilled 56
+// bytes), so there each step reloads q's fragments from the shared tile (12
+// ldmatrix a 64-key step). A 4-warp CTA holds 109 KB of shared memory.
 //
-// f32 keeps the CUDA-core kernel, the only exact-f32 route (no TF32): one
-// CTA per (bh, 32-row q block), 32-key blocks, q, the k/v block and p in
-// shared memory, four threads a row.
+// f32 keeps the CUDA-core kernel, the only exact-f32 route (no TF32), at
+// d <= 128 and dv == d: one CTA per (bh, 32-row q block), 32-key blocks, q,
+// the k/v block and p in shared memory, four threads a row.
 #include <math.h>
 
 #include "flash_tc.cuh"
@@ -237,16 +243,21 @@ flash_fwd_tc_kernel(Args p) {
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};       // this thread's share of each row's l
-  unsigned qf[D / 16][4];
+  // q's A fragments: in registers for the whole walk up to d 128, else
+  // reloaded from the shared tile each step (see the header)
+  constexpr bool Q_IN_REGS = D <= 128;
+  unsigned qf[Q_IN_REGS ? D / 16 : 1][4];
 
   for (int t = 0; t < nsteps; ++t) {
     issue(t + 1);
     rt::cp_async_wait<1>();
     __syncthreads();
-    if (t == 0) {
+    if constexpr (Q_IN_REGS) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ftc::frag_a<D>(qf[kk], Qs, row0, kk * 16, lane);
+        for (int kk = 0; kk < D / 16; ++kk)
+          ftc::frag_a<D>(qf[kk], Qs, row0, kk * 16, lane);
+      }
     }
     const unsigned char* Ks = ring + (t % 2) * SLOT;
     const unsigned char* Vs = Ks + K_BYTES;
@@ -259,11 +270,19 @@ flash_fwd_tc_kernel(Args p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned qa[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) qa[c] = qf[kk][c];
+      } else {
+        ftc::frag_a<D>(qa, Qs, row0, kk * 16, lane);
+      }
 #pragma unroll
       for (int nb = 0; nb < BKV / 16; ++nb)
-        ftc::mma_nk<D>(s[2 * nb], s[2 * nb + 1], qf[kk], Ks, nb * 16,
-                       kk * 16, lane);
+        ftc::mma_nk<D>(s[2 * nb], s[2 * nb + 1], qa, Ks, nb * 16, kk * 16,
+                       lane);
+    }
     unsigned keep = 0;             // bit n * 4 + c: entry kept
     float mx[2] = {m[0], m[1]};
 #pragma unroll
@@ -375,25 +394,30 @@ cudaError_t launch_d(const Args& p, int BH, cudaStream_t stream) {
 }  // namespace tc
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (q, k, v and o share it; lse is f32).
+// dtype: 0 = f32, 1 = bf16 (q, k, v and o share it; lse is f32). d is the
+// width of q and k, dv that of v and o: bf16 takes d <= 192 with dv <= 128,
+// f32 d <= 128 with dv == d.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int BH, int Sq, int Sk,
-                                int d, int window, int causal, float scale,
-                                int dtype, void* stream) {
-  if (d < 1 || d > f32::DMAX || BH < 1 || BH > 65535 || Sq < 1 || Sk < 1)
+                                int d, int dv, int window, int causal,
+                                float scale, int dtype, void* stream) {
+  if (d < 1 || dv < 1 || BH < 1 || BH > 65535 || Sq < 1 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
+  if (dtype == 0) {
+    if (d > f32::DMAX || dv != d) return (int)cudaErrorInvalidValue;
     return (int)f32::launch((const float*)q, (const float*)k, (const float*)v,
                             (float*)o, (float*)lse, BH, Sq, Sk, d, window,
                             causal, scale, s);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 1 || d > 192 || dv > 128) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {q, k, v, o};
-  bool aligned = d % 8 == 0;
+  bool aligned = d % 8 == 0 && dv % 8 == 0;
   for (const void* ptr : ptrs) aligned = aligned && (uintptr_t)ptr % 16 == 0;
   tc::Args p{(const ftc::bf16*)q, (const ftc::bf16*)k, (const ftc::bf16*)v,
-             (ftc::bf16*)o, (float*)lse, Sq, Sk, d, d, window, causal,
+             (ftc::bf16*)o, (float*)lse, Sq, Sk, d, dv, window, causal,
              scale, (int)aligned};
-  if (d <= 64) return (int)tc::launch_d<64, 64>(p, BH, s);
-  return (int)tc::launch_d<128, 128>(p, BH, s);
+  if (d <= 64 && dv <= 64) return (int)tc::launch_d<64, 64>(p, BH, s);
+  if (d <= 128) return (int)tc::launch_d<128, 128>(p, BH, s);
+  return (int)tc::launch_d<192, 128>(p, BH, s);
 }

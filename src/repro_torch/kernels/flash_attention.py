@@ -12,8 +12,9 @@ warp against 64-key blocks from a ``cp.async`` double buffer, the online
 softmax in registers, l summed from the f32 p, p rounded to bf16 (as the
 reference rounds it to v's dtype) straight from the accumulators into the A
 fragments of PV, v's fragments by ``ldmatrix.trans``. Its body is templated
-on the width D (64, 128): a narrower d runs zero-filled, which is exact.
-f32 inputs keep a CUDA-core kernel (no TF32).
+on the widths (D, DV) of q/k and of v, instantiated at (64, 64), (128, 128)
+and MLA's (192, 128): a narrower width runs zero-filled, which is exact.
+f32 inputs keep a CUDA-core kernel (no TF32) at d <= 128 and dv == d.
 
 K8: dq, dk, dv from the forward's log-sum-exp, with ``delta = sum(do * o)``
 per row. The TPU kernel accumulates dq across key blocks into one output
@@ -25,7 +26,8 @@ accumulation): s = q k^T and dp = do v^T from the bf16 operands as they
 are, and each product with the f32 p or ds (dv, dk, dq) as two MMAs of its
 hi + lo bf16 split, which keeps the reference's f32 p within the f32 bar
 (one bf16 rounding of p would not). Bound at training shapes: the bytes.
-f32 inputs keep the CUDA-core passes. :func:`flash_attention` is
+The bf16 passes take the forward's (D, DV) widths, MLA's (192, 128)
+included; f32 inputs keep the CUDA-core passes at d <= 128 and dv == d. :func:`flash_attention` is
 differentiable through :class:`FlashAttention` (K4 forward, K8 backward), as
 the reference's custom VJP is. The paged decode kernel is K5
 (``flash_paged.py``).
@@ -47,12 +49,35 @@ counter = compat.launch_counter("flash_fwd")
 bwd_counter = compat.launch_counter("flash_bwd")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
+_SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                        ctypes.c_int,
                                                        ctypes.c_void_p])
-_BWD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-KERNEL_DMAX = 128
+# Widths the kernels take, (d, dv) of q/k and of v: the bf16 tensor-core
+# bodies up to MLA's d 192 against dv 128; the f32 CUDA-core ones up to
+# d 128 with dv == d (wider f32 is ROADMAP queue 2 section A).
+KERNEL_DMAX = {torch.bfloat16: 192, torch.float32: 128}
+KERNEL_DVMAX = 128
+
+
+def _check_widths(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
+    """Raise unless the card's kernel takes these operands: (BH, Sq, d),
+    (BH, Sk, d), (BH, Sk, dv) of one dtype the kernels take, d and dv within
+    its bounds. Never a fallback: the caller launches or raises."""
+    bh, sq, d = q.shape
+    sk, dv = k.shape[1], v.shape[-1]
+    if (k.shape != (bh, sk, d) or v.shape != (bh, sk, dv)
+            or not q.dtype == k.dtype == v.dtype
+            or q.dtype not in _DTYPE_CODES):
+        raise ValueError(f"{name}: unsupported operands q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)} {q.dtype}")
+    if (d > KERNEL_DMAX[q.dtype] or dv > KERNEL_DVMAX
+            or (q.dtype == torch.float32 and dv != d)):
+        raise ValueError(
+            f"{name}: no {q.dtype} kernel for d {d}, dv {dv} (bf16 takes d "
+            f"<= 192 and dv <= 128, f32 d <= 128 and dv == d; wider is "
+            f"ROADMAP queue 2 section A)")
 
 
 def _flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
@@ -98,25 +123,21 @@ def _flash_fwd_plain(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
 
 def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
                causal: bool = True) -> Tuple[Tensor, Tensor]:
-    """q: (BH, Sq, d), k/v: (BH, Sk, d) -> (o (BH, Sq, d) in q's dtype,
-    lse (BH, Sq) f32). CPU tensors take :func:`_flash_fwd_plain`; CUDA
-    tensors launch the kernel (or raise)."""
+    """q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> (o (BH, Sq, dv)
+    in q's dtype, lse (BH, Sq) f32). CPU tensors take
+    :func:`_flash_fwd_plain`; CUDA tensors launch the kernel (or raise)."""
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, window, causal=causal)
+    _check_widths("flash_fwd", q, k, v)
     bh, sq, d = q.shape
-    sk = k.shape[1]
-    if (k.shape != (bh, sk, d) or v.shape != (bh, sk, d)
-            or not q.dtype == k.dtype == v.dtype
-            or q.dtype not in _DTYPE_CODES or d > KERNEL_DMAX):
-        raise ValueError(f"flash_fwd: unsupported operands q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} {q.dtype}")
+    sk, dv = k.shape[1], v.shape[-1]
     compat.require_cuda(q, k, v)
-    o = torch.empty_like(q)
+    o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     lib = compat.load("flash_fwd", {"flash_fwd_launch": _SIG})
     err = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        bh, sq, sk, d, int(window), int(causal), 1.0 / math.sqrt(d),
+        bh, sq, sk, d, dv, int(window), int(causal), 1.0 / math.sqrt(d),
         _DTYPE_CODES[q.dtype], compat.stream_ptr(q))
     counter.bump()
     compat.check(err, "flash_fwd")
@@ -161,32 +182,32 @@ def _flash_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
 def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                do: Tensor, window: int = 0, *, causal: bool = True
                ) -> Tuple[Tensor, Tensor, Tensor]:
-    """q, o, do: (BH, Sq, d); k, v: (BH, Sk, d); lse: (BH, Sq) f32 from the
-    forward -> f32 (dq, dk, dv). CPU tensors take :func:`_flash_bwd_plain`;
-    CUDA tensors launch K8 (or raise)."""
+    """q: (BH, Sq, d); k: (BH, Sk, d); v: (BH, Sk, dv); o, do: (BH, Sq,
+    dv); lse: (BH, Sq) f32 from the forward -> f32 (dq, dk, dv). CPU tensors
+    take :func:`_flash_bwd_plain`; CUDA tensors launch K8 (or raise)."""
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
+    _check_widths("flash_bwd", q, k, v)
     bh, sq, d = q.shape
-    sk = k.shape[1]
-    if (k.shape != (bh, sk, d) or v.shape != (bh, sk, d)
-            or o.shape != q.shape or do.shape != q.shape
+    sk, dv_w = k.shape[1], v.shape[-1]
+    if (o.shape != (bh, sq, dv_w) or do.shape != o.shape
             or lse.shape != (bh, sq) or lse.dtype != torch.float32
-            or not q.dtype == k.dtype == v.dtype == o.dtype == do.dtype
-            or q.dtype not in _DTYPE_CODES or d > KERNEL_DMAX):
+            or not q.dtype == o.dtype == do.dtype):
         raise ValueError(f"flash_bwd: unsupported operands q{tuple(q.shape)} "
-                         f"k{tuple(k.shape)} v{tuple(v.shape)} "
-                         f"do{tuple(do.shape)} {q.dtype}")
+                         f"v{tuple(v.shape)} o{tuple(o.shape)} "
+                         f"do{tuple(do.shape)} lse{tuple(lse.shape)} "
+                         f"{q.dtype}")
     compat.require_cuda(q, k, v, o, lse, do)
     f32 = torch.float32
     dq = torch.empty((bh, sq, d), dtype=f32, device=q.device)
     dk = torch.empty((bh, sk, d), dtype=f32, device=q.device)
-    dv = torch.empty((bh, sk, d), dtype=f32, device=q.device)
+    dv = torch.empty((bh, sk, dv_w), dtype=f32, device=q.device)
     delta = torch.empty((bh, sq), dtype=f32, device=q.device)
     lib = compat.load("flash_bwd", {"flash_bwd_launch": _BWD_SIG})
     err = lib.flash_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, int(window),
+        dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, dv_w, int(window),
         int(causal), 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
         compat.stream_ptr(q))
     bwd_counter.bump()
@@ -217,14 +238,9 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, window: int = 0,
                     causal: bool = True) -> Tensor:
-    """q: (BH, Sq, d), k/v: (BH, Sk, d) -> o (BH, Sq, d): K4 forward, and K8
-    backward when autograd asks (the reference's custom VJP entry point).
-    The backward takes ``v`` of q's width only (MLA's dv != d waits for the
-    MLA slice)."""
+    """q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> o (BH, Sq, dv):
+    K4 forward, and K8 backward when autograd asks (the reference's custom
+    VJP entry point); dv may differ from d (MLA's 192 / 128)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                "flash_attention backward takes dv == d; MLA's dv != d is "
-                "ROADMAP queue 1 item 8")
         return FlashAttention.apply(q, k, v, window, causal)
     return _flash_fwd(q, k, v, window, causal=causal)[0]

@@ -10,6 +10,11 @@ the card unless ``--device cpu`` is given.
 random, from ``--seed``. ``--arch falcon-mamba-7b`` serves the Mamba1 stack
 (prefill through the selective-scan kernel); its prompts take the per-slot
 scatter prefill, as ``--no-prefill-buckets`` makes every model do.
+``--arch deepseek-v2-lite-16b`` serves MLA + MoE: prefill through the flash
+kernel at d 192 against dv 128, decode through the absorbed latent
+attention, the routers through the GEMM provider and the experts' einsums
+over the capacity buffer; one card holds the expert banks whole (the
+reference's expert/ffn partitions need a mesh: ROADMAP item 15).
 
 ``--paged`` serves from the block-paged cache (page pool and page tables,
 prefix sharing, chunked prefill); ``--paged-attention flash`` attends through

@@ -4,14 +4,17 @@
         --smoke --steps 100 --batch 8 --seq 256 [--ckpt-dir DIR] [--device cpu]
 
 Runs on the card unless ``--device cpu`` is given. ``--smoke`` trains the
-reduced config; a full config is refused, as the reference refuses it off
-its production mesh: distributed training is ROADMAP queue 1 item 15
-(``chip_smoke.py`` trains minicpm-2b and falcon-mamba-7b at full width on
-one card through ``train.loop.train`` directly).
+reduced config. ``--layers N`` cuts the depth to N layers and keeps the
+widths: a full-width model at a depth whose parameters, gradients and AdamW
+moments fit one card (``chip_smoke.py`` trains falcon-mamba-7b at 48 of 64
+layers and deepseek-v2-lite-16b at 10 of 27 this way). A full config at
+its published depth is refused, as the reference refuses it off its
+production mesh: distributed training is ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from repro_torch import configs
 from repro_torch.models.model import build_model
@@ -31,6 +34,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config")
+    ap.add_argument("--layers", type=int, default=0, metavar="N",
+                    help="cut the depth to N layers, widths kept")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--schedule", default="cosine",
@@ -42,10 +47,17 @@ def main(argv=None):
     if args.multi_pod:
         raise SystemExit(f"--multi-pod: {MESH_TODO}")
     cfg = configs.get_config(args.arch)
-    if not args.smoke:
+    if not args.smoke and not args.layers:
         raise SystemExit(f"full configs train on the production mesh: "
-                         f"{MESH_TODO}; pass --smoke")
-    cfg = configs.smoke_config(cfg)
+                         f"{MESH_TODO}; pass --smoke or cut the depth with "
+                         f"--layers")
+    if args.smoke:
+        cfg = configs.smoke_config(cfg)
+    if args.layers:
+        if args.layers <= cfg.first_k_dense:
+            raise SystemExit(f"--layers must exceed the {cfg.first_k_dense} "
+                             f"dense head layer(s) of {cfg.name}")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
 
     # MiniCPM trains with WSD per its paper
     sched = "wsd" if (args.arch == "minicpm-2b" and args.schedule == "cosine") \
@@ -63,7 +75,7 @@ def main(argv=None):
             f"step {m['data_step']:>5} loss {m['loss']:.4f} "
             f"lr {m['lr']:.2e}", flush=True),
     )
-    print(f"done on {model.device}; final loss "
+    print(f"done on {model.device}; {cfg.n_layers} layers; final loss "
           f"{out['history'][-1]['loss']:.4f}")
     return out
 

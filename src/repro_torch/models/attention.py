@@ -5,8 +5,14 @@ per-slot contiguous cache (the reference leaves decode attention to XLA).
 Paged caches (shared page pools addressed through a page table) attend
 through the paged kernel (K5) or over a gathered contiguous view.
 
-``window`` is a Python int per layer; 0 means full attention. MLA and
-cross-attention are later slices.
+MLA (DeepSeek-V2) caches only the compressed latent and the shared rope key:
+its prompt runs through K4 at d = nope + rope against v of the value width,
+decode attends in the latent space with the absorbed up-projections (plain
+einsums, as the reference's), and paged decode through K5 with k = [latent,
+rope], v = latent.
+
+``window`` is a Python int per layer; 0 means full attention.
+Cross-attention is a later slice.
 """
 from __future__ import annotations
 
@@ -253,3 +259,146 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
         out = _sdpa(q, k_cache, v_cache, keep)
         new_cache = {"k": k_cache, "v": v_cache}
     return L.dense(out.reshape(b, s, cfg.n_heads * hd), p["wo"]), new_cache
+
+
+# --- MLA (DeepSeek-V2) ------------------------------------------------------
+
+def mla_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    kw = dict(device=device, lead=lead)
+    return {
+        "wq": L.dense_init(gen, d, h * (m.nope_head_dim + m.rope_head_dim),
+                           dtype, **kw),
+        "w_dkv": L.dense_init(gen, d, m.kv_lora_rank, dtype, **kw),
+        "w_kr": L.dense_init(gen, d, m.rope_head_dim, dtype, **kw),
+        "w_ukv": L.dense_init(gen, m.kv_lora_rank,
+                              h * (m.nope_head_dim + m.v_head_dim), dtype,
+                              **kw),
+        "kv_norm": L.rmsnorm_init(m.kv_lora_rank, dtype, **kw),
+        "wo": L.dense_init(gen, h * m.v_head_dim, d, dtype, **kw),
+    }
+
+
+def _mla_kv(p, c_kv: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """The latent decompressed into per-head (k_nope, v)."""
+    m = cfg.mla
+    b, s, _ = c_kv.shape
+    kv = L.dense(c_kv, p["w_ukv"]).reshape(b, s, cfg.n_heads,
+                                           m.nope_head_dim + m.v_head_dim)
+    return kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+
+
+def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
+              window: int = 0, cache: Optional[dict] = None, cache_pos=None,
+              cache_write_mask: Optional[Tensor] = None,
+              prefill: bool = False, page_table: Optional[Tensor] = None,
+              paged_impl: str = "gather") -> Tuple[Tensor, Optional[dict]]:
+    """MLA: the cache stores only (c_kv, k_rope), rank 512 + 64 a token.
+
+    cache = {"c_kv": (B, S_max, r), "k_rope": (B, S_max, rope_hd)}, written
+    in place; ``cache_write_mask`` as in :func:`gqa_apply`. With
+    ``page_table`` the leaves are pools (P, ps, r) / (P, ps, rope_hd) and the
+    absorbed decode runs over the gathered view, or (``paged_impl="flash"``)
+    through K5 with k = concat(c, rope), v = c and the pre-absorption scale
+    (the flashinfer paged-MLA layout). Four branches, as the reference's:
+    no cache or a contiguous flash prefill through K4 (q/k concatenated to
+    nope + rope, v at its own width); the plain scores (``naive``, no
+    cache); the absorbed contiguous decode (f32 scores against the latent
+    cache); the paged write, then K5 or the absorbed gather."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    denom = (m.nope_head_dim + m.rope_head_dim) ** 0.5   # scores / denom
+    q = L.dense(x, p["wq"]).reshape(b, s, h, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = L.rmsnorm(L.dense(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(L.dense(x, p["w_kr"])[:, :, None, :], positions,
+                          cfg.rope_theta)                    # (B, S, 1, rope)
+
+    if page_table is None and (cache is None
+                               or (prefill and cfg.attention_impl == "flash")):
+        k_nope, v = _mla_kv(p, c_kv, cfg)
+        new_cache = None
+        if cache is not None:   # prefill: write the compressed cache
+            new_cache = {
+                "c_kv": _cache_write(cache["c_kv"], c_kv, cache_pos,
+                                     cache_write_mask),
+                "k_rope": _cache_write(cache["k_rope"], k_rope[:, :, 0, :],
+                                       cache_pos, cache_write_mask),
+            }
+        kr = k_rope.expand(*k_nope.shape[:3], m.rope_head_dim)
+        if cfg.attention_impl == "flash":
+            # nope + rope concatenated into d 192 against dv 128: K4
+            q_full = torch.cat([q_nope, q_rope], dim=-1)
+            k_full = torch.cat([k_nope, kr], dim=-1)
+            out = _flash_sdpa(q_full, k_full, v, 0, True)
+            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
+                    new_cache)
+        pos2 = positions if positions.dim() == 2 else positions[None, :]
+        f32 = torch.float32
+        scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.to(f32),
+                               k_nope.to(f32))
+                  + torch.einsum("bqhd,bshd->bhqs", q_rope.to(f32),
+                                 kr.to(f32))) / denom
+        keep = _mask(pos2, pos2, window, True)
+        scores = torch.where(keep[:, None, :, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+        return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
+                new_cache)
+
+    # the absorbed decode: W_uk folded into the query, W_uv into the
+    # context, so attention runs in the rank-r latent space against the
+    # compressed cache
+    w_ukv = p["w_ukv"]["w"].reshape(m.kv_lora_rank, h,
+                                    m.nope_head_dim + m.v_head_dim)
+    w_uk = w_ukv[..., :m.nope_head_dim]                      # (r, H, nope)
+    w_uv = w_ukv[..., m.nope_head_dim:]                      # (r, H, v)
+    q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)
+    if page_table is not None:
+        c_pool = _paged_write(cache["c_kv"], c_kv, page_table, cache_pos,
+                              cache_write_mask)
+        r_pool = _paged_write(cache["k_rope"], k_rope[:, :, 0, :],
+                              page_table, cache_pos, cache_write_mask)
+        new_cache = {"c_kv": c_pool, "k_rope": r_pool}
+        pos = torch.as_tensor(cache_pos, dtype=torch.long,
+                              device=x.device).reshape(-1).expand(b)
+        if paged_impl == "flash":
+            q_cat = torch.cat([q_eff, q_rope], dim=-1)
+            k_cat = torch.cat([c_pool, r_pool], dim=-1)[:, :, None, :]
+            ctx = flash_attention_paged(
+                q_cat.permute(0, 2, 1, 3).contiguous(), k_cat,
+                c_pool[:, :, None, :], page_table, pos + s, pos, 0,
+                scale=1.0 / denom)
+            ctx = ctx.permute(0, 2, 1, 3)                    # (B, s, H, r)
+            out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
+                    new_cache)
+        if paged_impl != "gather":
+            raise ValueError(f"paged_impl must be 'gather' or 'flash', got "
+                             f"{paged_impl!r}")
+        c_cache = _paged_view(c_pool, page_table)
+        r_cache = _paged_view(r_pool, page_table)
+        cache_pos = pos
+    else:
+        c_cache = _cache_write(cache["c_kv"], c_kv, cache_pos,
+                               cache_write_mask)
+        r_cache = _cache_write(cache["k_rope"], k_rope[:, :, 0, :],
+                               cache_pos, cache_write_mask)
+        new_cache = {"c_kv": c_cache, "k_rope": r_cache}
+    f32 = torch.float32
+    s_max = c_cache.shape[1]
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_eff.to(f32), c_cache.to(f32))
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.to(f32),
+                             r_cache.to(f32))) / denom
+    kv_pos = torch.arange(s_max, device=x.device)[None].expand(b, s_max)
+    q_pos = positions if positions.dim() == 2 else positions[None, :]
+    keep = (_mask(q_pos, kv_pos, window, True)
+            & (kv_pos < _cache_end(cache_pos, s, x.device))[:, None, :])
+    scores = torch.where(keep[:, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_cache.dtype), c_cache)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)          # absorbed values
+    return L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]), new_cache

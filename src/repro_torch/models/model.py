@@ -63,8 +63,9 @@ class Model:
 
     # -- training ----------------------------------------------------------
     def loss(self, params, batch: Dict[str, Tensor]) -> Tensor:
-        """batch: tokens (B, S), labels (B, S) -> CE + the aux loss (zero
-        for the dense and SSM stacks the port carries)."""
+        """batch: tokens (B, S), labels (B, S) -> CE + the aux loss (the
+        MoE routers' load-balancing term summed over layers; zero for the
+        dense and SSM stacks)."""
         hidden, aux, _ = T.forward(params, batch["tokens"], self.cfg)
         return chunked_cross_entropy(params, hidden, batch["labels"],
                                      self.cfg) + aux

@@ -1,0 +1,106 @@
+"""Mixture-of-Experts: top-k router and capacity-bounded scatter dispatch,
+counterpart of ``repro/models/moe.py``.
+
+The router is a dense layer of the GEMM provider (so K1-K3 and int8 apply to
+it); the expert products are batched einsums over the capacity buffer, as
+the reference computes them with XLA einsums outside any Pallas kernel.
+Dispatch is the position-in-expert scatter: (token, choice) assignments in
+token order take consecutive slots of their expert's buffer up to its
+capacity, later ones are dropped. The aux load-balancing loss is the
+switch-transformer form. The reference's ``partition`` modes ("expert" and
+"ffn") shard the expert banks over a mesh: single-card serving and training
+run the banks whole (mesh paths are ROADMAP queue 1 item 15).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+
+
+def moe_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
+    m = cfg.moe
+    d, e = cfg.d_model, m.n_experts
+    std = 1.0 / (d ** 0.5)
+    p = {
+        "router": L.dense_init(gen, d, e, dtype, device=device, lead=lead),
+        "w_gate": (L._normal(gen, (*lead, e, d, m.d_ff_expert), device)
+                   * std).to(dtype),
+        "w_up": (L._normal(gen, (*lead, e, d, m.d_ff_expert), device)
+                 * std).to(dtype),
+        "w_down": (L._normal(gen, (*lead, e, m.d_ff_expert, d), device)
+                   * (1.0 / (m.d_ff_expert ** 0.5))).to(dtype),
+    }
+    if m.n_shared:
+        p["shared"] = L.mlp_init(gen, d, m.d_ff_expert * m.n_shared, dtype,
+                                 device=device, lead=lead)
+    return p
+
+
+def top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
+    """(values, indices) of the ``k`` largest entries of the last axis, in
+    descending order with the LOWER index first among equal values, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` promises no order on
+    ties). A stable descending sort keeps equal values in index order."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert: ``int(T k capacity_factor / E) + 1``."""
+    m = cfg.moe
+    return int(tokens * m.top_k * m.capacity_factor / m.n_experts) + 1
+
+
+def moe_apply(p: dict, x: Tensor, *, cfg: ModelConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """x: (B, S, d) -> (out (B, S, d), aux_loss () f32)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    logits = L.dense(xt, p["router"]).to(torch.float32)          # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = top_k(probs, m.top_k)                 # (T, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+
+    # capacity-bounded positions: the (T, k) assignments in token order
+    flat_e = expert_idx.reshape(-1)                               # (T k,)
+    onehot = F.one_hot(flat_e, m.n_experts).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    pos = torch.sum(pos_in_e * onehot, dim=-1, dtype=torch.int32)
+    cap = capacity(t, cfg)
+    keep = pos < cap
+    slot = torch.where(keep, pos, 0).to(torch.long)
+
+    # dropped assignments add zeros to slot 0 of their expert, as the
+    # reference's scatter-add does: a kept value plus zeros is exact
+    x_rep = torch.repeat_interleave(xt, m.top_k, dim=0)           # (T k, d)
+    buf = torch.zeros((m.n_experts, cap, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((flat_e, slot),
+                        torch.where(keep[:, None], x_rep, 0),
+                        accumulate=True)
+
+    h = (F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))
+         * torch.einsum("ecd,edf->ecf", buf, p["w_up"]))
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])        # (E, C, d)
+
+    gathered = torch.where(keep[:, None], out_buf[flat_e, slot], 0)
+    weighted = gathered * gate_vals.reshape(-1)[:, None].to(x.dtype)
+    out = torch.sum(weighted.reshape(t, m.top_k, d), dim=1)
+
+    if m.n_shared:
+        out = out + L.mlp(xt, p["shared"], cfg.act)
+
+    # switch-style aux loss: E * sum_e f_e * p_e
+    me = torch.mean(probs, dim=0)                                 # (E,)
+    ce = torch.mean(F.one_hot(expert_idx[:, 0], m.n_experts).to(
+        torch.float32), dim=0)
+    aux = m.n_experts * torch.sum(me * ce) * m.router_aux_weight
+    return out.reshape(b, s, d), aux

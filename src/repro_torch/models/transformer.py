@@ -1,5 +1,6 @@
 """Model stacks, counterpart of ``repro/models/transformer.py``: the dense
-decoder and the Mamba1 SSM stack. Parameters keep the reference tree's layout
+decoder, the MoE decoder (GQA or MLA attention, a first dense block) and the
+Mamba1 SSM stack. Parameters keep the reference tree's layout
 (stacked ``(L, ...)`` leaves under ``"layers"``); the reference's
 ``lax.scan`` over layers is a Python loop over that leading axis. Caches are
 stacked the same way and written in place; a paged cache stacks page pools
@@ -16,6 +17,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 
 Tensor = torch.Tensor
@@ -32,20 +34,27 @@ def norm_apply(x, p, cfg: ModelConfig):
             else L.rmsnorm(x, p, cfg.norm_eps))
 
 
+_ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+
+
 def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
                lead=()) -> dict:
-    """kind: "dense" (attention + gated MLP) or "ssm1" (a Mamba1 mixer, no
-    FFN)."""
+    """kind encodes attention x FFN: "dense" (GQA + gated MLP), "moe" (GQA +
+    MoE), "mla_dense", "mla_moe" (MLA attention), or "ssm1" (a Mamba1 mixer,
+    no FFN)."""
     kw = dict(device=device, lead=lead)
     if kind == "ssm1":
         return {"ln1": norm_init(cfg, dtype, **kw),
                 "ssm": S.mamba1_init(gen, cfg, dtype, **kw)}
-    if kind != "dense":
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return {"ln1": norm_init(cfg, dtype, **kw),
-            "attn": A.gqa_init(gen, cfg, dtype, **kw),
-            "ln2": norm_init(cfg, dtype, **kw),
-            "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, **kw)}
+    p = {"ln1": norm_init(cfg, dtype, **kw),
+         "attn": (A.mla_init(gen, cfg, dtype, **kw) if kind.startswith("mla")
+                  else A.gqa_init(gen, cfg, dtype, **kw)),
+         "ln2": norm_init(cfg, dtype, **kw)}
+    p["ffn"] = (MOE.moe_init(gen, cfg, dtype, **kw) if kind.endswith("moe")
+                else L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, **kw))
+    return p
 
 
 def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
@@ -53,39 +62,61 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                 causal: bool = True, cache: Optional[dict] = None,
                 cache_pos=None, cache_write_mask: Optional[Tensor] = None,
                 prefill: bool = False, page_table: Optional[Tensor] = None,
-                paged_impl: str = "gather") -> Tuple[Tensor, Optional[dict]]:
-    """Pre-norm block with a residual: attention + gated MLP ("dense"), or
-    a Mamba1 mixer alone ("ssm1"). Returns (x, new_cache)."""
+                paged_impl: str = "gather"
+                ) -> Tuple[Tensor, Optional[dict], Tensor]:
+    """Pre-norm block with a residual: attention (GQA or MLA) + gated MLP or
+    MoE, or a Mamba1 mixer alone ("ssm1"). Returns (x, new_cache,
+    aux_loss); the aux loss is the MoE router's, else zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm1":
         if page_table is not None:
             raise ValueError("paged KV cache requires attention layers; "
                              f"got layer kind {kind!r}")
         h, new_cache = S.mamba1_apply(p["ssm"], norm_apply(x, p["ln1"], cfg),
                                       cfg=cfg, cache=cache, prefill=prefill)
-        return x + h, new_cache
-    if kind != "dense":
+        return x + h, new_cache, aux
+    if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    h, new_cache = A.gqa_apply(
-        p["attn"], norm_apply(x, p["ln1"], cfg), cfg=cfg, positions=positions,
-        window=window, rope_theta=theta, causal=causal, cache=cache,
-        cache_pos=cache_pos, cache_write_mask=cache_write_mask,
-        prefill=prefill, page_table=page_table, paged_impl=paged_impl)
+    common = dict(cfg=cfg, positions=positions, window=window, cache=cache,
+                  cache_pos=cache_pos, cache_write_mask=cache_write_mask,
+                  prefill=prefill, page_table=page_table,
+                  paged_impl=paged_impl)
+    if kind.startswith("mla"):
+        h, new_cache = A.mla_apply(p["attn"], norm_apply(x, p["ln1"], cfg),
+                                   **common)
+    else:
+        h, new_cache = A.gqa_apply(p["attn"], norm_apply(x, p["ln1"], cfg),
+                                   rope_theta=theta, causal=causal, **common)
     x = x + h
-    f = L.mlp(norm_apply(x, p["ln2"], cfg), p["ffn"], cfg.act)
-    return x + f, new_cache
+    h2 = norm_apply(x, p["ln2"], cfg)
+    if kind.endswith("moe"):
+        f, aux = MOE.moe_apply(p["ffn"], h2, cfg=cfg)
+    else:
+        f = L.mlp(h2, p["ffn"], cfg.act)
+    return x + f, new_cache, aux
 
 
 def layer_plan(cfg: ModelConfig):
-    """(group_name, kind, n_layers) per stacked group."""
+    """(group_name, kind, n_layers) per stacked group. MoE stacks put their
+    first ``first_k_dense`` layers (dense FFN) in a "dense_head" group."""
     if cfg.family == "ssm":
         if cfg.ssm.version != 1:
             raise NotImplementedError(S.MAMBA2_TODO)
         return [("layers", "ssm1", cfg.n_layers)]
     if cfg.family == "hybrid":
         raise NotImplementedError(S.MAMBA2_TODO)
+    if cfg.family == "moe":
+        plan = []
+        if cfg.first_k_dense:
+            plan.append(("dense_head", "mla_dense" if cfg.mla else "dense",
+                         cfg.first_k_dense))
+        plan.append(("layers", "mla_moe" if cfg.mla else "moe",
+                     cfg.n_layers - cfg.first_k_dense))
+        return plan
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and ssm only)")
+            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
+            f"only; ROADMAP queue 1 item 11)")
     return [("layers", "dense", cfg.n_layers)]
 
 
@@ -197,13 +228,14 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
         positions = torch.arange(s, device=dev)
 
     offset = 0
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     body = _maybe_remat(block_apply, cfg)
     for name, kind, n in layer_plan(cfg):
         win, theta = window_theta_arrays(cfg, n, offset)
         grp_cache = caches.get(name) if caches is not None else None
         layers = tree_unbind(params[name], n)
         for i in range(n):
-            x, _ = body(
+            x, _, aux = body(
                 layers[i], x, cfg=cfg, kind=kind,
                 positions=positions, window=int(win[i]),
                 theta=float(theta[i]),
@@ -212,9 +244,10 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
                 cache_pos=cache_pos, cache_write_mask=cache_write_mask,
                 prefill=is_prefill, page_table=page_table,
                 paged_impl=paged_impl)
+            aux_total = aux_total + aux
         offset += n
     x = norm_apply(x, params["final_norm"], cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=dev), caches
+    return x, aux_total, caches
 
 
 def logits_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
@@ -230,9 +263,9 @@ def sample_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device) -> dict:
-    """Zero caches stacked per layer group: K/V rows for attention, the
-    streaming state (conv inputs in ``dtype``, the scan state in f32) for
-    Mamba1."""
+    """Zero caches stacked per layer group: K/V rows for GQA attention, the
+    compressed latent and rope key for MLA, the streaming state (conv
+    inputs in ``dtype``, the scan state in f32) for Mamba1."""
     dtype = dtype or cfg.dtype
     caches = {}
     for name, kind, n in layer_plan(cfg):
@@ -245,10 +278,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                 "ssm": torch.zeros((n, batch, di, s.d_state),
                                    dtype=torch.float32, device=device)}
             continue
+        if kind.startswith("mla"):
+            caches[name] = _mla_cache(cfg, n, batch, max_len, dtype, device)
+            continue
         shp = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
         caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
                         "v": torch.zeros(shp, dtype=dtype, device=device)}
     return caches
+
+
+def _mla_cache(cfg: ModelConfig, n: int, rows: int, width: int, dtype,
+               device) -> dict:
+    """MLA's compressed cache: the latent (n, rows, width, r) and the shared
+    rope key (n, rows, width, rope_hd); rows x width are (batch, max_len) or,
+    paged, (num_pages, page_size)."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((n, rows, width, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((n, rows, width, m.rope_head_dim),
+                                  dtype=dtype, device=device)}
 
 
 def paged_cache_supported(cfg: ModelConfig) -> bool:
@@ -271,7 +319,11 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
         raise ValueError("paged KV cache requires a pure-attention decoder "
                          f"stack (family={cfg.family!r})")
     caches = {}
-    for name, _kind, n in layer_plan(cfg):
+    for name, kind, n in layer_plan(cfg):
+        if kind.startswith("mla"):
+            caches[name] = _mla_cache(cfg, n, num_pages, page_size, dtype,
+                                      device)
+            continue
         shp = (n, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
                         "v": torch.zeros(shp, dtype=dtype, device=device)}

@@ -137,7 +137,8 @@ class BatchServer:
                  num_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  paged_attention: str = "gather",
-                 prefix_sharing: bool = True, mesh=None, prepared=None,
+                 prefix_sharing: bool = True, mesh=None,
+                 moe_partition: Optional[str] = None, prepared=None,
                  registry=None, tracer=None,
                  clock: Optional[Callable[[], float]] = None):
         for name, val in (("mesh", mesh), ("prepared", prepared),
@@ -146,6 +147,11 @@ class BatchServer:
                 raise NotImplementedError(
                     f"BatchServer({name}=...) is not ported yet "
                     f"(single-device serving only)")
+        if moe_partition is not None:
+            raise NotImplementedError(
+                "BatchServer(moe_partition=...) shards the expert banks over "
+                "a mesh (the reference's 'expert' and 'ffn' modes): ROADMAP "
+                "queue 1 item 15 (distribution); one card runs them whole")
         if not greedy:
             raise NotImplementedError("only greedy decoding is implemented")
         if decode_chunk < 1:
@@ -209,8 +215,10 @@ class BatchServer:
             self._bucketed = False
         else:
             self.cache = model.init_cache(batch_slots, max_len)
+            # bucketed prefill needs a sequence axis in every cache leaf
+            # (GQA K/V, MLA's latent and rope key); an SSM state has none
             self._bucketed = prefill_buckets and all(
-                kind == "dense" for _, kind, _ in T.layer_plan(model.cfg))
+                kind != "ssm1" for _, kind, _ in T.layer_plan(model.cfg))
         if quantized or gemm_impl is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):

@@ -654,3 +654,110 @@ def test_backward_functions_launch_k8_and_k9_once(dev):
     assert (counts["selective_scan"], counts["selective_scan_bwd"]) == (1, 1)
     assert args[0].grad.dtype == torch.bfloat16
     assert not args[5].grad.any()
+
+
+# --- MLA's widths: K4 and K8 at d 192 against dv 128 ------------------------
+
+@pytest.mark.parametrize("bh,sq,causal", [
+    (64, 16, True), (64, 128, True), (8, 77, True), (8, 512, True),
+    (8, 100, False)])
+def test_flash_kernel_mla_widths_match_plain(dev, bh, sq, causal):
+    """K4's (192, 128) instantiation (deepseek-v2-lite-16b's prefill, bf16)
+    against its plain version: o within one bf16 rounding, lse 2e-3."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    q, k = (torch.randn((bh, sq, 192), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn((bh, sq, 128), generator=g, device=dev).to(torch.bfloat16)
+    o, lse = _flash_fwd(q, k, v, 0, causal=causal)
+    o_ref, lse_ref = _flash_fwd_plain(q, k, v, 0, causal=causal)
+    torch.cuda.synchronize()
+    assert o.shape == (bh, sq, 128)
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("bh,s,causal", [(32, 256, True), (4, 200, True),
+                                         (4, 96, False)])
+def test_flash_bwd_kernel_mla_widths_match_plain(dev, bh, s, causal):
+    """K8's (192, 128) instantiation (deepseek-v2-lite-16b's training, bf16):
+    dq, dk (width 192) and dv (width 128) under K8's bars."""
+    from repro_torch.kernels.flash_attention import (_flash_bwd,
+                                                     _flash_bwd_plain)
+    g = torch.Generator(device=dev).manual_seed(32)
+    q, k = (torch.randn((bh, s, 192), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn((bh, s, 128), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    o, lse = _flash_fwd(q, k, v, 0, causal=causal)
+    got = _flash_bwd(q, k, v, o, lse, do, 0, causal=causal)
+    want = _flash_bwd_plain(q, k, v, o, lse, do, 0, causal=causal)
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got] == [(bh, s, 192), (bh, s, 192),
+                                            (bh, s, 128)]
+    for a_, b_ in zip(got, want):
+        atol = 1e-4 * float(b_.abs().max())
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=atol)
+        assert _bf16_cast_ulps(a_, b_, atol) <= 1.0
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (64, 32), (136, 136)])
+def test_flash_f32_kernels_refuse_past_their_widths(dev, d, dv):
+    """The f32 kernels take d <= 128 and dv == d: wider f32 operands raise
+    (naming ROADMAP queue 2 section A) and launch nothing."""
+    from repro_torch.kernels.flash_attention import _flash_bwd
+    q = torch.zeros((2, 16, d), device=dev)
+    v = torch.zeros((2, 16, dv), device=dev)
+    lse = torch.zeros((2, 16), device=dev)
+    compat.reset_counters()
+    with pytest.raises(ValueError, match="queue 2 section A"):
+        _flash_fwd(q, q, v)
+    with pytest.raises(ValueError, match="queue 2 section A"):
+        _flash_bwd(q, q, v, v, lse, v)
+    counts = compat.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd"]) == (0, 0)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_deepseek_smoke_serve_through_kernels(dev, paged):
+    """The deepseek-v2-lite-16b smoke model in bf16, served on the card
+    through ``gemm_impl="cuda"`` (K3 for the projections and routers, K4 at
+    its MLA widths for contiguous prefill, K5 for paged attention), gives
+    the tokens of the same server on the host, where every kernel wrapper
+    runs its plain version."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.smoke_config(configs.get_config(
+        "deepseek-v2-lite-16b")), param_dtype="bfloat16")
+    prompts = make_prompts(cfg.vocab, 6, np.random.default_rng(3), 3, 40,
+                           shared_prefix=16 if paged else 0)
+    kw = dict(max_new=6, batch_slots=2, max_len=64, gemm_algo="ffip",
+              gemm_impl="cuda")
+    if paged:
+        kw.update(paged=True, page_size=16, prefill_chunk=32,
+                  paged_attention="flash", decode_chunk=4)
+    host = Model(cfg, device="cpu")
+    host_params = host.init(0)
+    _, want, _ = serve(host, host_params, prompts, **kw)
+    compat.reset_counters()
+    _, got, _ = serve(Model(cfg, device=dev), _to(host_params, dev), prompts,
+                      **kw)
+    counts = compat.launch_counts()
+    assert ({r.rid: list(r.out_tokens) for r in got}
+            == {r.rid: list(r.out_tokens) for r in want})
+    assert counts["ffip_gemm_y"] > 0
+    attn = "flash_paged" if paged else "flash_fwd"
+    assert counts[attn] > 0
+    assert counts["flash_paged" if not paged else "flash_fwd"] == 0
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -148,6 +148,11 @@ def test_gemm_provider(algo, impl):
 
 
 def test_gemm_block_validation():
+    """A malformed block is a ValueError; "auto" (the tuned schedule) raises
+    NotImplementedError naming the tune port, as the vision path does."""
     with pytest.raises(ValueError):
+        gemm(torch.zeros(2, 4), torch.zeros(4, 2),
+             GemmConfig(algo="fip", impl="cuda", block=(8, 8)))
+    with pytest.raises(NotImplementedError, match="item 14"):
         gemm(torch.zeros(2, 4), torch.zeros(4, 2),
              GemmConfig(algo="fip", impl="cuda", block="auto"))

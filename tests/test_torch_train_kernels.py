@@ -192,10 +192,25 @@ def test_k8_hi_lo_split_holds_the_card_bar(s, window, causal):
 
 
 def test_flash_function_refuses_mla_widths():
-    q, k = (torch.randn(2, 8, 16, requires_grad=True) for _ in range(2))
-    v = torch.randn(2, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="dv == d"):
-        fa.flash_attention(q, k, v)
+    """MLA's widths (d 192 against dv 128) go through the Function: on the
+    CPU its gradients are the plain versions', dv's of v's width. The card's
+    operand check takes them in bf16 and refuses them in f32 (the f32
+    kernels take d <= 128 and dv == d), naming ROADMAP queue 2 section A:
+    never a fallback."""
+    q, k = (torch.randn(2, 8, 24, requires_grad=True) for _ in range(2))
+    v = torch.randn(2, 8, 16, requires_grad=True)
+    o = fa.flash_attention(q, k, v)
+    assert o.shape == (2, 8, 16)
+    o.sum().backward()
+    assert (q.grad.shape, k.grad.shape, v.grad.shape) == (
+        q.shape, k.shape, v.shape)
+    wide = [torch.zeros(2, 8, w) for w in (192, 192, 128)]
+    fa._check_widths("flash_fwd", *[t.bfloat16() for t in wide])
+    with pytest.raises(ValueError, match="queue 2 section A"):
+        fa._check_widths("flash_fwd", *wide)
+    with pytest.raises(ValueError, match="queue 2 section A"):
+        fa._check_widths("flash_bwd", *[t.bfloat16() for t in
+                                        (wide[0], wide[1], wide[0])])
 
 
 # --- K9: selective-scan backward -----------------------------------------------
