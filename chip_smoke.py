@@ -18,19 +18,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the trained S 256 (d 64, causal), d 128, d 40, a window of 32 and
    non-causal, bf16 and f32, and at deepseek-v2-lite-16b's MLA widths (d
    192 against dv 128, BH = 4 x 16, S 16-128 and 512, bf16; the f32 kernels
-   must refuse them) (FLASH_CASES); the paged kernel K5 at decode
+   must refuse them), gemma3-4b's d 256 (BH 4 x 8 at S 128 and 8 at S 2048,
+   windows 0, 1024 and 37; the f32 kernels must refuse d 256 and the bf16
+   ones d 320) and mixtral-8x22b's and starcoder2-3b's prefill at d 128
+   (FLASH_CASES); the paged kernel K5 at decode
    (B 4, H = KV = 36, Sq 1 and 4, d 64, pages of 16, 16 pages a sequence,
    lengths 17-256 and one of 0), a
    64-row prefill chunk, GQA group 4, a window of 40 and the absorbed MLA's
-   d 576, dv 512 at decode and in a 64-row chunk, in bf16 and f32; the fused conv K7 at seven ResNet-50 / AlexNet
+   d 576, dv 512 at decode and in a 64-row chunk, gemma3-4b's decode and a
+   64-row chunk past its window (H 8, KV 4, d 256; once more zero-padded to
+   d 264, the (576, 512) body d 256 ran in before its own) and the GQA
+   ratios 6 and 12 of mixtral-8x22b and starcoder2-3b, in bf16 and f32; the
+   fused conv K7 at seven ResNet-50 / AlexNet
    convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
    (beta folded), each in the tile ``conv_blocks`` picks; the selective
    scan K6 at falcon-mamba-7b's prefill (B 1, S 16 / 64 / 128, di 8192,
    N 16, bf16), two chunks at B 2, f32, a nonzero
    h0, and a state carried across two calls (SCAN_CASES); the flash backward
    K8 at BH 144, d 64, S 256 / 128 / 200, a window of 32 and non-causal,
-   bf16 and f32, and at MLA's d 192 / dv 128, BH 2 x 16, S 256, bf16
-   (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
+   bf16 and f32, at MLA's d 192 / dv 128, BH 2 x 16, S 256, and at
+   gemma3-4b's (256, 256), BH 8, S 128 and 2048, windows 0, 1024 and 37,
+   bf16 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
    widths, B 2 S 256 (two chunks), B 1 S 128 and S 64, f32
    (SCAN_BWD_CASES). Tolerances: int8
    exact; K6's y, h_final and h_starts bit for bit (beside the earlier
@@ -145,7 +153,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    layer the planted fault. Then trained as in 10. at MOE_TRAIN_RUNS' depth
    (K4 + K8 once per layer a step; the aux loss finite) with its gradient
    reading.
-12. Print the kernels line (JSON), then the result line.
+12. The other LM families (phase families, FAMILY_RUNS), each at its
+   published widths, bf16, random weights from --seed: gemma3-4b at 34
+   layers (5 local : 1 global, windows of 1024, thetas 1e4 / 1e6, K4, K8
+   and K5 at d 256), mixtral-8x22b at 12 of 56 (GQA 48 : 8 + MoE 8 experts
+   top-2, window 4096), starcoder2-3b at 30 (layernorm, gelu, a qkv bias,
+   GQA 24 : 2) and deepseek-coder-33b at 19 of 62 (GQA 56 : 8), the cuts
+   being one card's memory. Each is served contiguous (gemma3 ffip,
+   baseline and int8 ffip; the others ffip and int8 ffip) and, but for
+   deepseek-coder, paged (flash ffip) as in 4. and 6., every prefill
+   dispatch launching K4 once a layer and every paged one K5; gemma3's and
+   mixtral's prompts include one past the window (1100-1499 and 4200-4399
+   tokens). Tokens are held under the same bars to the plain path (each
+   prompt alone, or for mixtral a replay of the served run with its expert
+   choices; the plain int8 products by an exact float64 matmul), with a
+   middle layer's attn.wo taken from the next layer the planted fault
+   (float and int8). gemma3 is then trained as in 10. at batch 1 x 1536
+   through K4 + K8 at (256, 256), with its gradient reading.
+13. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -206,13 +231,15 @@ def pair_ms(adds: float, mads: float, integer: bool) -> float:
 # GEMM checks, (M, K, N): minicpm-2b's projections and tied logits at decode
 # (M 4) and prefill (M 512); falcon-mamba-7b's in_proj, x_proj (N 288, not a
 # multiple of 64), dt_proj (K 256: 16 FFIP splits), out_proj and tied logits
-# at decode (M 4) and at a 128-token prompt (M 128)
+# at decode (M 4) and at a 128-token prompt (M 128); gemma3-4b's tied
+# unembed (N 262144, the widest the port serves) at decode
 GEMM_CASES = tuple(
     (m, k, n) for ms, kns in (
         ((4, 512), ((2304, 2304), (2304, 5760), (5760, 2304),
                     (2304, 122753))),
         ((4, 128), ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
-                    (4096, 65024))))
+                    (4096, 65024))),
+        ((4,), ((2560, 262144),)))
     for m in ms for k, n in kns)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # K4 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36
@@ -221,9 +248,17 @@ HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # runs the second tensor-core instantiation, d 40 the first zero-filled. At
 # BH = 4 x 16, deepseek-v2-lite-16b's MLA prefill: d 192 (nope 128 + rope
 # 64) against dv 128, bf16 only (the f32 kernel takes d <= 128 and dv == d;
-# check_flash_refusal holds it to that), the served buckets and S 512.
+# check_flash_refusal holds it to that), the served buckets and S 512. At
+# gemma3-4b's head_dim 256 (bf16, the (256, 256) instantiation): BH = 4 x 8
+# (a served bucket of 4 slots) at S 128 and BH 8 (one long prompt; training
+# at batch 1) at S 2048, each with no window, a local layer's 1024 and an odd
+# 37. At d 128, mixtral-8x22b's and starcoder2-3b's prefill (K4 takes kv
+# heads repeated to the query heads: BH = 4 x 48 and 4 x 24), mixtral's
+# window 4096 past S.
 BF16_F32 = ("bf16", "f32")
 MLA_D, MLA_DV = 192, 128
+GEMMA_D = 256
+FAMILY_WINDOWS = (("", 0), (" window 1024", 1024), (" window 37", 37))
 FLASH_CASES = (
     ("S 16", 144, 16, 64, 64, 0, True, BF16_F32),
     ("S 32", 144, 32, 64, 64, 0, True, BF16_F32),
@@ -235,7 +270,11 @@ FLASH_CASES = (
     ("window 32", 144, 256, 64, 64, 32, True, BF16_F32),
     ("non-causal", 144, 128, 64, 64, 0, False, BF16_F32),
 ) + tuple((f"MLA S {s}", 4 * 16, s, MLA_D, MLA_DV, 0, True, ("bf16",))
-          for s in (16, 32, 64, 128, 512))
+          for s in (16, 32, 64, 128, 512)) + tuple(
+    (f"gemma3 S {s}{wl}", bh, s, GEMMA_D, GEMMA_D, w, True, ("bf16",))
+    for s, bh in ((128, 4 * 8), (2048, 8)) for wl, w in FAMILY_WINDOWS) + (
+    ("mixtral S 128", 4 * 48, 128, 128, 128, 4096, True, ("bf16",)),
+    ("starcoder2 S 128", 4 * 24, 128, 128, 128, 0, True, ("bf16",)))
 HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
@@ -328,9 +367,12 @@ VISION_INT8_BAR = 0.35
 # K5 checks: (label, B, H, KV, Sq, d, dv, page size, max_pages, window,
 # scale). Decode lengths are drawn from 17-256 with the first set to 0 (its
 # rows must be exact zeros); a prefill chunk is a prompt's second 64-row
-# chunk (q_start 64, lengths 128). The MLA cases are deepseek-v2-lite-16b's
+# chunk (q_start 64, lengths 128), and a chunk past the window the 64 rows
+# that end a 1344-key context. The MLA cases are deepseek-v2-lite-16b's
 # absorbed paged attention: H 16, one kv head, k = [latent 512, rope 64],
-# v = the latent, the pre-absorption scale 192^-1/2.
+# v = the latent, the pre-absorption scale 192^-1/2. gemma3-4b's decode (H
+# 8, KV 4, d 256, contexts to 1536, its window 1024) and mixtral-8x22b's
+# and starcoder2-3b's GQA ratios 6 and 12 at d 128.
 PAGED_CASES = (
     ("decode", 4, 36, 36, 1, 64, 64, 16, 16, 0, None),
     ("decode Sq 4", 4, 36, 36, 4, 64, 64, 16, 16, 0, None),
@@ -339,7 +381,15 @@ PAGED_CASES = (
     ("window 40", 4, 36, 36, 4, 64, 64, 16, 16, 40, None),
     ("MLA-like", 4, 16, 1, 1, 576, 512, 16, 16, 0, 192 ** -0.5),
     ("MLA prefill chunk", 1, 16, 1, 64, 576, 512, 16, 16, 0, 192 ** -0.5),
+    ("gemma3 decode", 4, 8, 4, 1, 256, 256, 16, 96, 1024, None),
+    ("gemma3 chunk past window", 1, 8, 4, 64, 256, 256, 16, 96, 1024, None),
+    ("mixtral GQA 6", 4, 48, 8, 1, 128, 128, 16, 288, 4096, None),
+    ("starcoder2 GQA 12", 4, 24, 2, 1, 128, 128, 16, 16, 0, None),
 )
+# gemma3's K5 cases run once more zero-padded to d 264 (scale 1/16 as at
+# 256), which takes the (576, 512) body that d 256 ran in before its own
+# (256, 256) one: the "before" of that body, held to the same plain version.
+PAGED_PADDED = 264
 HEADLINE_PAGED = ("decode", "bf16")
 # The paged workload: 4 slots, max_len 256 in pages of 16, prefill chunks of
 # 64; 8 prompts of 16-128 tokens, the even ones behind a shared 64-token
@@ -352,7 +402,8 @@ IDENTITY_LAYERS = 8
 # d 64 (minicpm-2b's attention at training batch 4), bf16 and f32: S 256 is
 # the trained sequence; S 200 leaves a ragged last block. At BH = 2 x 16,
 # deepseek-v2-lite-16b's MLA training (batch 2 x 256): d 192 against dv 128,
-# bf16 only.
+# bf16 only. At BH 8, gemma3-4b's (256, 256) (training at batch 1), S 128
+# and 2048, windows 0, 1024 and 37.
 FLASH_BWD_CASES = (
     ("S 256", 144, 256, 64, 64, 0, True, BF16_F32),
     ("S 128", 144, 128, 64, 64, 0, True, BF16_F32),
@@ -360,7 +411,8 @@ FLASH_BWD_CASES = (
     ("window 32", 144, 256, 64, 64, 32, True, BF16_F32),
     ("non-causal", 144, 128, 64, 64, 0, False, BF16_F32),
     ("MLA S 256", 2 * 16, 256, MLA_D, MLA_DV, 0, True, ("bf16",)),
-)
+) + tuple((f"gemma3 S {s}{wl}", 8, s, GEMMA_D, GEMMA_D, w, True, ("bf16",))
+          for s in (128, 2048) for wl, w in FAMILY_WINDOWS)
 HEADLINE_FLASH_BWD = ("S 256", "bf16")
 # K9 checks at falcon-mamba-7b's widths, f32 as the Function passes them:
 # (label, B, S, di, N, chunk); the trained shape walks two chunks' h_starts,
@@ -385,6 +437,44 @@ TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
 # leave under 5 GiB of the card's 79 for the allocator; 27 would need ~188 GB.
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_TRAIN_RUNS = ((MOE_ARCH, 10, 2, 256),)
+# phase families: the four LM families served beside minicpm-2b, each at its
+# published widths, random weights from --seed, bf16: (arch, short tag,
+# depth, max_len, long prompt's length range or None, contiguous variants,
+# paged run, training (batch, seq) or None). The depths follow one card's 80
+# GB; a served run's peak is about 6.7 B a parameter with FFIP's derived
+# copies (bf16 weights, f32 y and its carry table) and 7.6 B in int8 FFIP
+# (minicpm-2b's 18.78 and 21.09 GiB for 2.72 B parameters, PERF.md).
+# - gemma3-4b (3.88 B params) at all 34 layers, one prompt of 1100-1499
+#   tokens (past the local layers' window of 1024: five layers in six then
+#   mask inside K4 at prefill and K5 paged), and trained at batch 1 x 1536
+#   through K4 + K8 at (256, 256): 3.88 B x 12 B (bf16 params and grads, f32
+#   moments) = 47 GB plus activations.
+# - mixtral-8x22b at 12 of 56 layers: a layer is 2.47 B params of experts
+#   (4.5 GiB in bf16; the expert einsums are library calls, with no derived
+#   copies) and 88 M of attention (0.6 GiB in int8 FFIP). At 12 layers the
+#   int8 run with a prompt of 4200-4399 tokens (past its window of 4096; a 4
+#   x 4608-row prefill dispatch, ~6 GiB of capacity buffers) peaked at 69.5
+#   GiB on the H100; at 13 it peaked at 75.4 GiB of the card's 79.2, and the
+#   planted fault's run (a copy of the faulty attn.wo beside the weights)
+#   then ran out of memory.
+# - starcoder2-3b (4.16 B params) at all 30 layers.
+# - deepseek-coder-33b at 19 of 62 layers: 0.53 B params a layer (3.5 GiB
+#   in int8 FFIP). At 18 layers the int8 run peaked at 66.3 GiB on the
+#   H100, so 19 take ~69.8 GiB and its planted fault's run ~71.6 (a copy of
+#   attn.wo); 20 (~75 GiB) is where mixtral's fault run failed.
+FAMILY_RUNS = (
+    ("gemma3-4b", "gemma3", 34, 1536, (1100, 1500),
+     (("ffip", False), ("baseline", False), ("ffip", True)), True, (1, 1536)),
+    ("mixtral-8x22b", "mixtral", 12, 4608, (4200, 4400),
+     (("ffip", False), ("ffip", True)), True, None),
+    ("starcoder2-3b", "starcoder2", 30, 256, None,
+     (("ffip", False), ("ffip", True)), True, None),
+    ("deepseek-coder-33b", "deepseek-coder", 19, 256, None,
+     (("ffip", False), ("ffip", True)), False, None),
+)
+# the served prompt that the long one replaces: odd (not behind the paged
+# workload's shared prefix), and not the last (a copy of the first)
+LONG_PROMPT_INDEX = 5
 TRAIN_STEPS = 8
 # AdamW's peak learning rate in phase train (WSD, 2 warmup steps of 8, as
 # the launcher schedules minicpm-2b). At AdamWConfig's default (3e-4) the
@@ -574,7 +664,9 @@ def check_carry(y: torch.Tensor, carry: torch.Tensor, dtype: str,
     bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                           else (t_ops, "operations"))
     print(f"  ffip_carry_table y ({k}, {n}) {y.dtype} -> "
-          f"{tuple(carry.shape)} {'ok ' if ok else 'BAD'} (bit for bit) "
+          f"{tuple(carry.shape)} (y {y.numel() * 4 / 2 ** 30:.3f} GiB, "
+          f"table {carry.numel() * 4 / 2 ** 30:.3f} GiB) "
+          f"{'ok ' if ok else 'BAD'} (bit for bit) "
           f"max_abs={abs_err:.3g}  {ms:.4f} ms (graph replay; {call_ms:.4f} "
           f"ms around the call; first derivation {first_ms:.2f} ms host "
           f"clock)  plain {plain_ms:.3f} ms  cumsum {lib_ms:.4f} ms (graph "
@@ -698,6 +790,18 @@ def ptxas_of(source: str, key: str, inst: str) -> str:
     return "not built here"
 
 
+def flash_inst(d: int, dv: int):
+    """(D, DV, bands) of the bf16 body K4 and K8 run at widths (d, dv), as
+    the C entries of flash_fwd.cu and flash_bwd.cu dispatch: a narrower
+    width runs zero-filled to D; at (256, 256) each query block of K4 and
+    of K8's dq pass, and each key block of its dk/dv pass, is two CTAs,
+    each a band of the output columns."""
+    for D, DV in ((64, 64), (128, 128), (192, 128)):
+        if d <= D and dv <= DV:
+            return D, DV, 1
+    return 256, 256, 2
+
+
 def sdpa_backend(q, k, v, causal: bool) -> str:
     """The first of SDPA's fused backends (flash, memory-efficient, cuDNN)
     that takes these operands, or why none does; the default call then
@@ -767,8 +871,9 @@ def check_flash(dev):
             else:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q[None], k[None], v[None], is_causal=causal)
+            wide = dv != d or d > 128
             backend = (sdpa_backend(q[None], k[None], v[None], causal)
-                       if dv != d else None)
+                       if wide else None)
             call_ms = time_ms(kern, 20)
             ms = graph_ms(kern)
             lib_ms = yardstick_ms(lib, replay=True)
@@ -787,11 +892,12 @@ def check_flash(dev):
                        bound_by=bound_by, kept_pairs=pairs * bh,
                        tol=f"o {o_tol:g}, lse 2e-3")
             extra = ""
-            if dv != d:
+            if wide:
+                D, DV, bands = flash_inst(d, dv)
+                inst = f"<{D},{DV},4,{bands}>"
                 rec["sdpa_backend"] = backend
-                rec["ptxas"] = ptxas_of("flash_fwd", "_tc_kernel",
-                                        f"<{d},{dv},4>")
-                extra = (f"  sdpa backend {backend}; ptxas <{d}, {dv}, 4>: "
+                rec["ptxas"] = ptxas_of("flash_fwd", "_tc_kernel", inst)
+                extra = (f"  sdpa backend {backend}; ptxas {inst}: "
                          f"{rec['ptxas']}")
             records.append(rec)
             lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
@@ -806,23 +912,28 @@ def check_flash(dev):
 
 
 def check_flash_refusal(dev) -> list:
-    """The f32 flash kernels take d <= 128 and dv == d: at MLA's d 192 /
-    dv 128 in f32 both wrappers must raise (naming ROADMAP queue 2 section
-    A), never fall back. Returns what failed to raise."""
+    """The f32 flash kernels take d <= 128 and dv == d, the bf16 ones d and
+    dv <= 256: at MLA's d 192 / dv 128 and gemma3's 256 in f32, and at d 320
+    in bf16, both wrappers must raise (naming ROADMAP queue 2 section A),
+    never fall back. Returns what failed to raise."""
     from repro_torch.kernels.flash_attention import _flash_bwd, _flash_fwd
 
-    q = torch.zeros((2, 16, MLA_D), device=dev)
-    v = torch.zeros((2, 16, MLA_DV), device=dev)
-    lse = torch.zeros((2, 16), device=dev)
     missed = []
-    for name, call in (("flash_fwd", lambda: _flash_fwd(q, q, v)),
-                       ("flash_bwd", lambda: _flash_bwd(q, q, v, v, lse, v))):
-        try:
-            call()
-            missed.append(f"{name} took f32 d {MLA_D} / dv {MLA_DV}")
-        except ValueError as e:
-            print(f"  {name} f32 d {MLA_D} dv {MLA_DV}: refused ({e})",
-                  flush=True)
+    for d, dv, dtype in ((MLA_D, MLA_DV, torch.float32),
+                         (GEMMA_D, GEMMA_D, torch.float32),
+                         (320, 320, torch.bfloat16)):
+        q = torch.zeros((2, 16, d), device=dev, dtype=dtype)
+        v = torch.zeros((2, 16, dv), device=dev, dtype=dtype)
+        lse = torch.zeros((2, 16), device=dev)
+        for name, call in (("flash_fwd", lambda: _flash_fwd(q, q, v)),
+                           ("flash_bwd",
+                            lambda: _flash_bwd(q, q, v, v, lse, v))):
+            what = f"{name} {str(dtype)[6:]} d {d} dv {dv}"
+            try:
+                call()
+                missed.append(f"{what} was taken")
+            except ValueError as e:
+                print(f"  {what}: refused ({e})", flush=True)
     return missed
 
 
@@ -882,6 +993,9 @@ def check_paged(dev):
             if "prefill chunk" in label:
                 lengths = torch.full((b,), 128, device=dev)
                 q_start = torch.full((b,), 64, device=dev)
+            elif "past window" in label:
+                lengths = torch.full((b,), window + 320, device=dev)
+                q_start = lengths - sq
             else:
                 lengths = torch.randint(17, ps * mp + 1, (b,), generator=g,
                                         device=dev)
@@ -899,7 +1013,7 @@ def check_paged(dev):
             abs_err, _ = _err(o, want)
             ok = _allclose(o, want, 2 ** -7, 2 ** -7)
             zeros = "n/a"
-            if "prefill chunk" not in label:
+            if "chunk" not in label:
                 zeros = bool(torch.count_nonzero(o[0]) == 0)
                 ok = ok and zeros
             k_pos = torch.arange(mp * ps, device=dev)
@@ -933,8 +1047,40 @@ def check_paged(dev):
                   f"(graph replay)  bound {bound_ms:.5f} ms ({bound_by})  "
                   f"{ms / replay_floor_ms(dev):.2f}x the replay floor",
                   flush=True)
+            if label.startswith("gemma3") and dname == "bf16":
+                records.append(paged_padded(records[-1], args, want, scale,
+                                            d))
             del q, kp, vp, o, want
     return records
+
+
+def paged_padded(rec: dict, args, want, scale, d: int) -> dict:
+    """The same K5 call with q, k and v zero-padded to PAGED_PADDED columns
+    (and the scale of d): the (576, 512) body that ran d 256 before the
+    (256, 256) one, held to the same plain version; its ms beside the new
+    body's. Zero columns add nothing to a score, and the extra output
+    columns are dropped."""
+    from repro_torch.kernels.flash_paged import flash_attention_paged
+
+    pad = lambda t: torch.nn.functional.pad(  # noqa: E731
+        t, (0, PAGED_PADDED - t.shape[-1]))
+    q, kp, vp, pt, lengths, q_start, window = args
+    padded = (pad(q), pad(kp), pad(vp), pt, lengths, q_start, window)
+    sc = d ** -0.5 if scale is None else scale
+    kern = lambda: flash_attention_paged(  # noqa: E731
+        *padded, scale=sc)[..., :d]
+    o = kern()
+    torch.cuda.synchronize()
+    abs_err, _ = _err(o, want)
+    ok = _allclose(o, want, 2 ** -7, 2 ** -7)
+    ms = graph_ms(kern)
+    out = dict(rec, case=rec["case"] + " (576, 512) body, before", ok=ok,
+               max_abs_err=abs_err, ms=ms, call_ms=time_ms(kern, 20),
+               padded_to=PAGED_PADDED)
+    print(f"  flash_paged   {out['case']}: {'ok ' if ok else 'BAD'} max_abs="
+          f"{abs_err:.3g}  {ms:.4f} ms (graph replay) against "
+          f"{rec['ms']:.4f} ms in the (256, 256) body", flush=True)
+    return out
 
 
 def conv_bound(algo: str, dtype: str, xp: torch.Tensor, stack: torch.Tensor,
@@ -1278,12 +1424,13 @@ def check_flash_bwd(dev):
                        tol="rtol 1e-4, atol 1e-4 max|plain|; bf16 cast 1 "
                            "ulp beyond that atol")
             extra = ""
-            if dv != d:
+            if dv != d or d > 128:
+                inst = "<%d,%d,%d>" % flash_inst(d, dv)
                 rec["ptxas"] = {
                     p_: ptxas_of("flash_bwd", f"flash_bwd_{p_}_tc_kernel",
-                                 f"<{d},{dv}>") for p_ in ("dq", "dkdv")}
+                                 inst) for p_ in ("dq", "dkdv")}
                 extra = "  ptxas " + "; ".join(
-                    f"{k_} <{d}, {dv}>: {v_}" for k_, v_ in
+                    f"{k_} {inst}: {v_}" for k_, v_ in
                     rec["ptxas"].items())
             records.append(rec)
             print(f"  flash_bwd     {label:10s} BH={bh} S={s:<3d} d={d} "
@@ -1894,20 +2041,26 @@ def served_prompts(vocab: int, seed: int):
     return make_prompts(vocab, 8, np.random.default_rng(seed), 16, 129)
 
 
-def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
-    """The served runs; launch counts zeroed before and read after each."""
+SERVED_VARIANTS = (("ffip", False), ("fip", False), ("baseline", False),
+                   ("ffip", True))
+
+
+def drive_main_path(model, params, prompts, max_new: int, tag: str = "",
+                    variants=SERVED_VARIANTS, max_len: int = 256):
+    """The served runs, one per (gemm_algo, quantized) of ``variants``, 4
+    slots of ``max_len`` rows; launch counts zeroed before and read after
+    each."""
     from repro_torch.kernels import compat
     from repro_torch.launch.serve import serve
 
     runs = []
-    for algo, quantized in (("ffip", False), ("fip", False),
-                            ("baseline", False), ("ffip", True)):
+    for algo, quantized in variants:
         label = tag + ("int8-" if quantized else "") + algo
         torch.cuda.reset_peak_memory_stats()
         compat.reset_counters()
         with record_samples() as samples, routing() as routes:
             srv, done, wall = serve(model, params, prompts, max_new=max_new,
-                                    batch_slots=4, max_len=256,
+                                    batch_slots=4, max_len=max_len,
                                     quantized=quantized, gemm_algo=algo,
                                     gemm_impl="cuda")
         counts = compat.launch_counts()
@@ -1923,7 +2076,9 @@ def drive_main_path(model, params, prompts, max_new: int, tag: str = ""):
               f"{st['prefill_s']:.3f} s ({st['prefill_tokens']} tok / "
               f"{st['prefill_dispatches']} dispatches), decode "
               f"{st['decode_s']:.3f} s ({st['decode_tokens']} tok / "
-              f"{st['steps']} steps); {tokens / busy:.1f} tok/s over "
+              f"{st['steps']} steps, "
+              f"{1e3 * st['decode_s'] / max(1, st['steps']):.1f} ms/step); "
+              f"{tokens / busy:.1f} tok/s over "
               f"prefill+decode; peak memory {peak:.2f} GiB; launches "
               f"{counts}", flush=True)
         runs.append(dict(label=label, algo=algo, quantized=quantized,
@@ -2049,7 +2204,8 @@ def _same(a: dict, b: dict) -> str:
     return "identical" if not diff else f"differ (request: first index) {diff}"
 
 
-def serve_paged(model, params, prompts, max_new: int, label: str, **kw):
+def serve_paged(model, params, prompts, max_new: int, label: str,
+                max_len: int = PAGED_MAX_LEN, **kw):
     """One paged serve of ``prompts`` (launch counts zeroed just before and
     read just after) and the page-ledger checks every paged run must pass.
     Returns (record, problems)."""
@@ -2059,7 +2215,7 @@ def serve_paged(model, params, prompts, max_new: int, label: str, **kw):
     torch.cuda.reset_peak_memory_stats()
     compat.reset_counters()
     srv, done, wall = serve(model, params, prompts, max_new=max_new,
-                            batch_slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN,
+                            batch_slots=PAGED_SLOTS, max_len=max_len,
                             gemm_impl="cuda", paged=True,
                             page_size=PAGE_SIZE, **kw)
     counts = compat.launch_counts()
@@ -2470,6 +2626,220 @@ def run_moe(args, readings: Readings, problems):
     return runs, paged_runs, train_recs
 
 
+def family_prompts(vocab: int, seed: int, long_range, paged: bool):
+    """The 8 prompts of a family's served runs: served_prompts' (16-128
+    tokens) or, paged, the paged phases' workload (16-64 tokens, the even
+    ones behind a shared 64-token prefix, the last a copy of the first),
+    with prompt LONG_PROMPT_INDEX replaced by one of ``long_range`` tokens
+    where the family has a window to pass."""
+    from repro_torch.launch.serve import make_prompts
+
+    prompts = (make_prompts(vocab, 8, np.random.default_rng(seed), 16, 65,
+                            shared_prefix=64) if paged
+               else served_prompts(vocab, seed))
+    if long_range:
+        rng = np.random.default_rng(seed + 1)
+        n = int(rng.integers(*long_range))
+        prompts[LONG_PROMPT_INDEX] = rng.integers(0, vocab, size=(n,))
+    return prompts
+
+
+def family_plain(model, params, prompts, run, max_new: int, **server_kw):
+    """The plain path a served run of a family is read against: for an MoE
+    model a replay of the run (``Replay``: its dispatches, ids and expert
+    choices), else each prompt alone (``PlainPath``)."""
+    if model.cfg.moe is not None:
+        return Replay(model, params, prompts, run["samples"], run["routes"],
+                      max_new, quantized=run["quantized"], **server_kw)
+    return PlainPath(model, params, prompts, run["quantized"])
+
+
+def run_family(args, readings: Readings, problems, arch, tag, layers,
+               max_len, long_range, variants, paged, train_shape):
+    """One family of phase families (FAMILY_RUNS): served contiguous
+    through K1-K4 (every prefill dispatch launches K4 once a layer, decode
+    attends through the plain cache attention) and, where asked, paged
+    through K5; each run's first and second tokens held to its plain path
+    under the float / int8 bars, a middle layer's attn.wo taken from the
+    next layer the planted fault (float and int8 FFIP); then, where asked,
+    trained through K4 + K8 (run_train). Returns (served runs, paged runs,
+    train records)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    win, theta = T.window_theta_arrays(cfg, layers)
+    local = int((win > 0).sum())
+    moe = (f", MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_ff "
+           f"{cfg.moe.d_ff_expert}, capacity factor "
+           f"{cfg.moe.capacity_factor}" if cfg.moe else "")
+    print(f"phase families: {arch} d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}x{cfg.hd} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}{', tied' if cfg.tie_embeddings else ''}, norm "
+          f"{cfg.norm}, act {cfg.act}, qkv bias {cfg.qkv_bias}{moe}; window "
+          f"{cfg.sliding_window} on {local} of {layers} layers, rope theta "
+          f"{sorted(set(float(t) for t in theta))}; n_layers {layers} "
+          f"(published {full.n_layers}), {cfg.param_count() / 1e9:.2f} B "
+          f"params, {cfg.param_dtype}", flush=True)
+    model = Model(cfg)
+    params = model.init(args.seed)
+    prompts = family_prompts(cfg.vocab, args.seed, long_range, False)
+    print(f"  4 slots, max_len {max_len}, prompt lengths "
+          f"{[len(p) for p in prompts]}, {args.max_new} new tokens each; "
+          f"weights in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    runs = drive_main_path(model, params, prompts, args.max_new,
+                           tag=f"{tag} ", variants=variants, max_len=max_len)
+    gemm = {"ffip": "ffip_gemm_y", "baseline": "baseline_gemm"}
+    others = ("flash_paged", "flash_bwd", "conv_gemm", "selective_scan",
+              "selective_scan_bwd")
+    for r in runs:
+        c, st = r["counts"], r["stats"]
+        want_k4 = layers * st["prefill_dispatches"]
+        print(f"  [{r['label']}] flash_fwd {c['flash_fwd']} = {layers} layers "
+              f"x {st['prefill_dispatches']} prefill dispatches: "
+              f"{c['flash_fwd'] == want_k4}", flush=True)
+        if not r["budget_ok"]:
+            problems.append(f"{r['label']}: a request missed its token budget")
+        if c[gemm[r["algo"]]] == 0:
+            problems.append(f"{r['label']}: {gemm[r['algo']]} never launched")
+        if c["flash_fwd"] != want_k4:
+            problems.append(f"{r['label']}: flash_fwd launched "
+                            f"{c['flash_fwd']} times, want {want_k4}")
+        if any(c.get(k) for k in others):
+            problems.append(f"{r['label']}: launched {c}")
+    # the planted faults are served before any plain path is built: a
+    # served int8 run of the deepest family takes most of the card
+    contiguous = dict(batch_slots=4, max_len=max_len)
+    label, faulty = wrong_layer(params, "attn", "wo", layers)
+    faults = []
+    for quantized in (False, True):
+        with record_samples() as samples, routing() as routes:
+            _, done, _ = serve(model, faulty, prompts, max_new=2,
+                               quantized=quantized, gemm_algo="ffip",
+                               gemm_impl="cuda", **contiguous)
+        faults.append(dict(done=done, samples=samples, routes=routes,
+                           quantized=quantized,
+                           label=f"{tag} planted fault: {label}, "
+                                 f"{'int8' if quantized else 'float'} ffip"))
+    del faulty
+    free_device()
+    plains = {}
+    for r in runs + faults:
+        tier = "int8" if r["quantized"] else "float"
+        fault = any(r is f for f in faults)
+        # the plain int8 paths are built and read (PlainPath.second decodes
+        # on demand) with their products by one float64 matmul
+        with (int8_products_by_f64() if r["quantized"]
+              else contextlib.nullcontext()):
+            if cfg.moe is not None or r["quantized"] not in plains:
+                plains[r["quantized"]] = family_plain(
+                    model, params, prompts, r,
+                    2 if fault else args.max_new, **contiguous)
+            readings.read(r["label"], r["done"], plains[r["quantized"]],
+                          tier, fault=fault)
+        if cfg.moe is None and r.get("algo") == "ffip" and not r["quantized"]:
+            readings.deviation(r["label"], kernel_deviation(
+                model, params, prompts, plains[False], "ffip"))
+    del plains
+    free_device()
+    paged_runs = []
+    if paged:
+        paged_prompts = family_prompts(cfg.vocab, args.seed, long_range, True)
+        print(f"  paged: {PAGED_SLOTS} slots, max_len {max_len}, pages of "
+              f"{PAGE_SIZE}, prefill chunks of {PREFILL_CHUNK}; prompt "
+              f"lengths {[len(p) for p in paged_prompts]}", flush=True)
+        kw = dict(gemm_algo="ffip", decode_chunk=4, paged_attention="flash",
+                  prefill_chunk=PREFILL_CHUNK)
+        with record_samples() as samples, routing() as routes:
+            rec, found = serve_paged(model, params, paged_prompts,
+                                     args.max_new, f"{tag} paged flash ffip",
+                                     max_len=max_len, **kw)
+        problems.extend(found)
+        paged_runs.append(rec)
+        plain = family_plain(
+            model, params, paged_prompts, dict(samples=samples, routes=routes,
+                                               quantized=False),
+            args.max_new, batch_slots=PAGED_SLOTS, max_len=max_len,
+            paged=True, page_size=PAGE_SIZE, prefill_chunk=PREFILL_CHUNK,
+            decode_chunk=4)
+        readings.read(rec["label"], rec["done"], plain, "float")
+        del plain
+        free_device()
+    if cfg.moe is None:
+        # one dispatch of each kind, counted and profiled: 7 projections a
+        # layer and the unembed through K3, attention once a layer (K4 in
+        # the contiguous prefill, K5 in either paged dispatch)
+        steps = {f"{tag} {k}": v for k, v in contiguous_steps(
+            model, params, 128).items()}
+        if paged:
+            steps.update({f"{tag} {k}": v for k, v in paged_steps(
+                model, params).items()})
+        print_profile(steps, lambda phase: {
+            "ffip_gemm_y": 7 * layers + 1,
+            "flash_fwd": layers if phase.endswith(" prefill") else 0,
+            "flash_paged": layers if "paged" in phase else 0}, problems)
+        del steps
+    del model, params
+    free_device()
+    print(f"phase families {arch} serving: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    train_recs = []
+    if train_shape:
+        t1 = time.perf_counter()
+        train_recs, _ = run_train(args, problems,
+                                  runs=((arch, layers, *train_shape),),
+                                  witness=False)
+        free_device()
+        print(f"phase families {arch} train: "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return runs, paged_runs, train_recs
+
+
+@contextlib.contextmanager
+def int8_products_by_f64():
+    """While this is open, the plain int8 path's integer product (the
+    Eq. 15/16 algebra of ``quant.quantized_dense_apply(impl="torch")``,
+    which builds an (M, pairs, N) cross term) is computed as one float64
+    matmul instead: the same int32 values, since Eq. 16 with the folded beta
+    is A_q W_q exactly and every int8 x int8 sum here is below 2**53 in
+    magnitude. Phase families opens it only around building and reading its
+    plain int8 paths, never around a served run, and reads prompts of up to
+    4608 rows a dispatch through it, where the cross term would take
+    minutes."""
+    from repro_torch.core import fip, quant
+
+    def exact(a, b, bias_folded, *, k_chunk=0):
+        prod = torch.matmul(a.double(), b.double()).to(torch.int32)
+        return prod + fip.fip_beta(b) + bias_folded
+
+    quant.fip = types.SimpleNamespace(**{
+        k: getattr(fip, k) for k in dir(fip) if not k.startswith("__")})
+    quant.fip.fip_matmul_beta_folded = exact
+    try:
+        yield
+    finally:
+        quant.fip = fip
+
+
+def run_families(args, readings: Readings, problems):
+    """Phase families: every entry of FAMILY_RUNS in turn. Returns the
+    served, paged and training records of all of them."""
+    t0 = time.perf_counter()
+    out = ([], [], [])
+    for fam in FAMILY_RUNS:
+        got = run_family(args, readings, problems, *fam)
+        for acc, recs in zip(out, got):
+            acc.extend(recs)
+    print(f"phase families: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 @contextlib.contextmanager
 def plain_recurrence():
     """The Mamba1 mixer's fused scan replaced, while this is open, by
@@ -2626,7 +2996,7 @@ def profile_train_step(model, out, tcfg, batch):
     return dict(wall_ms=wall_ms, busy_ms=busy, device_ms=device_ms)
 
 
-def run_train(args, problems, runs=TRAIN_RUNS):
+def run_train(args, problems, runs=TRAIN_RUNS, witness: bool = True):
     """Train ``runs`` (minicpm-2b and falcon-mamba-7b, TRAIN_RUNS; phase moe
     deepseek-v2-lite-16b, MOE_TRAIN_RUNS) at full width through
     ``train.loop.train``: AdamW with the launcher's minicpm choice (WSD, 2
@@ -2741,7 +3111,7 @@ def run_train(args, problems, runs=TRAIN_RUNS):
         readings.append((arch, *grad_reading(arch, cfg, args.seed,
                                              batch_size, seq)))
         free_device()
-        if cfg.family == "dense":
+        if cfg.family == "dense" and witness:
             lr_witness(arch, cfg, args.seed, batch_size, seq, problems)
             free_device()
         print(f"phase train {arch}: {time.perf_counter() - t0:.1f} s",
@@ -3069,12 +3439,22 @@ def main(argv=None) -> int:
     for name in totals:
         totals[name] += sum(r["counts"].get(name, 0)
                             for r in moe_runs + moe_paged + moe_train)
+    free_device()
+
+    # 12. the four LM families: gemma3-4b, mixtral-8x22b, starcoder2-3b and
+    # deepseek-coder-33b served (and gemma3 trained) at their published
+    # widths
+    fam = run_families(args, readings, problems)
+    for name in totals:
+        totals[name] += sum(r["counts"].get(name, 0)
+                            for recs_ in fam for r in recs_)
+    free_device()
     readings.gate()
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 11. the kernels line and the result line
+    # 13. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]

@@ -1,8 +1,10 @@
 """Architecture registry + reduced (smoke) config derivation.
 
-The port carries the archs whose path it has ported so far (the dense
-minicpm-2b, the Mamba1 falcon-mamba-7b and the MLA + MoE
-deepseek-v2-lite-16b); ``smoke_config`` is a copy of
+The port carries the archs whose path it has ported so far: the dense
+minicpm-2b, gemma3-4b (local:global windows), starcoder2-3b (layernorm,
+gelu, qkv bias) and deepseek-coder-33b, the Mamba1 falcon-mamba-7b, the
+MLA + MoE deepseek-v2-lite-16b and the GQA + MoE mixtral-8x22b
+(sliding window); ``smoke_config`` is a copy of
 the reference's, so a smoke config here has the same widths as its
 counterpart there."""
 from __future__ import annotations
@@ -13,14 +15,22 @@ from repro_torch.configs.base import (EncoderConfig, MLAConfig,  # noqa: F401
                                       MoEConfig, ModelConfig, SHAPES,
                                       SHAPE_BY_NAME, ShapeConfig, SSMConfig,
                                       shape_supported)
+from repro_torch.configs.deepseek_coder_33b import CONFIG as _deepseek_coder
 from repro_torch.configs.deepseek_v2_lite_16b import CONFIG as _deepseek
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
+from repro_torch.configs.gemma3_4b import CONFIG as _gemma3
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
+from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
 
 ARCHS = {
+    "deepseek-coder-33b": _deepseek_coder,
     "deepseek-v2-lite-16b": _deepseek,
     "falcon-mamba-7b": _falcon_mamba,
+    "gemma3-4b": _gemma3,
     "minicpm-2b": _minicpm,
+    "mixtral-8x22b": _mixtral,
+    "starcoder2-3b": _starcoder2,
 }
 
 

@@ -34,12 +34,21 @@
 // below 2^-16 of x, inside the bar of the f32 version, where one bf16
 // rounding of p (as FlashAttention-2 does) is not. The passes are templated
 // on (D, DV), the widths of q/k and of v, instantiated at (32, 32), (64, 64),
-// (128, 128) and MLA's (192, 128); a narrower width runs zero-padded to the
-// next one. At (192, 128) the dk/dv pass holds 16 x 192 + 16 x 128 f32
+// (128, 128), MLA's (192, 128) and gemma3's (256, 256); a narrower width
+// runs zero-padded to the next one. At (192, 128) the dk/dv pass holds 16 x 192 + 16 x 128 f32
 // accumulators a warp (160 registers a thread before fragments): with
 // 32-query steps ptxas spilled 100 bytes, so that pass walks 16-query steps
 // there (kv_step), which leaves its p^T and ds^T tiles half the registers.
-// The f32 passes take d <= 128 and dv == d.
+// At gemma3's (256, 256) the dk/dv accumulators alone would take 256
+// registers a thread (ptxas: 255 and 664 bytes of spills), so each 64-key
+// block is two CTAs (SPLIT, blockIdx.z), each forming s^T and dp^T whole
+// and keeping half of dk's and half of dv's columns (232 registers, no
+// spills); separate dv and dk passes would read q, do, lse and delta twice
+// and form s^T twice as well, for no fewer operations. The dq pass's
+// 16 x 256 accumulator sits at 255 registers, where ptxas spilled 12 bytes
+// in one build and none in another, so it takes the same split (162
+// registers); the first band writes delta. The f32 passes take d <= 128
+// and dv == d.
 //
 // f32 keeps the CUDA-core passes: delta per row, then dk/dv (one CTA per
 // 64-key block walking 32-row query blocks, four threads a key), then dq
@@ -435,11 +444,13 @@ struct Args {
   int vec;   // d, dv % 8 == 0 and 16-byte bases: cp.async rows
 };
 
-// Pass 1: dq (and delta) of one 64-query block.
-template <int D, int DV>
+// Pass 1: dq (and delta) of one 64-query block; with SPLIT > 1 a band of
+// D / SPLIT of dq's columns (blockIdx.z the band), s and dp formed whole.
+template <int D, int DV, int SPLIT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_tc_kernel(Args p) {
-  constexpr int STEP = step<D, DV>();
+  constexpr int STEP = step<D, DV>(), DC = D / SPLIT;
+  const int c0 = blockIdx.z * DC;     // this CTA's columns of dq
   constexpr int Q_BYTES = BLK * pitch(D), DO_BYTES = BLK * pitch(DV);
   constexpr int K_BYTES = STEP * pitch(D), V_BYTES = STEP * pitch(DV);
   extern __shared__ __align__(16) unsigned char smem[];
@@ -494,13 +505,14 @@ flash_bwd_dq_tc_kernel(Args p) {
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if (h == 0) {
       delta_s[r] = acc;
-      if (q0 + r < p.Sq) p.delta[(long long)bh * p.Sq + q0 + r] = acc;
+      if (q0 + r < p.Sq && blockIdx.z == 0)
+        p.delta[(long long)bh * p.Sq + q0 + r] = acc;
     }
   }
 
-  float dq[D / 8][4];
+  float dq[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dq[n][c] = 0.f;
 
@@ -530,30 +542,33 @@ flash_bwd_dq_tc_kernel(Args p) {
       unsigned hi[4], lo[4];
       split(ds[2 * kk], ds[2 * kk + 1], hi, lo);
 #pragma unroll
-      for (int nb = 0; nb < D / 16; ++nb)
-        mma_kn2<D>(dq[2 * nb], dq[2 * nb + 1], hi, lo, Ks, kk * 16, nb * 16,
-                   lane);
+      for (int nb = 0; nb < DC / 16; ++nb)
+        mma_kn2<D>(dq[2 * nb], dq[2 * nb + 1], hi, lo, Ks, kk * 16,
+                   c0 + nb * 16, lane);
     }
     __syncthreads();   // the ring slot is refilled next
   }
   rt::cp_async_wait<0>();
 
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int row = q0 + row0 + g + 8 * (c >> 1);
-      const int col = n * 8 + 2 * tq + (c & 1);
+      const int col = c0 + n * 8 + 2 * tq + (c & 1);
       if (row < p.Sq && col < p.d)
         p.dq[((long long)bh * p.Sq + row) * p.d + col] = dq[n][c];
     }
 }
 
-// Pass 2: dk and dv of one 64-key block.
-template <int D, int DV>
+// Pass 2: dk and dv of one 64-key block; with SPLIT > 1 a band of D / SPLIT
+// of dk's columns and DV / SPLIT of dv's (blockIdx.z the band), s^T and
+// dp^T formed whole.
+template <int D, int DV, int SPLIT>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv_tc_kernel(Args p) {
-  constexpr int STEP = kv_step<D, DV>();
+  constexpr int STEP = kv_step<D, DV>(), DC = D / SPLIT, DVC = DV / SPLIT;
+  const int kc0 = blockIdx.z * DC, vc0 = blockIdx.z * DVC;
   constexpr int K_BYTES = BLK * pitch(D), V_BYTES = BLK * pitch(DV);
   constexpr int Q_BYTES = STEP * pitch(D), DO_BYTES = STEP * pitch(DV);
   constexpr int SLOT = Q_BYTES + DO_BYTES + 2 * STEP * (int)sizeof(float);
@@ -594,13 +609,13 @@ flash_bwd_dkdv_tc_kernel(Args p) {
   load_tile<BLK, DV, THREADS>(Vs, vb, k0, p.Sk, p.dv_w, p.vec);
   issue(0);
 
-  float dk[D / 8][4], dv[DV / 8][4];
+  float dk[DC / 8][4], dv[DVC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = 0.f;
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
+  for (int n = 0; n < DVC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dv[n][c] = 0.f;
 
@@ -633,14 +648,14 @@ flash_bwd_dkdv_tc_kernel(Args p) {
       unsigned hi[4], lo[4];
       split(pt[2 * kk], pt[2 * kk + 1], hi, lo);
 #pragma unroll
-      for (int nb = 0; nb < DV / 16; ++nb)
+      for (int nb = 0; nb < DVC / 16; ++nb)
         mma_kn2<DV>(dv[2 * nb], dv[2 * nb + 1], hi, lo, dOs, kk * 16,
-                    nb * 16, lane);
+                    vc0 + nb * 16, lane);
       split(dst[2 * kk], dst[2 * kk + 1], hi, lo);
 #pragma unroll
-      for (int nb = 0; nb < D / 16; ++nb)
-        mma_kn2<D>(dk[2 * nb], dk[2 * nb + 1], hi, lo, Qs, kk * 16, nb * 16,
-                   lane);
+      for (int nb = 0; nb < DC / 16; ++nb)
+        mma_kn2<D>(dk[2 * nb], dk[2 * nb + 1], hi, lo, Qs, kk * 16,
+                   kc0 + nb * 16, lane);
     }
     __syncthreads();   // the ring slot is refilled next
   }
@@ -652,14 +667,14 @@ flash_bwd_dkdv_tc_kernel(Args p) {
     const int row = row_g + 8 * (c >> 1);
     if (row >= p.Sk) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + 2 * tq + (c & 1);
+    for (int n = 0; n < DC / 8; ++n) {
+      const int col = kc0 + n * 8 + 2 * tq + (c & 1);
       if (col < p.d)
         p.dk[((long long)bh * p.Sk + row) * p.d + col] = dk[n][c];
     }
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
-      const int col = n * 8 + 2 * tq + (c & 1);
+    for (int n = 0; n < DVC / 8; ++n) {
+      const int col = vc0 + n * 8 + 2 * tq + (c & 1);
       if (col < p.dv_w)
         p.dv[((long long)bh * p.Sk + row) * p.dv_w + col] = dv[n][c];
     }
@@ -673,7 +688,7 @@ cudaError_t opt_in(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D, int DV>
+template <int D, int DV, int SPLIT = 1>
 cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
   constexpr int STEP = step<D, DV>(), DKDV_STEP = kv_step<D, DV>();
   constexpr int SMEM_DQ = BLK * (pitch(D) + pitch(DV)) +
@@ -682,16 +697,18 @@ cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
   constexpr int SMEM_KV = BLK * (pitch(D) + pitch(DV)) +
                           2 * (DKDV_STEP * (pitch(D) + pitch(DV)) +
                                2 * DKDV_STEP * (int)sizeof(float));
-  cudaError_t e = opt_in(flash_bwd_dq_tc_kernel<D, DV>, SMEM_DQ);
+  cudaError_t e = opt_in(flash_bwd_dq_tc_kernel<D, DV, SPLIT>, SMEM_DQ);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_tc_kernel<D, DV>
-      <<<dim3((p.Sq + BLK - 1) / BLK, BH), THREADS, SMEM_DQ, stream>>>(p);
+  flash_bwd_dq_tc_kernel<D, DV, SPLIT>
+      <<<dim3((p.Sq + BLK - 1) / BLK, BH, SPLIT), THREADS, SMEM_DQ,
+         stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = opt_in(flash_bwd_dkdv_tc_kernel<D, DV>, SMEM_KV);
+  e = opt_in(flash_bwd_dkdv_tc_kernel<D, DV, SPLIT>, SMEM_KV);
   if (e != cudaSuccess) return e;
-  flash_bwd_dkdv_tc_kernel<D, DV>
-      <<<dim3((p.Sk + BLK - 1) / BLK, BH), THREADS, SMEM_KV, stream>>>(p);
+  flash_bwd_dkdv_tc_kernel<D, DV, SPLIT>
+      <<<dim3((p.Sk + BLK - 1) / BLK, BH, SPLIT), THREADS, SMEM_KV,
+         stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -700,8 +717,8 @@ cudaError_t launch(const Args& p, int BH, cudaStream_t stream) {
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v, o and do share it; lse, delta, dq, dk
 // and dv are f32).
-// d is the width of q and k, dv_w that of v, o and do: bf16 takes d <= 192
-// with dv_w <= 128, f32 d <= 128 with dv_w == d.
+// d is the width of q and k, dv_w that of v, o and do: bf16 takes d <= 256
+// with dv_w <= 256, f32 d <= 128 with dv_w == d.
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* lse,
                                 const void* dout, void* delta, void* dq,
@@ -718,7 +735,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 (float*)dv, BH, Sq, Sk, d, window, causal,
                                 scale, s);
   }
-  if (dtype != 1 || d > 192 || dv_w > 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || d > 256 || dv_w > 256) return (int)cudaErrorInvalidValue;
   using tcb::bf16;
   const void* ptrs[] = {q, k, v, o, dout};
   bool aligned = d % 8 == 0 && dv_w % 8 == 0;
@@ -729,6 +746,7 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
               causal, scale, (int)aligned};
   if (d <= 32 && dv_w <= 32) return (int)tcb::launch<32, 32>(p, BH, s);
   if (d <= 64 && dv_w <= 64) return (int)tcb::launch<64, 64>(p, BH, s);
-  if (d <= 128) return (int)tcb::launch<128, 128>(p, BH, s);
-  return (int)tcb::launch<192, 128>(p, BH, s);
+  if (d <= 128 && dv_w <= 128) return (int)tcb::launch<128, 128>(p, BH, s);
+  if (d <= 192 && dv_w <= 128) return (int)tcb::launch<192, 128>(p, BH, s);
+  return (int)tcb::launch<256, 256, 2>(p, BH, s);
 }

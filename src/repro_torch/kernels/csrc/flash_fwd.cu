@@ -24,14 +24,21 @@
 // fragments by ldmatrix.trans. Only the summation order differs from the
 // plain version. Templated on (D, DV), the widths of q/k and of v in shared
 // memory (v's width passed apart from q's), instantiated at (64, 64),
-// (128, 128) and MLA's (192, 128) (q/k concatenate nope 128 + rope 64
-// against v 128): a narrower width runs zero-filled to the next, which is
-// exact (zero columns add nothing to s, and o's extra columns are not
-// written). Up to d 128 a warp keeps its q fragments in registers for the
-// whole walk; at (192, 128) the 16 x 128 f32 accumulator, the scores and 48
-// registers of q fragments would pass the 255 a thread has (ptxas spilled 56
-// bytes), so there each step reloads q's fragments from the shared tile (12
-// ldmatrix a 64-key step). A 4-warp CTA holds 109 KB of shared memory.
+// (128, 128), MLA's (192, 128) (q/k concatenate nope 128 + rope 64 against
+// v 128) and gemma3's (256, 256): a narrower width runs zero-filled to the
+// next, which is exact (zero columns add nothing to s, and o's extra
+// columns are not written). Up to d 128 a warp keeps its q fragments in
+// registers for the whole walk; at (192, 128) the 16 x 128 f32 accumulator,
+// the scores and 48 registers of q fragments would pass the 255 a thread
+// has (ptxas spilled 56 bytes), so there each step reloads q's fragments
+// from the shared tile (12 ldmatrix a 64-key step). A 4-warp CTA holds 109
+// KB of shared memory. At (256, 256) a 16 x 256 accumulator alone is 128
+// registers a thread, and with q reloaded ptxas still spilled 76 bytes at
+// 255: there a query block is two CTAs (VSPLIT, blockIdx.z), each forming
+// the whole score tile, so m and l come out bit for bit the same in both,
+// and keeping a band of 128 of v's and o's columns (175 registers, no
+// spills, 133 KB of shared memory); the first band writes lse. The QK
+// product is done twice, 1.5x the MMA work of one CTA a block.
 //
 // f32 keeps the CUDA-core kernel, the only exact-f32 route (no TF32), at
 // d <= 128 and dv == d: one CTA per (bh, 32-row q block), 32-key blocks, q,
@@ -194,21 +201,25 @@ struct Args {
   int vec;   // d, dv % 8 == 0 and 16-byte bases: cp.async rows
 };
 
-template <int D, int DV, int WARPS>
+// A CTA's band of v's columns: DV / VSPLIT of them (VSPLIT CTAs a query
+// block, blockIdx.z the band).
+template <int D, int DV, int WARPS, int VSPLIT>
 constexpr int smem_bytes() {
-  return 16 * WARPS * pitch(D) + 2 * BKV * (pitch(D) + pitch(DV));
+  return 16 * WARPS * pitch(D) + 2 * BKV * (pitch(D) + pitch(DV / VSPLIT));
 }
 
-template <int D, int DV, int WARPS>
+template <int D, int DV, int WARPS, int VSPLIT>
 __global__ void __launch_bounds__(32 * WARPS)
 flash_fwd_tc_kernel(Args p) {
-  constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS;
-  constexpr int K_BYTES = BKV * pitch(D), SLOT = K_BYTES + BKV * pitch(DV);
+  constexpr int THREADS = 32 * WARPS, BQ = 16 * WARPS, DVC = DV / VSPLIT;
+  constexpr int K_BYTES = BKV * pitch(D), SLOT = K_BYTES + BKV * pitch(DVC);
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* Qs = smem;
-  unsigned char* ring = Qs + BQ * pitch(D);        // 2 x (K, V)
+  unsigned char* ring = Qs + BQ * pitch(D);        // 2 x (K, V band)
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  // this CTA's columns of v and o: [c0, c0 + dvc)
+  const int c0 = blockIdx.z * DVC, dvc = min(DVC, p.dv_w - c0);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, tq = lane % 4;
   const bf16* qb = p.q + (long long)bh * p.Sq * p.d;
@@ -225,8 +236,8 @@ flash_fwd_tc_kernel(Args p) {
       unsigned char* r = ring + (t % 2) * SLOT;
       const int k0 = k_begin + t * BKV;
       ftc::load_tile<BKV, D, THREADS>(r, kb, k0, p.Sk, p.d, p.vec);
-      ftc::load_tile<BKV, DV, THREADS>(r + K_BYTES, vb, k0, p.Sk, p.dv_w,
-                                       p.vec);
+      ftc::load_tile<BKV, DVC, THREADS>(r + K_BYTES, vb + c0, k0, p.Sk, dvc,
+                                        p.vec, p.dv_w);
     }
     rt::cp_async_commit();
   };
@@ -236,9 +247,9 @@ flash_fwd_tc_kernel(Args p) {
 
   const int row0 = warp * 16;
   const int rows[2] = {q0 + row0 + g, q0 + row0 + g + 8};
-  float o[DV / 8][4];
+  float o[DVC / 8][4];
 #pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
+  for (int n = 0; n < DVC / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
@@ -317,7 +328,7 @@ flash_fwd_tc_kernel(Args p) {
         l[c >> 1] += pv;
       }
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n)
+    for (int n = 0; n < DVC / 8; ++n)
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[n][c] *= alpha[c >> 1];
     // o += bf16(p) v: two accumulator tiles of p are one A fragment
@@ -328,9 +339,9 @@ flash_fwd_tc_kernel(Args p) {
                              ftc::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              ftc::pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int nb = 0; nb < DV / 16; ++nb) {
+      for (int nb = 0; nb < DVC / 16; ++nb) {
         unsigned b[4];
-        rt::ldsm_x4_t(b, Vs + (kk * 16 + (lane & 15)) * pitch(DV) +
+        rt::ldsm_x4_t(b, Vs + (kk * 16 + (lane & 15)) * pitch(DVC) +
                              (nb * 16 + (lane >> 4) * 8) * 2);
         rt::mma(o[2 * nb], a, b[0], b[1]);
         rt::mma(o[2 * nb + 1], a, b[2], b[3]);
@@ -351,51 +362,57 @@ flash_fwd_tc_kernel(Args p) {
   for (int h = 0; h < 2; ++h) {
     const int row = rows[h];
     if (row >= p.Sq) continue;
-    bf16* orow = p.o + ((long long)bh * p.Sq + row) * p.dv_w;
+    bf16* orow = p.o + ((long long)bh * p.Sq + row) * p.dv_w + c0;
 #pragma unroll
-    for (int n = 0; n < DV / 8; ++n) {
+    for (int n = 0; n < DVC / 8; ++n) {
       const int col = n * 8 + 2 * tq;
       const float x0 = o[n][2 * h] / lc[h], x1 = o[n][2 * h + 1] / lc[h];
-      if (col + 1 < p.dv_w && p.vec)
+      if (col + 1 < dvc && p.vec)
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(x0, x1);
       else {
-        if (col < p.dv_w) orow[col] = __float2bfloat16_rn(x0);
-        if (col + 1 < p.dv_w) orow[col + 1] = __float2bfloat16_rn(x1);
+        if (col < dvc) orow[col] = __float2bfloat16_rn(x0);
+        if (col + 1 < dvc) orow[col + 1] = __float2bfloat16_rn(x1);
       }
     }
-    if (tq == 0) p.lse[(long long)bh * p.Sq + row] = m[h] + logf(lc[h]);
+    // every band forms the same m and l; the first writes lse
+    if (tq == 0 && blockIdx.z == 0)
+      p.lse[(long long)bh * p.Sq + row] = m[h] + logf(lc[h]);
   }
 }
 
-template <int D, int DV, int WARPS>
+template <int D, int DV, int WARPS, int VSPLIT>
 cudaError_t launch_tc(const Args& p, int BH, cudaStream_t stream) {
-  constexpr int SMEM = smem_bytes<D, DV, WARPS>();
+  constexpr int SMEM = smem_bytes<D, DV, WARPS, VSPLIT>();
   if (SMEM > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D, DV, WARPS>,
+        flash_fwd_tc_kernel<D, DV, WARPS, VSPLIT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid((p.Sq + 16 * WARPS - 1) / (16 * WARPS), BH);
-  flash_fwd_tc_kernel<D, DV, WARPS><<<grid, 32 * WARPS, SMEM, stream>>>(p);
+  constexpr int DVC = DV / VSPLIT;
+  dim3 grid((p.Sq + 16 * WARPS - 1) / (16 * WARPS), BH,
+            (p.dv_w + DVC - 1) / DVC);
+  flash_fwd_tc_kernel<D, DV, WARPS, VSPLIT>
+      <<<grid, 32 * WARPS, SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
 // Warps a CTA by Sq: 16 rows a warp, so Sq 16 and 32 (the shortest served
-// buckets) leave no warp without a row.
-template <int D, int DV>
+// buckets) leave no warp without a row. VSPLIT: v's column bands, one CTA
+// each (see the header).
+template <int D, int DV, int VSPLIT = 1>
 cudaError_t launch_d(const Args& p, int BH, cudaStream_t stream) {
-  if (p.Sq <= 16) return launch_tc<D, DV, 1>(p, BH, stream);
-  if (p.Sq <= 32) return launch_tc<D, DV, 2>(p, BH, stream);
-  return launch_tc<D, DV, 4>(p, BH, stream);
+  if (p.Sq <= 16) return launch_tc<D, DV, 1, VSPLIT>(p, BH, stream);
+  if (p.Sq <= 32) return launch_tc<D, DV, 2, VSPLIT>(p, BH, stream);
+  return launch_tc<D, DV, 4, VSPLIT>(p, BH, stream);
 }
 
 }  // namespace tc
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (q, k, v and o share it; lse is f32). d is the
-// width of q and k, dv that of v and o: bf16 takes d <= 192 with dv <= 128,
+// width of q and k, dv that of v and o: bf16 takes d <= 256 with dv <= 256,
 // f32 d <= 128 with dv == d.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int BH, int Sq, int Sk,
@@ -410,7 +427,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                             (float*)o, (float*)lse, BH, Sq, Sk, d, window,
                             causal, scale, s);
   }
-  if (dtype != 1 || d > 192 || dv > 128) return (int)cudaErrorInvalidValue;
+  if (dtype != 1 || d > 256 || dv > 256) return (int)cudaErrorInvalidValue;
   const void* ptrs[] = {q, k, v, o};
   bool aligned = d % 8 == 0 && dv % 8 == 0;
   for (const void* ptr : ptrs) aligned = aligned && (uintptr_t)ptr % 16 == 0;
@@ -418,6 +435,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
              (ftc::bf16*)o, (float*)lse, Sq, Sk, d, dv, window, causal,
              scale, (int)aligned};
   if (d <= 64 && dv <= 64) return (int)tc::launch_d<64, 64>(p, BH, s);
-  if (d <= 128) return (int)tc::launch_d<128, 128>(p, BH, s);
-  return (int)tc::launch_d<192, 128>(p, BH, s);
+  if (d <= 128 && dv <= 128) return (int)tc::launch_d<128, 128>(p, BH, s);
+  if (d <= 192 && dv <= 128) return (int)tc::launch_d<192, 128>(p, BH, s);
+  return (int)tc::launch_d<256, 256, 2>(p, BH, s);
 }

@@ -47,10 +47,14 @@
 //   forms s = q k^T for the CTA's 16 rows and a 16-key tile, keeps the
 //   online softmax in registers, and feeds p, rounded to bf16, from the
 //   score accumulators straight into PV's A fragments (K4's path). Templated
-//   on (D, DV), the padded widths of q/k and v: (64, 64), (128, 128) and
-//   the absorbed-MLA (576, 512), where four warps share the rows and each
-//   takes 128 of v's columns. At MHA decode a CTA fills 1 of the 16 MMA
-//   rows; decode is held by its memory round trips, so that costs nothing.
+//   on (D, DV), the padded widths of q/k and v: (64, 64), (128, 128),
+//   gemma3's (256, 256) and the absorbed-MLA (576, 512); at the two wide
+//   ones four warps share the rows, each forms the whole score tile and
+//   takes a quarter of v's columns (64 or 128), and q's fragments are read
+//   from shared memory each tile instead of held in registers. A 4-tile
+//   ring up to d 256, 2 tiles at 576. At MHA decode a CTA fills 1 of the 16
+//   MMA rows; decode is held by its memory round trips, so that costs
+//   nothing.
 // - f32 keeps the CUDA cores (no TF32) with the same loads, split plan and
 //   merge: eight threads a row for the scores, every thread fixed entries
 //   of the (16, dv) accumulator for PV.
@@ -349,7 +353,7 @@ __device__ __forceinline__ void load_q(unsigned char* dst, const Args& p,
 template <int D, int DV, int WARPS>
 struct Geo {
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int NST = D > 128 ? 2 : 4;      // ring of key tiles
+  static constexpr int NST = D > 256 ? 2 : 4;      // ring of key tiles
   static constexpr int Q_BYTES = RB * pitch(D);
   static constexpr int K_BYTES = KT * pitch(D);
   static constexpr int SLOT = K_BYTES + KT * pitch(DV);
@@ -762,5 +766,7 @@ extern "C" int flash_paged_launch(const void* q, const void* k_pool,
   if (d <= 64 && dv <= 64) return (int)tc::launch<64, 64, 1>(p, pid_cap, s);
   if (d <= 128 && dv <= 128)
     return (int)tc::launch<128, 128, 1>(p, pid_cap, s);
+  if (d <= 256 && dv <= 256)
+    return (int)tc::launch<256, 256, 4>(p, pid_cap, s);
   return (int)tc::launch<576, 512, 4>(p, pid_cap, s);
 }

@@ -24,32 +24,43 @@ __host__ __device__ constexpr int pitch(int w) {
   return (w / 8) % 2 ? 2 * w + 32 : 2 * w + 16;
 }
 
-// Load rows row0 .. row0 + ROWS of a row-major (n_rows, w) bf16 matrix into
-// a (ROWS x W) shared tile; rows past n_rows and columns past w read zero.
+// Load rows row0 .. row0 + ROWS of a row-major bf16 matrix of n_rows rows
+// and row stride ld (in values), columns 0 .. w of each, into a (ROWS x W)
+// shared tile; rows past n_rows and columns past w read zero. ld is w for a
+// whole matrix, and its full width for a band of its columns (src then
+// points at the band's first column).
 template <int ROWS, int W, int THREADS>
 __device__ __forceinline__ void load_tile(unsigned char* dst,
                                           const bf16* __restrict__ src,
                                           int row0, int n_rows, int w,
-                                          bool vec) {
+                                          bool vec, int ld) {
   constexpr int CH = W / 8;
   for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;
     const int gr = row0 + r, gc = c * 8;
     unsigned char* d = dst + r * pitch(W) + c * 16;
-    if (vec) {                       // w % 8 == 0: a chunk is in or out
+    if (vec) {                       // w, ld % 8 == 0: a chunk is in or out
       const bool ok = gr < n_rows && gc < w;
-      rt::cp_async16(d, ok ? (const void*)(src + (long long)gr * w + gc)
+      rt::cp_async16(d, ok ? (const void*)(src + (long long)gr * ld + gc)
                            : (const void*)src, ok);
     } else {
       const unsigned short* s = (const unsigned short*)src;
       unsigned short v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = gr < n_rows && gc + e < w ? s[(long long)gr * w + gc + e] : 0;
+        v[e] = gr < n_rows && gc + e < w ? s[(long long)gr * ld + gc + e] : 0;
 #pragma unroll
       for (int e = 0; e < 8; ++e) ((unsigned short*)d)[e] = v[e];
     }
   }
+}
+
+template <int ROWS, int W, int THREADS>
+__device__ __forceinline__ void load_tile(unsigned char* dst,
+                                          const bf16* __restrict__ src,
+                                          int row0, int n_rows, int w,
+                                          bool vec) {
+  load_tile<ROWS, W, THREADS>(dst, src, row0, n_rows, w, vec, w);
 }
 
 __device__ __forceinline__ unsigned pack(float lo_col, float hi_col) {

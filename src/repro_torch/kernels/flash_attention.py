@@ -12,9 +12,11 @@ warp against 64-key blocks from a ``cp.async`` double buffer, the online
 softmax in registers, l summed from the f32 p, p rounded to bf16 (as the
 reference rounds it to v's dtype) straight from the accumulators into the A
 fragments of PV, v's fragments by ``ldmatrix.trans``. Its body is templated
-on the widths (D, DV) of q/k and of v, instantiated at (64, 64), (128, 128)
-and MLA's (192, 128): a narrower width runs zero-filled, which is exact.
-f32 inputs keep a CUDA-core kernel (no TF32) at d <= 128 and dv == d.
+on the widths (D, DV) of q/k and of v, instantiated at (64, 64), (128, 128),
+MLA's (192, 128) and gemma3's (256, 256), where two CTAs share a query block
+and each takes half of v's columns: a narrower width runs zero-filled,
+which is exact. f32 inputs keep a CUDA-core kernel (no TF32) at d <= 128
+and dv == d.
 
 K8: dq, dk, dv from the forward's log-sum-exp, with ``delta = sum(do * o)``
 per row. The TPU kernel accumulates dq across key blocks into one output
@@ -26,10 +28,12 @@ accumulation): s = q k^T and dp = do v^T from the bf16 operands as they
 are, and each product with the f32 p or ds (dv, dk, dq) as two MMAs of its
 hi + lo bf16 split, which keeps the reference's f32 p within the f32 bar
 (one bf16 rounding of p would not). Bound at training shapes: the bytes.
-The bf16 passes take the forward's (D, DV) widths, MLA's (192, 128)
-included; f32 inputs keep the CUDA-core passes at d <= 128 and dv == d. :func:`flash_attention` is
-differentiable through :class:`FlashAttention` (K4 forward, K8 backward), as
-the reference's custom VJP is. The paged decode kernel is K5
+The bf16 passes take the forward's (D, DV) widths, MLA's (192, 128) and
+gemma3's (256, 256) included (there two CTAs a block, each half of the
+output columns); f32 inputs keep the CUDA-core passes at d <= 128 and dv ==
+d. :func:`flash_attention` is differentiable through
+:class:`FlashAttention` (K4 forward, K8 backward), as the reference's
+custom VJP is. The paged decode kernel is K5
 (``flash_paged.py``).
 """
 from __future__ import annotations
@@ -55,10 +59,11 @@ _SIG = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
 _BWD_SIG = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # Widths the kernels take, (d, dv) of q/k and of v: the bf16 tensor-core
-# bodies up to MLA's d 192 against dv 128; the f32 CUDA-core ones up to
-# d 128 with dv == d (wider f32 is ROADMAP queue 2 section A).
-KERNEL_DMAX = {torch.bfloat16: 192, torch.float32: 128}
-KERNEL_DVMAX = 128
+# bodies up to gemma3's d 256 against dv 256 (MLA's 192 / 128 among them);
+# the f32 CUDA-core ones up to d 128 with dv == d (wider bf16, and wider
+# f32, is ROADMAP queue 2 section A).
+KERNEL_DMAX = {torch.bfloat16: 256, torch.float32: 128}
+KERNEL_DVMAX = {torch.bfloat16: 256, torch.float32: 128}
 
 
 def _check_widths(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -72,11 +77,11 @@ def _check_widths(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
             or q.dtype not in _DTYPE_CODES):
         raise ValueError(f"{name}: unsupported operands q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} {q.dtype}")
-    if (d > KERNEL_DMAX[q.dtype] or dv > KERNEL_DVMAX
+    if (d > KERNEL_DMAX[q.dtype] or dv > KERNEL_DVMAX[q.dtype]
             or (q.dtype == torch.float32 and dv != d)):
         raise ValueError(
             f"{name}: no {q.dtype} kernel for d {d}, dv {dv} (bf16 takes d "
-            f"<= 192 and dv <= 128, f32 d <= 128 and dv == d; wider is "
+            f"<= 256 and dv <= 256, f32 d <= 128 and dv == d; wider is "
             f"ROADMAP queue 2 section A)")
 
 

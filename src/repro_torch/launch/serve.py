@@ -15,6 +15,12 @@ kernel at d 192 against dv 128, decode through the absorbed latent
 attention, the routers through the GEMM provider and the experts' einsums
 over the capacity buffer; one card holds the expert banks whole (the
 reference's expert/ffn partitions need a mesh: ROADMAP item 15).
+``--arch gemma3-4b`` (5 local : 1 global layers, windows of 1024, a
+per-layer rope theta; K4 and K5 at head_dim 256), ``mixtral-8x22b`` (GQA +
+MoE without shared experts, a window of 4096 on every layer),
+``starcoder2-3b`` (layernorm, gelu, a qkv bias) and ``deepseek-coder-33b``
+serve through the same path; mixtral and deepseek-coder fit one card only
+with ``--layers`` cut (``chip_smoke.py`` serves them at 12 and 19).
 
 ``--paged`` serves from the block-paged cache (page pool and page tables,
 prefix sharing, chunked prefill); ``--paged-attention flash`` attends through

@@ -24,18 +24,26 @@ from repro_torch.models import layers as L
 Tensor = torch.Tensor
 
 
+def _bank(gen, lead, shape, std: float, dtype, device) -> Tensor:
+    """An expert bank ``(*lead, E, d_in, d_out)`` drawn one layer at a time:
+    the whole stacked bank in f32 at once would take twice its bf16 size
+    again (36 GiB a bank for mixtral-8x22b at 12 layers)."""
+    out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+    for layer in out.view(-1, *shape):
+        layer.copy_(L._normal(gen, shape, device) * std)
+    return out
+
+
 def moe_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
     m = cfg.moe
-    d, e = cfg.d_model, m.n_experts
+    d, e, f = cfg.d_model, m.n_experts, m.d_ff_expert
     std = 1.0 / (d ** 0.5)
     p = {
         "router": L.dense_init(gen, d, e, dtype, device=device, lead=lead),
-        "w_gate": (L._normal(gen, (*lead, e, d, m.d_ff_expert), device)
-                   * std).to(dtype),
-        "w_up": (L._normal(gen, (*lead, e, d, m.d_ff_expert), device)
-                 * std).to(dtype),
-        "w_down": (L._normal(gen, (*lead, e, m.d_ff_expert, d), device)
-                   * (1.0 / (m.d_ff_expert ** 0.5))).to(dtype),
+        "w_gate": _bank(gen, lead, (e, d, f), std, dtype, device),
+        "w_up": _bank(gen, lead, (e, d, f), std, dtype, device),
+        "w_down": _bank(gen, lead, (e, f, d), 1.0 / (f ** 0.5), dtype,
+                        device),
     }
     if m.n_shared:
         p["shared"] = L.mlp_init(gen, d, m.d_ff_expert * m.n_shared, dtype,

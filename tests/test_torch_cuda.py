@@ -704,6 +704,110 @@ def test_flash_bwd_kernel_mla_widths_match_plain(dev, bh, s, causal):
         assert _bf16_cast_ulps(a_, b_, atol) <= 1.0
 
 
+# --- gemma3's widths: K4 and K8 at (256, 256), K5's (256, 256) body --------
+
+@pytest.mark.parametrize("bh,sq,window,causal,d", [
+    (8, 128, 0, True, 256), (8, 2048, 1024, True, 256),
+    (8, 200, 8, True, 256), (8, 77, 0, False, 256),
+    (16, 100, 1024, True, 256), (4, 96, 0, True, 200)])
+def test_flash_kernel_gemma3_widths_match_plain(dev, bh, sq, window, causal,
+                                                d):
+    """K4's (256, 256) instantiation (gemma3-4b's prefill, bf16: a local
+    layer's window of 1024, a global layer's 0, a small window and a
+    narrower d zero-padded to it) against its plain version: o within one
+    bf16 rounding, lse 2e-3."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    q, k, v = (torch.randn((bh, sq, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    compat.reset_counters()
+    o, lse = _flash_fwd(q, k, v, window, causal=causal)
+    assert compat.launch_counts()["flash_fwd"] == 1
+    o_ref, lse_ref = _flash_fwd_plain(q, k, v, window, causal=causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("bh,s,window,causal", [
+    (8, 256, 0, True), (4, 200, 8, True), (2, 1100, 1024, True),
+    (2, 96, 0, False)])
+def test_flash_bwd_kernel_gemma3_widths_match_plain(dev, bh, s, window,
+                                                    causal):
+    """K8's (256, 256) passes (gemma3-4b's training, bf16; two CTAs a block,
+    each half of the output columns) under K8's bars, windows 0, 8 and
+    1024."""
+    from repro_torch.kernels.flash_attention import (_flash_bwd,
+                                                     _flash_bwd_plain)
+    g = torch.Generator(device=dev).manual_seed(42)
+    q, k, v, do = (torch.randn((bh, s, 256), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = _flash_fwd(q, k, v, window, causal=causal)
+    got = _flash_bwd(q, k, v, o, lse, do, window, causal=causal)
+    want = _flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, want):
+        assert a_.shape == (bh, s, 256)
+        atol = 1e-4 * float(b_.abs().max())
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=atol)
+        assert _bf16_cast_ulps(a_, b_, atol) <= 1.0
+
+
+@pytest.mark.parametrize("h,kv,sq,d,window", [
+    (8, 4, 1, 256, 1024),       # gemma3-4b decode, a local layer
+    (8, 4, 4, 256, 0),          # a global layer, decode chunk 4
+    (8, 4, 64, 256, 1024),      # a 64-row prefill chunk past the window
+    (48, 8, 1, 128, 4096),      # mixtral-8x22b, GQA ratio 6
+    (24, 2, 64, 128, 0),        # starcoder2-3b, GQA ratio 12
+    (56, 8, 4, 128, 0)])        # deepseek-coder-33b, GQA ratio 7
+def test_paged_kernel_family_widths_match_plain(dev, h, kv, sq, d, window):
+    """K5 at the new families' shapes in bf16: gemma3's (256, 256) body
+    with contexts past its window of 1024, and the (128, 128) body at the
+    GQA ratios 6, 12 and 7, against the plain version; a sequence of length
+    0 gives exact zeros."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    b, ps, mp = 3, 16, 96 if window != 4096 else 288
+    n_pages = b * mp + 2
+    dt = torch.bfloat16
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dt)
+    kp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dt)
+    vp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dt)
+    pt = torch.randperm(n_pages, generator=g, device=dev)[:b * mp]
+    pt = pt.reshape(b, mp).to(torch.int32)
+    lengths = torch.tensor([0, ps * mp - 37, window + 300 if window else 700],
+                           device=dev)
+    q_start = (lengths - sq).clamp_min(0)
+    compat.reset_counters()
+    o = flash_attention_paged(q, kp, vp, pt, lengths, q_start, window)
+    assert compat.launch_counts()["flash_paged"] == 1
+    want = flash_attention_paged_plain(q, kp, vp, pt, lengths, q_start,
+                                       window)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2 ** -7,
+                               atol=2 ** -7)
+    assert torch.count_nonzero(o[0]) == 0
+
+
+def test_flash_kernels_refuse_past_gemma3_widths(dev):
+    """bf16 d 320 and f32 d 256 raise naming ROADMAP queue 2 section A and
+    launch nothing: never a fallback to the plain version."""
+    from repro_torch.kernels.flash_attention import _flash_bwd
+    compat.reset_counters()
+    for w, dt in ((320, torch.bfloat16), (256, torch.float32)):
+        x = torch.zeros((2, 16, w), device=dev, dtype=dt)
+        lse = torch.zeros((2, 16), device=dev)
+        with pytest.raises(ValueError, match="queue 2 section A"):
+            _flash_fwd(x, x, x)
+        with pytest.raises(ValueError, match="queue 2 section A"):
+            _flash_bwd(x, x, x, x, lse, x)
+    counts = compat.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd"]) == (0, 0)
+
+
 @pytest.mark.parametrize("d,dv", [(192, 128), (64, 32), (136, 136)])
 def test_flash_f32_kernels_refuse_past_their_widths(dev, d, dv):
     """The f32 kernels take d <= 128 and dv == d: wider f32 operands raise

@@ -196,7 +196,8 @@ def test_flash_function_refuses_mla_widths():
     CPU its gradients are the plain versions', dv's of v's width. The card's
     operand check takes them in bf16 and refuses them in f32 (the f32
     kernels take d <= 128 and dv == d), naming ROADMAP queue 2 section A:
-    never a fallback."""
+    never a fallback. bf16 takes up to gemma3's d 256 / dv 256 and refuses
+    wider."""
     q, k = (torch.randn(2, 8, 24, requires_grad=True) for _ in range(2))
     v = torch.randn(2, 8, 16, requires_grad=True)
     o = fa.flash_attention(q, k, v)
@@ -208,9 +209,12 @@ def test_flash_function_refuses_mla_widths():
     fa._check_widths("flash_fwd", *[t.bfloat16() for t in wide])
     with pytest.raises(ValueError, match="queue 2 section A"):
         fa._check_widths("flash_fwd", *wide)
+    fa._check_widths("flash_bwd", *[torch.zeros(2, 8, 256).bfloat16()] * 3)
     with pytest.raises(ValueError, match="queue 2 section A"):
-        fa._check_widths("flash_bwd", *[t.bfloat16() for t in
-                                        (wide[0], wide[1], wide[0])])
+        fa._check_widths("flash_bwd", *[torch.zeros(2, 8, 320).bfloat16()] * 3)
+    with pytest.raises(ValueError, match="queue 2 section A"):
+        fa._check_widths("flash_fwd", *[torch.zeros(2, 8, w).bfloat16()
+                                        for w in (192, 192, 320)])
 
 
 # --- K9: selective-scan backward -----------------------------------------------
