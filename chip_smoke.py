@@ -21,14 +21,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    must refuse them), gemma3-4b's d 256 (BH 4 x 8 at S 128 and 8 at S 2048,
    windows 0, 1024 and 37; the f32 kernels must refuse d 256 and the bf16
    ones d 320) and mixtral-8x22b's and starcoder2-3b's prefill at d 128
-   (FLASH_CASES); the paged kernel K5 at decode
+   (FLASH_CASES), whisper-small's encoder (BH 4 x 12, non-causal at its
+   ragged S 1500) and pixtral-12b's prefill (BH 4 x 32, S 384, d 128);
+   the paged kernel K5 at decode
    (B 4, H = KV = 36, Sq 1 and 4, d 64, pages of 16, 16 pages a sequence,
    lengths 17-256 and one of 0), a
    64-row prefill chunk, GQA group 4, a window of 40 and the absorbed MLA's
    d 576, dv 512 at decode and in a 64-row chunk, gemma3-4b's decode and a
    64-row chunk past its window (H 8, KV 4, d 256; once more zero-padded to
    d 264, the (576, 512) body d 256 ran in before its own) and the GQA
-   ratios 6 and 12 of mixtral-8x22b and starcoder2-3b, in bf16 and f32; the
+   ratios 6 and 12 of mixtral-8x22b and starcoder2-3b and pixtral-12b's
+   decode (H 32, KV 8, d 128), in bf16 and f32; the
    fused conv K7 at seven ResNet-50 / AlexNet
    convs at batch 8 (CONV_CASES), baseline, FIP and FFIP, f32 and int8
    (beta folded), each in the tile ``conv_blocks`` picks; the selective
@@ -38,7 +41,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    K8 at BH 144, d 64, S 256 / 128 / 200, a window of 32 and non-causal,
    bf16 and f32, at MLA's d 192 / dv 128, BH 2 x 16, S 256, and at
    gemma3-4b's (256, 256), BH 8, S 128 and 2048, windows 0, 1024 and 37,
-   bf16 (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
+   and whisper-small's encoder (BH 2 x 12, non-causal at S 1500), bf16
+   (FLASH_BWD_CASES); the scan backward K9 at falcon-mamba-7b's
    widths, B 2 S 256 (two chunks), B 1 S 128 and S 64, f32
    (SCAN_BWD_CASES). Tolerances: int8
    exact; K6's y, h_final and h_starts bit for bit (beside the earlier
@@ -114,7 +118,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 8. Count and profile one contiguous prefill dispatch and decode step, one
    paged decode step, one paged prefill chunk and one ResNet-50 forward.
 9. The Mamba1 path (phase ssm): falcon-mamba-7b at its published widths and
-   64 layers, bf16, random weights from --seed, served as in
+   40 of its 64 layers (SSM_SERVE_LAYERS), bf16, random weights from --seed, served as in
    4. (every prompt in its own scatter-prefill dispatch) with ffip, fip,
    baseline and int8 ffip. Each run must meet every budget, launch its GEMM
    kernel, and launch K6 exactly once per layer per prompt. Tokens against
@@ -139,7 +143,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through the plain path: where the plain path's last loss falls below its
    first, the kernels' must too.
 11. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
-   widths and 27 layers, bf16, random weights from --seed, served as in 4.
+   widths and 14 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
+   from --seed, served as in 4.
    with ffip, fip, baseline and int8 ffip (every prefill dispatch launches
    K4 at d 192 / dv 128 once per layer, decode attends through the absorbed
    einsums and launches no attention kernel) and paged as in 6. (flash
@@ -170,7 +175,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    middle layer's attn.wo taken from the next layer the planted fault
    (float and int8). gemma3 is then trained as in 10. at batch 1 x 1536
    through K4 + K8 at (256, 256), with its gradient reading.
-13. Print the kernels line (JSON), then the result line.
+13. The encoder-decoder and the patch prefix (phase encdec), each at its
+   published widths, bf16, random weights and stub frontend inputs from
+   --seed. whisper-small at its 12 + 12 layers (d 768, 12 heads of 64,
+   layernorm, gelu, a qkv bias, vocab 51865 tied): the frontend entry point
+   ``Model.prefill(frames=)`` on 4 rows of 1500 stub frames and a 32-token
+   decoder prompt (the encoder through K4 non-causal at S 1500, the cross
+   K/V cached), then 16 greedy ``decode_step``s against the cached cross
+   K/V, in ffip, baseline and int8 ffip, every GEMM through K1/K3 and K4
+   launched once a layer (24); BatchServer ffip on the served prompts (one
+   scatter prefill a prompt, over a fresh cache's zeroed cross K/V, as the
+   reference serves it); then trained 8 AdamW steps through K4 + K8 with
+   ``Model.loss(frames=)`` at batch 2 x 448 (K4 = K8 = 24 a step), the
+   loss finite and falling, one step's gradients under GRAD_BAR and a
+   planted fault's above it. pixtral-12b at 32 of its 40 layers (one
+   card's memory; d 5120, 32 heads of 128 over 8 kv heads, d_ff 14336,
+   vocab 131072 untied, rope theta 1e9): ``Model.prefill(patches=)`` on 4
+   rows of 256 stub patches and a 128-token prompt (K4 at S 384, d 128),
+   16 greedy steps at positions that count the prefix, ffip and int8 ffip;
+   then text only through BatchServer, contiguous ffip and paged flash
+   ffip (K5 at GQA 4, d 128). Every token of a frontend run is read against
+   the plain path fed the served tokens before it, under the float / int8
+   bars; the planted faults (whisper: a middle encoder layer's attn.wo, and
+   a middle decoder layer's cross wk and wv, each taken from the next
+   layer's; pixtral: a middle layer's attn.wo from the next, and the same
+   prompts prefilled without their patches) must read above them.
+14. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -254,7 +284,10 @@ HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # at batch 1) at S 2048, each with no window, a local layer's 1024 and an odd
 # 37. At d 128, mixtral-8x22b's and starcoder2-3b's prefill (K4 takes kv
 # heads repeated to the query heads: BH = 4 x 48 and 4 x 24), mixtral's
-# window 4096 past S.
+# window 4096 past S. whisper-small's encoder: BH = 4 x 12, non-causal at
+# its 1500 frames (11 x 128 + 92: the last key block ragged with no causal
+# mask above its padded keys); pixtral-12b's prefill: 256 patches + a
+# 128-token prompt, GQA 32 : 8 repeated to BH = 4 x 32, d 128.
 BF16_F32 = ("bf16", "f32")
 MLA_D, MLA_DV = 192, 128
 GEMMA_D = 256
@@ -274,7 +307,9 @@ FLASH_CASES = (
     (f"gemma3 S {s}{wl}", bh, s, GEMMA_D, GEMMA_D, w, True, ("bf16",))
     for s, bh in ((128, 4 * 8), (2048, 8)) for wl, w in FAMILY_WINDOWS) + (
     ("mixtral S 128", 4 * 48, 128, 128, 128, 4096, True, ("bf16",)),
-    ("starcoder2 S 128", 4 * 24, 128, 128, 128, 0, True, ("bf16",)))
+    ("starcoder2 S 128", 4 * 24, 128, 128, 128, 0, True, ("bf16",)),
+    ("whisper encoder S 1500", 4 * 12, 1500, 64, 64, 0, False, ("bf16",)),
+    ("pixtral S 384", 4 * 32, 384, 128, 128, 0, True, ("bf16",)))
 HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
@@ -371,8 +406,10 @@ VISION_INT8_BAR = 0.35
 # that end a 1344-key context. The MLA cases are deepseek-v2-lite-16b's
 # absorbed paged attention: H 16, one kv head, k = [latent 512, rope 64],
 # v = the latent, the pre-absorption scale 192^-1/2. gemma3-4b's decode (H
-# 8, KV 4, d 256, contexts to 1536, its window 1024) and mixtral-8x22b's
-# and starcoder2-3b's GQA ratios 6 and 12 at d 128.
+# 8, KV 4, d 256, contexts to 1536, its window 1024), mixtral-8x22b's
+# and starcoder2-3b's GQA ratios 6 and 12 at d 128, and pixtral-12b's
+# decode (H 32, KV 8, d 128, contexts to 512: a 256-patch prefix, the
+# prompt and the new tokens).
 PAGED_CASES = (
     ("decode", 4, 36, 36, 1, 64, 64, 16, 16, 0, None),
     ("decode Sq 4", 4, 36, 36, 4, 64, 64, 16, 16, 0, None),
@@ -385,6 +422,7 @@ PAGED_CASES = (
     ("gemma3 chunk past window", 1, 8, 4, 64, 256, 256, 16, 96, 1024, None),
     ("mixtral GQA 6", 4, 48, 8, 1, 128, 128, 16, 288, 4096, None),
     ("starcoder2 GQA 12", 4, 24, 2, 1, 128, 128, 16, 16, 0, None),
+    ("pixtral decode", 4, 32, 8, 1, 128, 128, 16, 32, 0, None),
 )
 # gemma3's K5 cases run once more zero-padded to d 264 (scale 1/16 as at
 # 256), which takes the (576, 512) body that d 256 ran in before its own
@@ -403,7 +441,8 @@ IDENTITY_LAYERS = 8
 # the trained sequence; S 200 leaves a ragged last block. At BH = 2 x 16,
 # deepseek-v2-lite-16b's MLA training (batch 2 x 256): d 192 against dv 128,
 # bf16 only. At BH 8, gemma3-4b's (256, 256) (training at batch 1), S 128
-# and 2048, windows 0, 1024 and 37.
+# and 2048, windows 0, 1024 and 37. At BH = 2 x 12, whisper-small's encoder
+# trained at batch 2: non-causal at S 1500, the last block ragged.
 FLASH_BWD_CASES = (
     ("S 256", 144, 256, 64, 64, 0, True, BF16_F32),
     ("S 128", 144, 128, 64, 64, 0, True, BF16_F32),
@@ -411,6 +450,7 @@ FLASH_BWD_CASES = (
     ("window 32", 144, 256, 64, 64, 32, True, BF16_F32),
     ("non-causal", 144, 128, 64, 64, 0, False, BF16_F32),
     ("MLA S 256", 2 * 16, 256, MLA_D, MLA_DV, 0, True, ("bf16",)),
+    ("whisper encoder S 1500", 2 * 12, 1500, 64, 64, 0, False, ("bf16",)),
 ) + tuple((f"gemma3 S {s}{wl}", 8, s, GEMMA_D, GEMMA_D, w, True, ("bf16",))
           for s in (128, 2048) for wl, w in FAMILY_WINDOWS)
 HEADLINE_FLASH_BWD = ("S 256", "bf16")
@@ -429,8 +469,16 @@ HEADLINE_SCAN_BWD = "train B 2 S 256"
 # more than the card's 80 GB; 48 layers (5.3 B params, ~64 GB) leave room
 # for the activations and AdamW's f32 slices.
 TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
+# Depth of the served runs of phases ssm and moe: falcon-mamba-7b at 40 of
+# its 64 layers, deepseek-v2-lite-16b at 14 of 27, widths kept, so that the
+# whole run, phase encdec included, stays near half its 1200-s limit: at
+# their published depths it took 837.9 s before phase encdec on an H100
+# (PERF.md section 4).
+SSM_SERVE_LAYERS = 40
+MOE_SERVE_LAYERS = 14
 # phase moe: deepseek-v2-lite-16b (MLA + MoE) served at its published widths
-# and 27 layers (15.7 B parameters, 31 GB in bf16), and trained at 10 of 27:
+# (27 layers: 15.7 B parameters, 31 GB in bf16; MOE_SERVE_LAYERS of them
+# here), and trained at 10 of 27:
 # an MoE layer's bf16 params and grads and f32 AdamW moments take 7.0 GB
 # (6.54 GiB), the untied embedding and unembedding 5.0 GB. 9 layers peaked
 # at 61.5 GiB on the H100, so 10 (1 dense + 9 MoE) take ~68 GiB and 11 would
@@ -472,6 +520,22 @@ FAMILY_RUNS = (
     ("deepseek-coder-33b", "deepseek-coder", 19, 256, None,
      (("ffip", False), ("ffip", True)), False, None),
 )
+# phase encdec: whisper-small (the encoder-decoder) at its published 12 + 12
+# layers and pixtral-12b (a 256-patch prefix before mistral-nemo's decoder)
+# at PIXTRAL_LAYERS of 40, each at its published widths, bf16, random
+# weights and stub frontend inputs from --seed. ENCDEC_ROWS rows a batch:
+# whisper's 1500 frames and a WHISPER_PROMPT-token decoder prompt, pixtral's
+# patches and a PIXTRAL_PROMPT-token prompt. pixtral's layer holds 273 M
+# parameters, its untied embeddings 1.34 G; a served run's peak is about 7 B
+# a parameter in int8 FFIP (deepseek-coder-33b's 70.6 GiB at 10.5 B), so 32
+# layers (10.1 B) take about 67 GiB of the card's 79. whisper is trained at
+# WHISPER_TRAIN: batch 2 x 448 decoder tokens (its decoder's length) over
+# 1500 frames.
+ENCDEC_ROWS = 4
+WHISPER_PROMPT = 32
+PIXTRAL_LAYERS = 32
+PIXTRAL_PROMPT = 128
+WHISPER_TRAIN = (2, 448)
 # the served prompt that the long one replaces: odd (not behind the paged
 # workload's shared prefix), and not the last (a copy of the first)
 LONG_PROMPT_INDEX = 5
@@ -1838,25 +1902,36 @@ def token_readings(done, plain: PlainPath):
     return exact, first, second
 
 
-def _swap_leaf(params, group: str, name: str, leaf):
-    """A copy of ``params`` with ``layers.<group>.<name>.w`` replaced."""
-    lay = params["layers"]
-    out = dict(params)
-    out["layers"] = dict(lay)
-    out["layers"][group] = dict(lay[group])
-    out["layers"][group][name] = dict(lay[group][name], w=leaf)
+def _with_leaf(tree, path, leaf):
+    """A copy of ``tree`` with the leaf at ``path`` (a key path) replaced;
+    the dicts along the path are copied, everything else shared."""
+    if not path:
+        return leaf
+    out = dict(tree)
+    out[path[0]] = _with_leaf(tree[path[0]], path[1:], leaf)
     return out
 
 
-def wrong_layer(params, group: str, name: str, n_layers: int):
-    """(label, params) with a middle layer's ``<group>.<name>`` weights
-    taken from the next layer: a fault every token check must see."""
-    w = params["layers"][group][name]["w"]
+def next_layer_fault(params, paths, n_layers: int):
+    """(label, params) with a middle layer of each stacked weight at
+    ``paths`` taken from the next layer: a fault every token check must
+    see."""
     mid = (n_layers - 1) // 2
-    bad = w.clone()
-    bad[mid] = w[mid + 1]
-    return (f"{group}.{name} of layer {mid} taken from layer {mid + 1}",
-            _swap_leaf(params, group, name, bad))
+    for path in paths:
+        w = params
+        for k in path:
+            w = w[k]
+        bad = w.clone()
+        bad[mid] = w[mid + 1]
+        params = _with_leaf(params, path, bad)
+    names = " and ".join(".".join(p[:-1]).removeprefix("layers.")
+                         for p in paths)
+    return f"{names} of layer {mid} taken from layer {mid + 1}", params
+
+
+def wrong_layer(params, group: str, name: str, n_layers: int):
+    """``next_layer_fault`` of the decoder layers' ``<group>.<name>``."""
+    return next_layer_fault(params, [("layers", group, name, "w")], n_layers)
 
 
 def int8_step_faults(params, n_layers: int):
@@ -1874,11 +1949,12 @@ def int8_step_faults(params, n_layers: int):
         out[layers] = (sel + step).to(down.dtype)
         return out
 
+    path = ("layers", "ffn", "down", "w")
     return {
-        f"ffn.down of layer {n_layers - 1} one int8 step high": _swap_leaf(
-            params, "ffn", "down", one_step_high(slice(-1, None))),
-        "ffn.down of every layer one int8 step high": _swap_leaf(
-            params, "ffn", "down", one_step_high(slice(None))),
+        f"ffn.down of layer {n_layers - 1} one int8 step high": _with_leaf(
+            params, path, one_step_high(slice(-1, None))),
+        "ffn.down of every layer one int8 step high": _with_leaf(
+            params, path, one_step_high(slice(None))),
     }
 
 
@@ -1999,12 +2075,15 @@ class Readings:
         """Print a run's worst first- and second-token shortfall; a sound
         run must not exceed its tier's bar."""
         bar = BARS_SD[tier]
-        exact, first, second = token_readings(done, plain)
+        every = hasattr(plain, "token_readings")
+        exact, first, second = (plain.token_readings(done) if every
+                                else token_readings(done, plain))
         worst = max(first, second)
         print(f"  [{label}] first token = plain-path argmax for {exact}/"
               f"{len(done)} requests; worst shortfall {first:.4f} sd (first "
-              f"token), {second:.4f} sd (second token) of the plain logits "
-              f"({tier} bar {bar})", flush=True)
+              f"token), {second:.4f} sd "
+              f"({'every later token' if every else 'second token'}) of the "
+              f"plain logits ({tier} bar {bar})", flush=True)
         if gated:
             (self.faults if fault else self.sound)[tier][label] = worst
         if gated and not fault and worst > bar:
@@ -2423,13 +2502,14 @@ def run_ssm(args, readings: Readings, problems):
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    cfg = configs.get_config("falcon-mamba-7b")
+    full = configs.get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(full, n_layers=SSM_SERVE_LAYERS)
     s_cfg = cfg.ssm
     print(f"phase ssm: {cfg.name} d_model {cfg.d_model}, d_inner "
           f"{s_cfg.expand * cfg.d_model}, d_state {s_cfg.d_state}, dt_rank "
           f"{s_cfg.dt_rank}, d_conv {s_cfg.d_conv}, vocab {cfg.vocab}, "
-          f"{cfg.param_dtype}, tied; n_layers {cfg.n_layers} (published, "
-          f"no cut)", flush=True)
+          f"{cfg.param_dtype}, tied; n_layers {cfg.n_layers} (published "
+          f"{full.n_layers})", flush=True)
     model = Model(cfg)
     params = model.init(args.seed)
     prompts = served_prompts(cfg.vocab, args.seed)
@@ -2487,7 +2567,8 @@ def run_ssm(args, readings: Readings, problems):
 
 
 def run_moe(args, readings: Readings, problems):
-    """deepseek-v2-lite-16b at its published widths and 27 layers through
+    """deepseek-v2-lite-16b at its published widths and MOE_SERVE_LAYERS
+    layers through
     the MLA + MoE path: served contiguous four ways (every prefill dispatch
     through K4 at d 192 / dv 128 once per layer, decode through the
     absorbed einsums, the projections and routers through K1-K3) and paged
@@ -2500,7 +2581,8 @@ def run_moe(args, readings: Readings, problems):
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    cfg = configs.get_config(MOE_ARCH)
+    full = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
     m, e = cfg.mla, cfg.moe
     print(f"phase moe: {cfg.name} d_model {cfg.d_model}, {cfg.n_heads} "
           f"heads, MLA kv_lora {m.kv_lora_rank} / rope {m.rope_head_dim} / "
@@ -2508,7 +2590,8 @@ def run_moe(args, readings: Readings, problems):
           f"experts top-{e.top_k} of d_ff {e.d_ff_expert} + {e.n_shared} "
           f"shared, capacity factor {e.capacity_factor}, first "
           f"{cfg.first_k_dense} dense, vocab {cfg.vocab}, untied, "
-          f"{cfg.param_dtype}; n_layers {cfg.n_layers} (published, no cut), "
+          f"{cfg.param_dtype}; n_layers {cfg.n_layers} (published "
+          f"{full.n_layers}), "
           f"{cfg.param_count() / 1e9:.2f} B params", flush=True)
     model = Model(cfg)
     params = model.init(args.seed)
@@ -2911,6 +2994,11 @@ def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
                                   vocab=cfg.vocab, seed=seed)).batch_at(0)
     batch = {k: torch.from_numpy(v).to(model.device)
              for k, v in data.items()}
+    if cfg.encoder is not None:     # whisper: stub frames for the encoder
+        from repro_torch.models.frontends import audio_frames_stub
+        batch["frames"] = audio_frames_stub(
+            torch.Generator(device=model.device).manual_seed(seed),
+            batch_size, cfg, device=model.device)
     if cfg.family == "ssm":
         plain_model, scope = model, plain_recurrence
         group, name = "ssm", "out_proj"
@@ -3162,6 +3250,456 @@ def lr_witness(arch: str, cfg, seed: int, batch_size: int, seq: int,
         problems.append(f"{arch} lr witness: at lr {opt.lr} the plain path's "
                         f"loss falls ({plain[0]} -> {plain[-1]}) and the "
                         f"kernels' does not ({kern[0]} -> {kern[-1]})")
+
+
+# --- phase encdec: whisper-small and pixtral-12b ---------------------------
+
+class FrontendPlain:
+    """The plain path of a frontend run (``frontend_run``): the same batch
+    prefilled with its frames or patches through torch.matmul (float) or the
+    plain int8 algebra and plain attention (attention_impl "naive"), then
+    decode steps fed the served tokens, so that every served token is read
+    against the plain logits after the served tokens before it
+    (``token_readings``)."""
+
+    def __init__(self, model, params, tokens, quantized: bool, steps: int,
+                 *, frames=None, patches=None):
+        from repro_torch.core.gemm import GemmConfig
+        from repro_torch.core.quant import attach_quantized_weights
+        from repro_torch.models.model import Model
+
+        self.model = Model(dataclasses.replace(model.cfg,
+                                               attention_impl="naive"),
+                           device=model.device)
+        self.gemm = (GemmConfig(algo="ffip", impl="torch", quantized=True,
+                                k_chunk=64)
+                     if quantized else GemmConfig(algo="baseline",
+                                                  impl="torch"))
+        self.params = (attach_quantized_weights(params) if quantized
+                       else params)
+        b, s = tokens.shape
+        self.pos = s + (0 if patches is None else patches.shape[1])
+        with self._scope():
+            self.cache, logits = self.model.prefill(
+                self.params, tokens,
+                self.model.init_cache(b, self.pos + steps + 1),
+                frames=frames, patches=patches)
+        self.first = [row.float() for row in logits]
+
+    def _scope(self):
+        from repro_torch.core.gemm import use_gemm
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_gemm(self.gemm))
+        stack.enter_context(torch.no_grad())
+        return stack
+
+    def token_readings(self, done):
+        """(first tokens equal to the plain argmax, worst first-token
+        shortfall, worst shortfall of every later token), each token read
+        against the plain logits after the served tokens before it (one
+        batched plain decode step a position, from a copy of the prompt's
+        cache; ``done`` lists the batch's rows in order)."""
+        from repro_torch.optim import adamw
+
+        ids = torch.tensor([r.out_tokens for r in done],
+                           device=self.model.device)
+        exact = sum(int(ids[i, 0]) == int(lg.argmax())
+                    for i, lg in enumerate(self.first))
+        first = max(shortfall(lg, int(ids[i, 0]))
+                    for i, lg in enumerate(self.first))
+        later = 0.0
+        cache = adamw.tree_map(torch.clone, self.cache)
+        with self._scope():
+            for t in range(1, ids.shape[1]):
+                cache, logits = self.model.decode_step(
+                    self.params, ids[:, t - 1:t], cache, self.pos + t - 1)
+                later = max([later] + [shortfall(lg.float(), int(ids[i, t]))
+                                       for i, lg in enumerate(logits)])
+        return exact, first, later
+
+
+def frontend_run(model, params, tokens, steps: int, label: str, *, algo,
+                 quantized, frames=None, patches=None):
+    """The frontend entry point through the kernels: ``Model.prefill``
+    with the batch's frames or patches, then ``steps`` greedy
+    ``decode_step``s at positions that count the prefix, in the GEMM scope
+    of a ``BatchServer(gemm_algo=algo, gemm_impl="cuda", quantized=)`` and
+    on the weights it prepares first (int8 copies, FFIP y-deltas and carry
+    tables); the launch counts zeroed before and read after."""
+    from repro_torch.kernels import compat
+    from repro_torch.serve.batcher import BatchServer
+
+    b, s = tokens.shape
+    pos = s + (0 if patches is None else patches.shape[1])
+    torch.cuda.reset_peak_memory_stats()
+    srv = BatchServer(model, batch_slots=1, max_len=1, device=model.device,
+                      quantized=quantized, gemm_algo=algo, gemm_impl="cuda")
+    p = srv._params_for(params)
+    with srv._gemm_scope():
+        torch.cuda.synchronize()
+        compat.reset_counters()
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(p, tokens,
+                                      model.init_cache(b, pos + steps + 1),
+                                      frames=frames, patches=patches)
+        first = logits.float()
+        tok = logits.argmax(-1)
+        out = [tok]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(steps):
+            cache, logits = model.decode_step(p, tok[:, None], cache, pos + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        ids = torch.stack(out, 1).cpu().numpy()
+        t2 = time.perf_counter()
+        counts = compat.launch_counts()
+    del cache, p, srv
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    free_device()
+    done = [types.SimpleNamespace(rid=i, out_tokens=[int(t) for t in row])
+            for i, row in enumerate(ids)]
+    ms_step = 1e3 * (t2 - t1) / max(1, steps)
+    print(f"  [{label}] {b} rows x {s} tokens"
+          f"{'' if patches is None else f' behind {patches.shape[1]} patches'}"
+          f"{'' if frames is None else f' over {frames.shape[1]} frames'}: "
+          f"prefill {t1 - t0:.3f} s, {steps} decode steps "
+          f"{ms_step:.1f} ms/step; peak memory {peak:.2f} GiB; launches "
+          f"{counts}", flush=True)
+    return dict(label=label, algo=algo, quantized=quantized, done=done,
+                counts=counts, first=first, prefill_s=t1 - t0,
+                ms_per_step=ms_step, peak_gib=peak)
+
+
+def read_frontend(readings: Readings, runs, faults, model, params, tokens,
+                  **inputs):
+    """Every served token of each run against the plain path of the same
+    batch and inputs (a sound float run's kernel-path prefill logits too, as
+    a sound reading), then each planted fault's run, which must read above
+    its tier's bar. The plain int8 paths are built and read with their
+    products by one float64 matmul."""
+    plains = {}
+    for r in runs + faults:
+        quantized = r["quantized"]
+        fault = any(r is f for f in faults)
+        with (int8_products_by_f64() if quantized
+              else contextlib.nullcontext()):
+            if quantized not in plains:
+                plains[quantized] = FrontendPlain(
+                    model, params, tokens, quantized,
+                    max(len(x["done"][0].out_tokens) for x in runs + faults),
+                    **inputs)
+            plain = plains[quantized]
+            readings.read(r["label"], r["done"], plain,
+                          "int8" if quantized else "float", fault=fault)
+        if not quantized and not fault:
+            readings.deviation(r["label"], [
+                float((got - ref).abs().max() / ref.std())
+                for got, ref in zip(r["first"], plain.first)])
+    del plains
+    free_device()
+
+
+# kernels an LM's served run must not launch unless it names them
+LM_IDLE_KERNELS = ("flash_fwd", "flash_paged", "flash_bwd", "conv_gemm",
+                   "selective_scan", "selective_scan_bwd")
+
+
+def check_launches(problems, r, want: dict):
+    """A run's launch counts against ``want``: a count, or None for a
+    kernel that must launch; the attention, conv and scan kernels it does
+    not name must not launch."""
+    c = r["counts"]
+    for name in set(want) | set(LM_IDLE_KERNELS):
+        n, got = want.get(name, 0), c.get(name, 0)
+        if (n is None and got == 0) or (n is not None and got != n):
+            problems.append(f"{r['label']}: {name} launched {got} times, "
+                            f"want {'some' if n is None else n}")
+
+
+def whisper_train(args, problems, model, params):
+    """whisper-small trained TRAIN_STEPS AdamW steps (lr TRAIN_LR, WSD, 2
+    warmup steps) through ``Model.loss(frames=)``: K4 and K8 once per
+    encoder layer (non-causal, S n_frames) and once per decoder layer
+    (causal) a step, no other kernel; batches of the port's data pipeline
+    at WHISPER_TRAIN, new stub frames each step. Then ``grad_reading``
+    under GRAD_BAR. Returns the training record."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import compat
+    from repro_torch.models.frontends import audio_frames_stub
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg, dev = model.cfg, model.device
+    batch_size, seq = WHISPER_TRAIN
+    n_att = cfg.n_layers + cfg.encoder.n_layers
+    want = {"flash_fwd": n_att, "flash_bwd": n_att}
+    tcfg = TrainConfig(optimizer=AdamWConfig(
+        lr=TRAIN_LR, schedule="wsd", warmup_steps=2, total_steps=TRAIN_STEPS))
+    step = make_train_step(model, tcfg)
+    data = SyntheticLM(DataConfig(global_batch=batch_size, seq_len=seq,
+                                  vocab=cfg.vocab, seed=args.seed))
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    def batch_at(i):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(i).items()}
+        batch["frames"] = audio_frames_stub(gen, batch_size, cfg, device=dev)
+        return batch
+
+    p = adamw.tree_map(lambda t: t.clone(), params)
+    state = adamw.init(p)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, bad, counts = [], [], [], [], {}
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i)
+        compat.reset_counters()
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        times.append(time.perf_counter() - t0)
+        c = compat.launch_counts()
+        if any(c[k] != want.get(k, 0) for k in c):
+            bad.append((i, c))
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    falls = losses[-1] < losses[0]
+    ms_step = 1e3 * sum(times[1:]) / (len(times) - 1)
+    print(f"  losses {[round(v, 4) for v in losses]}; grad norms "
+          f"{[round(v, 3) for v in norms]}", flush=True)
+    print(f"  [whisper-small train] {TRAIN_STEPS} steps at batch "
+          f"{batch_size} x {seq} tokens over {cfg.encoder.n_frames} frames, "
+          f"finite {finite}, last loss below the first {falls}; step ms "
+          f"{[round(1e3 * t, 1) for t in times]}; {ms_step:.1f} ms/step over "
+          f"steps 2-{TRAIN_STEPS}; peak memory {peak:.2f} GiB; launches per "
+          f"step {want} (every step as wanted: {not bad})", flush=True)
+    if not finite:
+        problems.append("whisper-small train: a loss or gradient norm is not "
+                        "finite")
+    if not falls:
+        problems.append(f"whisper-small train: the last loss {losses[-1]} "
+                        f"is not below the first {losses[0]}")
+    if bad:
+        problems.append(f"whisper-small train: steps launched {bad}, want "
+                        f"{want}")
+    del p, state
+    free_device()
+    sound, fault = grad_reading("whisper-small", cfg, args.seed, batch_size,
+                                seq)
+    if not sound < GRAD_BAR < fault:
+        problems.append(f"whisper-small: the gradient bar {GRAD_BAR} does "
+                        f"not lie between its sound reading {sound:.4g} and "
+                        f"its planted fault {fault:.4g}")
+    free_device()
+    return dict(arch="whisper-small", losses=losses, grad_norms=norms,
+                step_s=times, ms_per_step=ms_step, peak_gib=peak,
+                counts=counts)
+
+
+def run_whisper(args, readings: Readings, problems):
+    """whisper-small at its published 12 + 12 layers and widths: the
+    frontend entry point (``Model.prefill(frames=)``, ENCDEC_ROWS rows of
+    1500 stub frames and a WHISPER_PROMPT-token decoder prompt, then
+    greedy decode steps against the cached cross K/V) in ffip, baseline and
+    int8 ffip; the planted faults; BatchServer (the scatter prefill, as the
+    reference serves it, over a fresh cache's zeroed cross K/V); then
+    trained. Returns the runs whose launches the kernels line counts."""
+    from repro_torch import configs
+    from repro_torch.kernels import compat
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.frontends import audio_frames_stub
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config("whisper-small")
+    enc = cfg.encoder
+    print(f"phase encdec: {cfg.name} d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}x{cfg.hd} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, tied, norm {cfg.norm}, act {cfg.act}, qkv "
+          f"bias {cfg.qkv_bias}; encoder {enc.n_layers} layers over "
+          f"{enc.n_frames} frames, decoder {cfg.n_layers} layers (published, "
+          f"no cut), {cfg.param_count() / 1e9:.3f} B params, "
+          f"{cfg.param_dtype}", flush=True)
+    model = Model(cfg)
+    params = model.init(args.seed)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    frames = audio_frames_stub(gen, ENCDEC_ROWS, cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (ENCDEC_ROWS, WHISPER_PROMPT))).to(dev)
+    n_att = enc.n_layers + cfg.n_layers
+    gemm = {"ffip": "ffip_gemm_y", "baseline": "baseline_gemm"}
+    runs = []
+    for algo, quantized in (("ffip", False), ("baseline", False),
+                            ("ffip", True)):
+        r = frontend_run(model, params, tokens, args.max_new,
+                         f"whisper {'int8-' if quantized else ''}{algo}",
+                         algo=algo, quantized=quantized, frames=frames)
+        check_launches(problems, r, {"flash_fwd": n_att, gemm[algo]: None})
+        runs.append(r)
+    faults = []
+    for paths, n in (((("encoder", "layers", "attn", "wo", "w"),),
+                      enc.n_layers),
+                     ((("layers", "xattn", "wk", "w"),
+                       ("layers", "xattn", "wv", "w")), cfg.n_layers)):
+        label, faulty = next_layer_fault(params, paths, n)
+        for quantized in (False, True):
+            tier = "int8" if quantized else "float"
+            faults.append(frontend_run(
+                model, faulty, tokens, args.max_new,
+                f"whisper planted fault: {label}, {tier} ffip", algo="ffip",
+                quantized=quantized, frames=frames))
+        del faulty
+    print(f"phase encdec whisper serve: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    read_frontend(readings, runs, faults, model, params, tokens,
+                  frames=frames)
+    print(f"phase encdec whisper check: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    t1 = time.perf_counter()
+    prompts = served_prompts(cfg.vocab, args.seed)
+    compat.reset_counters()
+    srv, done, wall = serve(model, params, prompts, max_new=args.max_new,
+                            batch_slots=4, max_len=256, gemm_algo="ffip",
+                            gemm_impl="cuda")
+    st = srv.stats
+    del srv
+    served = dict(label="whisper BatchServer ffip", quantized=False,
+                  done=done, counts=compat.launch_counts())
+    print(f"  [{served['label']}] {len(done)}/{len(prompts)} requests, "
+          f"{st['prefill_dispatches']} scatter-prefill dispatches (one a "
+          f"prompt), {st['steps']} decode steps, "
+          f"{1e3 * st['decode_s'] / max(1, st['steps']):.1f} ms/step; "
+          f"launches {served['counts']}", flush=True)
+    check_launches(problems, served, {
+        "flash_fwd": cfg.n_layers * len(prompts), "ffip_gemm_y": None,
+        "ffip_carry_table": None})
+    if (st["prefill_dispatches"] != len(prompts)
+            or any(len(r.out_tokens) != args.max_new for r in done)):
+        problems.append("whisper BatchServer: not one scatter prefill a "
+                        "prompt, or a request missed its budget")
+    readings.read(served["label"], done,
+                  PlainPath(model, params, prompts, False), "float")
+    free_device()
+    print(f"phase encdec whisper BatchServer: {time.perf_counter() - t1:.1f} "
+          f"s", flush=True)
+
+    t1 = time.perf_counter()
+    train_rec = whisper_train(args, problems, model, params)
+    print(f"phase encdec whisper train: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    del model, params, frames
+    free_device()
+    print(f"phase encdec whisper: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return runs + faults + [served, train_rec]
+
+
+def run_pixtral(args, readings: Readings, problems):
+    """pixtral-12b at its published widths and PIXTRAL_LAYERS layers (one
+    card's memory): the frontend entry point (``Model.prefill(patches=)``,
+    ENCDEC_ROWS rows of frontend_tokens stub patch embeddings and a
+    PIXTRAL_PROMPT-token prompt, then greedy decode steps at positions that
+    count the prefix) in ffip and int8 ffip; the planted faults (attn.wo
+    from the next layer; the prompts without their patches); then text only
+    through BatchServer, contiguous and paged through K5. Returns the runs
+    whose launches the kernels line counts."""
+    from repro_torch import configs
+    from repro_torch.models.frontends import vision_patches_stub
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    full = configs.get_config("pixtral-12b")
+    cfg = dataclasses.replace(full, n_layers=PIXTRAL_LAYERS)
+    print(f"phase encdec: {cfg.name} d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}x{cfg.hd} (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, untied, rope theta {cfg.rope_theta:g}, "
+          f"{cfg.frontend_tokens} patch tokens; n_layers {cfg.n_layers} "
+          f"(published {full.n_layers}), {cfg.param_count() / 1e9:.2f} B "
+          f"params, {cfg.param_dtype}", flush=True)
+    model = Model(cfg)
+    params = model.init(args.seed)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    patches = vision_patches_stub(gen, ENCDEC_ROWS, cfg, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg.vocab, (ENCDEC_ROWS, PIXTRAL_PROMPT))).to(dev)
+    print(f"  weights in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated",
+          flush=True)
+    n = cfg.n_layers
+    runs = []
+    for quantized in (False, True):
+        r = frontend_run(model, params, tokens, args.max_new,
+                         f"pixtral {'int8-' if quantized else ''}ffip",
+                         algo="ffip", quantized=quantized, patches=patches)
+        check_launches(problems, r, {"flash_fwd": n, "ffip_gemm_y": None})
+        runs.append(r)
+    label, faulty = next_layer_fault(params, (("layers", "attn", "wo", "w"),),
+                                     n)
+    faults = [frontend_run(model, faulty, tokens, args.max_new,
+                           f"pixtral planted fault: {label}, {tier} ffip",
+                           algo="ffip", quantized=q, patches=patches)
+              for q, tier in ((False, "float"), (True, "int8"))]
+    del faulty
+    free_device()
+    faults += [frontend_run(model, params, tokens, args.max_new,
+                            f"pixtral planted fault: the prompts without "
+                            f"their patches, {tier} ffip", algo="ffip",
+                            quantized=q)
+               for q, tier in ((False, "float"), (True, "int8"))]
+    print(f"phase encdec pixtral serve: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t1 = time.perf_counter()
+    read_frontend(readings, runs, faults, model, params, tokens,
+                  patches=patches)
+    print(f"phase encdec pixtral check: {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    t1 = time.perf_counter()
+    prompts = served_prompts(cfg.vocab, args.seed)
+    served = drive_main_path(model, params, prompts, args.max_new,
+                             tag="pixtral text ", variants=(("ffip", False),))
+    for r in served:
+        check_launches(problems, r, {
+            "flash_fwd": n * r["stats"]["prefill_dispatches"],
+            "ffip_gemm_y": None, "ffip_carry_table": None})
+        if not r["budget_ok"]:
+            problems.append(f"{r['label']}: a request missed its budget")
+        readings.read(r["label"], r["done"],
+                      PlainPath(model, params, prompts, False), "float")
+    free_device()
+    paged_prompts = family_prompts(cfg.vocab, args.seed, None, True)
+    rec, found = serve_paged(model, params, paged_prompts, args.max_new,
+                             "pixtral text paged flash ffip",
+                             max_len=PAGED_MAX_LEN, gemm_algo="ffip",
+                             decode_chunk=4, paged_attention="flash",
+                             prefill_chunk=PREFILL_CHUNK)
+    problems.extend(found)
+    readings.read(rec["label"], rec["done"],
+                  PlainPath(model, params, paged_prompts, False), "float")
+    del model, params, patches
+    free_device()
+    print(f"phase encdec pixtral BatchServer: {time.perf_counter() - t1:.1f} "
+          f"s", flush=True)
+    print(f"phase encdec pixtral: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return runs + faults + served + [rec]
+
+
+def run_encdec(args, readings: Readings, problems):
+    """Phase encdec: whisper-small, then pixtral-12b. Returns every run
+    whose launches the kernels line counts."""
+    t0 = time.perf_counter()
+    recs = run_whisper(args, readings, problems)
+    recs += run_pixtral(args, readings, problems)
+    print(f"phase encdec: {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
 
 
 def free_device():
@@ -3449,12 +3987,20 @@ def main(argv=None) -> int:
         totals[name] += sum(r["counts"].get(name, 0)
                             for recs_ in fam for r in recs_)
     free_device()
+
+    # 13. the encoder-decoder whisper-small served (its frontend entry point
+    # and BatchServer) and trained, pixtral-12b served behind its patches
+    # and as text (contiguous and paged)
+    encdec = run_encdec(args, readings, problems)
+    for name in totals:
+        totals[name] += sum(r["counts"].get(name, 0) for r in encdec)
+    free_device()
     readings.gate()
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 13. the kernels line and the result line
+    # 14. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]

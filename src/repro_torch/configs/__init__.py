@@ -3,8 +3,9 @@
 The port carries the archs whose path it has ported so far: the dense
 minicpm-2b, gemma3-4b (local:global windows), starcoder2-3b (layernorm,
 gelu, qkv bias) and deepseek-coder-33b, the Mamba1 falcon-mamba-7b, the
-MLA + MoE deepseek-v2-lite-16b and the GQA + MoE mixtral-8x22b
-(sliding window); ``smoke_config`` is a copy of
+MLA + MoE deepseek-v2-lite-16b, the GQA + MoE mixtral-8x22b (sliding
+window), the encoder-decoder whisper-small and pixtral-12b (a dense
+decoder behind a patch prefix); ``smoke_config`` is a copy of
 the reference's, so a smoke config here has the same widths as its
 counterpart there."""
 from __future__ import annotations
@@ -21,7 +22,9 @@ from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.gemma3_4b import CONFIG as _gemma3
 from repro_torch.configs.minicpm_2b import CONFIG as _minicpm
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
+from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
+from repro_torch.configs.whisper_small import CONFIG as _whisper
 
 ARCHS = {
     "deepseek-coder-33b": _deepseek_coder,
@@ -30,7 +33,9 @@ ARCHS = {
     "gemma3-4b": _gemma3,
     "minicpm-2b": _minicpm,
     "mixtral-8x22b": _mixtral,
+    "pixtral-12b": _pixtral,
     "starcoder2-3b": _starcoder2,
+    "whisper-small": _whisper,
 }
 
 

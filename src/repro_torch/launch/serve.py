@@ -21,6 +21,11 @@ MoE without shared experts, a window of 4096 on every layer),
 ``starcoder2-3b`` (layernorm, gelu, a qkv bias) and ``deepseek-coder-33b``
 serve through the same path; mixtral and deepseek-coder fit one card only
 with ``--layers`` cut (``chip_smoke.py`` serves them at 12 and 19).
+``--arch whisper-small`` and ``pixtral-12b`` pass no frontend input, as the
+reference's launcher passes none: whisper decodes over a fresh cache's
+zeroed cross K/V (its cache has no sequence axis there, so every prompt
+takes the scatter prefill, and it cannot be paged), pixtral serves text
+only. ``Model.prefill(frames=, patches=)`` is the frontend entry point.
 
 ``--paged`` serves from the block-paged cache (page pool and page tables,
 prefix sharing, chunked prefill); ``--paged-attention flash`` attends through

@@ -10,6 +10,9 @@ moments fit one card (``chip_smoke.py`` trains falcon-mamba-7b at 48 of 64
 layers and deepseek-v2-lite-16b at 10 of 27 this way). A full config at
 its published depth is refused, as the reference refuses it off its
 production mesh: distributed training is ROADMAP queue 1 item 15.
+The launcher passes no frontend input, as the reference's passes none:
+pixtral-12b trains text only, and whisper-small raises (its forward needs
+``frames=``); ``Model.loss`` takes ``frames`` / ``patches`` in its batch.
 """
 from __future__ import annotations
 

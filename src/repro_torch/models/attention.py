@@ -12,7 +12,9 @@ einsums, as the reference's), and paged decode through K5 with k = [latent,
 rope], v = latent.
 
 ``window`` is a Python int per layer; 0 means full attention.
-Cross-attention is a later slice.
+Cross-attention (whisper's decoder over the encoder states) runs through
+plain attention, as the reference's ``cross_apply`` does: no mask, no
+kernel.
 """
 from __future__ import annotations
 
@@ -402,3 +404,37 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_cache.dtype), c_cache)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)          # absorbed values
     return L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]), new_cache
+
+
+# --- Cross-attention (whisper decoder) ---------------------------------------
+
+def cross_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
+    d, hd = cfg.d_model, cfg.hd
+    kw = dict(device=device, lead=lead)
+    return {
+        "wq": L.dense_init(gen, d, cfg.n_heads * hd, dtype, **kw),
+        "wk": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype, **kw),
+        "wv": L.dense_init(gen, d, cfg.n_kv_heads * hd, dtype, **kw),
+        "wo": L.dense_init(gen, cfg.n_heads * hd, d, dtype, **kw),
+    }
+
+
+def cross_kv(p: dict, enc: Tensor, cfg: ModelConfig) -> dict:
+    """The encoder states' keys and values: (B, T, KV, hd) each."""
+    b, t, _ = enc.shape
+    return {"k": L.dense(enc, p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd),
+            "v": L.dense(enc, p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)}
+
+
+def cross_from_kv(p: dict, x: Tensor, kv: dict, cfg: ModelConfig) -> Tensor:
+    """Queries from the decoder states x (B, S, d) against precomputed
+    encoder keys and values: plain attention, no mask."""
+    b, s, _ = x.shape
+    q = L.dense(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    out = _sdpa(q, kv["k"], kv["v"], None)
+    return L.dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
+
+
+def cross_apply(p: dict, x: Tensor, enc: Tensor, cfg: ModelConfig) -> Tensor:
+    """x: (B, S, d) queries over the encoder states enc: (B, T, d)."""
+    return cross_from_kv(p, x, cross_kv(p, enc, cfg), cfg)

@@ -52,7 +52,19 @@ class Model:
         return T.init_params(gen, self.cfg, device=self.device)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return T.init_cache(self.cfg, batch, max_len, device=self.device)
+        """Zero caches (transformer.init_cache); an encoder-decoder's also
+        hold every decoder layer's cross K/V, ``cross_kv`` {"k", "v"} of
+        (n_layers, batch, n_frames, KV, hd), filled by a prefill with
+        frames."""
+        cache = T.init_cache(self.cfg, batch, max_len, device=self.device)
+        cfg = self.cfg
+        if cfg.encoder is not None:
+            shp = (cfg.n_layers, batch, cfg.encoder.n_frames, cfg.n_kv_heads,
+                   cfg.hd)
+            cache["cross_kv"] = {
+                k: torch.zeros(shp, dtype=cfg.dtype, device=self.device)
+                for k in ("k", "v")}
+        return cache
 
     def init_paged_cache(self, num_pages: int, page_size: int) -> dict:
         """Shared page pools instead of per-slot rows (see
@@ -63,20 +75,28 @@ class Model:
 
     # -- training ----------------------------------------------------------
     def loss(self, params, batch: Dict[str, Tensor]) -> Tensor:
-        """batch: tokens (B, S), labels (B, S) -> CE + the aux loss (the
-        MoE routers' load-balancing term summed over layers; zero for the
-        dense and SSM stacks)."""
-        hidden, aux, _ = T.forward(params, batch["tokens"], self.cfg)
+        """batch: tokens (B, S), labels (B, S), and the frontend stubs
+        ``frames`` / ``patches`` where the model takes them -> CE + the aux
+        loss (the MoE routers' load-balancing term summed over layers; zero
+        for the other stacks)."""
+        hidden, aux, _ = T.forward(params, batch["tokens"], self.cfg,
+                                   frames=batch.get("frames"),
+                                   patches=batch.get("patches"))
         return chunked_cross_entropy(params, hidden, batch["labels"],
                                      self.cfg) + aux
 
     # -- serving -----------------------------------------------------------
-    def prefill(self, params, tokens: Tensor, cache: dict
-                ) -> Tuple[dict, Tensor]:
-        """Fill the cache with a prompt; returns (cache, last-token logits)."""
+    def prefill(self, params, tokens: Tensor, cache: dict,
+                frames: Optional[Tensor] = None,
+                patches: Optional[Tensor] = None) -> Tuple[dict, Tensor]:
+        """Fill the cache with a prompt; returns (cache, last-token logits).
+        The frontend entry point: ``frames`` (B, T, d) run whisper's encoder
+        and fill the cache's cross K/V; ``patches`` (B, P, d) prefix the
+        prompt, and the cache then holds P + S rows (decode positions count
+        the prefix)."""
         hidden, _, new_cache = T.forward(
-            params, tokens, self.cfg, caches=cache, cache_pos=0,
-            is_prefill=True)
+            params, tokens, self.cfg, frames=frames, patches=patches,
+            caches=cache, cache_pos=0, is_prefill=True)
         logits = T.logits_fn(params, hidden[:, -1:], self.cfg)
         return new_cache, logits[:, 0]
 

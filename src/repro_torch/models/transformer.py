@@ -1,6 +1,9 @@
 """Model stacks, counterpart of ``repro/models/transformer.py``: the dense
-decoder, the MoE decoder (GQA or MLA attention, a first dense block) and the
-Mamba1 SSM stack. Parameters keep the reference tree's layout
+decoder, the MoE decoder (GQA or MLA attention, a first dense block), the
+Mamba1 SSM stack, the encoder-decoder (whisper: a non-causal encoder over
+frame embeddings, cross attention in every decoder layer) and the dense
+decoder behind a patch prefix (pixtral). Parameters keep the reference
+tree's layout
 (stacked ``(L, ...)`` leaves under ``"layers"``); the reference's
 ``lax.scan`` over layers is a Python loop over that leading axis. Caches are
 stacked the same way and written in place; a paged cache stacks page pools
@@ -34,13 +37,15 @@ def norm_apply(x, p, cfg: ModelConfig):
             else L.rmsnorm(x, p, cfg.norm_eps))
 
 
-_ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+_ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "encoder", "encdec")
 
 
 def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
                lead=()) -> dict:
     """kind encodes attention x FFN: "dense" (GQA + gated MLP), "moe" (GQA +
-    MoE), "mla_dense", "mla_moe" (MLA attention), or "ssm1" (a Mamba1 mixer,
+    MoE), "mla_dense", "mla_moe" (MLA attention), "encoder" (whisper's
+    encoder layer: GQA + MLP), "encdec" (whisper's decoder layer: GQA, cross
+    attention behind its own norm ``ln_x``, MLP) or "ssm1" (a Mamba1 mixer,
     no FFN)."""
     kw = dict(device=device, lead=lead)
     if kind == "ssm1":
@@ -54,6 +59,9 @@ def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
          "ln2": norm_init(cfg, dtype, **kw)}
     p["ffn"] = (MOE.moe_init(gen, cfg, dtype, **kw) if kind.endswith("moe")
                 else L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, **kw))
+    if kind == "encdec":
+        p["ln_x"] = norm_init(cfg, dtype, **kw)
+        p["xattn"] = A.cross_init(gen, cfg, dtype, **kw)
     return p
 
 
@@ -62,11 +70,15 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                 causal: bool = True, cache: Optional[dict] = None,
                 cache_pos=None, cache_write_mask: Optional[Tensor] = None,
                 prefill: bool = False, page_table: Optional[Tensor] = None,
-                paged_impl: str = "gather"
+                paged_impl: str = "gather", enc: Optional[Tensor] = None,
+                cross_kv: Optional[dict] = None
                 ) -> Tuple[Tensor, Optional[dict], Tensor]:
     """Pre-norm block with a residual: attention (GQA or MLA) + gated MLP or
-    MoE, or a Mamba1 mixer alone ("ssm1"). Returns (x, new_cache,
-    aux_loss); the aux loss is the MoE router's, else zero."""
+    MoE, or a Mamba1 mixer alone ("ssm1"). An "encdec" layer attends to the
+    encoder between the two: to this layer's precomputed keys and values
+    ``cross_kv`` (prefill and decode) or else to the encoder states ``enc``
+    (training). Returns (x, new_cache, aux_loss); the aux loss is the MoE
+    router's, else zero."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "ssm1":
         if page_table is not None:
@@ -88,6 +100,10 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
         h, new_cache = A.gqa_apply(p["attn"], norm_apply(x, p["ln1"], cfg),
                                    rope_theta=theta, causal=causal, **common)
     x = x + h
+    if kind == "encdec":
+        hx = norm_apply(x, p["ln_x"], cfg)
+        x = x + (A.cross_apply(p["xattn"], hx, enc, cfg) if cross_kv is None
+                 else A.cross_from_kv(p["xattn"], hx, cross_kv, cfg))
     h2 = norm_apply(x, p["ln2"], cfg)
     if kind.endswith("moe"):
         f, aux = MOE.moe_apply(p["ffn"], h2, cfg=cfg)
@@ -113,10 +129,9 @@ def layer_plan(cfg: ModelConfig):
         plan.append(("layers", "mla_moe" if cfg.mla else "moe",
                      cfg.n_layers - cfg.first_k_dense))
         return plan
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, moe and ssm "
-            f"only; ROADMAP queue 1 item 11)")
+    if cfg.family == "enc-dec":
+        return [("layers", "encdec", cfg.n_layers)]
+    # a vlm is a dense decoder behind its patch prefix
     return [("layers", "dense", cfg.n_layers)]
 
 
@@ -134,6 +149,16 @@ def window_theta_arrays(cfg: ModelConfig, n: int, offset: int = 0):
         elif cfg.sliding_window:
             win[i] = cfg.sliding_window
     return win, theta
+
+
+def make_cross_kv(p_stacked: dict, enc: Tensor, cfg: ModelConfig) -> dict:
+    """Each decoder layer's cross keys and values from the encoder states
+    (prefill): {"k", "v"} of (L, B, T, KV, hd), stacked as the cache holds
+    them."""
+    n = p_stacked["xattn"]["wk"]["w"].shape[0]
+    per = [A.cross_kv(tree_index(p_stacked["xattn"], i), enc, cfg)
+           for i in range(n)]
+    return {k: torch.stack([c[k] for c in per]) for k in ("k", "v")}
 
 
 def tree_index(tree, i: int):
@@ -200,10 +225,29 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     for name, kind, n in layer_plan(cfg):
         params[name] = block_init(gen, cfg, dtype, kind=kind, device=device,
                                   lead=(n,))
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": block_init(gen, cfg, dtype, kind="encoder",
+                                 device=device, lead=(cfg.encoder.n_layers,)),
+            "norm": norm_init(cfg, dtype, device=device)}
     return params
 
 
+def encode(params, frames: Tensor, cfg: ModelConfig) -> Tensor:
+    """Whisper's encoder over (stub) frame embeddings (B, T, d): non-causal
+    self-attention (through the flash kernel K4 with ``attention_impl``
+    "flash"), rope at positions 0..T-1, then the encoder's final norm."""
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    body = _maybe_remat(block_apply, cfg)
+    x = frames
+    for p in tree_unbind(params["encoder"]["layers"], cfg.encoder.n_layers):
+        x, _, _ = body(p, x, cfg=cfg, kind="encoder", positions=positions,
+                       causal=False)
+    return norm_apply(x, params["encoder"]["norm"], cfg)
+
+
 def forward(params, tokens: Tensor, cfg: ModelConfig, *,
+            frames: Optional[Tensor] = None, patches: Optional[Tensor] = None,
             caches: Optional[dict] = None, cache_pos=None,
             cache_write_mask: Optional[Tensor] = None,
             is_prefill: bool = False, page_table: Optional[Tensor] = None,
@@ -215,10 +259,24 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
     a page table (B, S) per-token masks (a padded prefill chunk's tail).
     ``page_table``: (B, max_pages) pool page ids; the caches then hold page
     POOLS (:func:`init_paged_cache`) and ``paged_impl`` picks "gather" or
-    "flash" (the paged kernel)."""
+    "flash" (the paged kernel).
+
+    ``frames`` (B, T, d): whisper's encoder input. With caches (prefill)
+    every decoder layer's cross K/V is computed from the encoded frames and
+    stored as ``caches["cross_kv"]``; without caches (training) cross
+    attention runs against the encoder states; a step without frames (decode)
+    reads the cached cross K/V. ``patches`` (B, P, d): pixtral's prefix,
+    set before the token embeddings (train and prefill; decode passes
+    none); positions count it, and its rows are stripped from the returned
+    hidden states."""
     x = L.embed(tokens, params["embed"])
     b, s = tokens.shape[:2]
     dev = tokens.device
+    n_prefix = 0
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        n_prefix = patches.shape[1]
+        s = x.shape[1]
     if cache_pos is not None:
         cp = torch.as_tensor(cache_pos, dtype=torch.long, device=dev)
         ar = torch.arange(s, device=dev)[None, :]
@@ -227,12 +285,26 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.arange(s, device=dev)
 
+    enc, cross_kvs = None, None
+    if cfg.encoder is not None:
+        if frames is not None:
+            enc = encode(params, frames, cfg)
+            if caches is not None:   # prefill: cache the per-layer cross K/V
+                cross_kvs = make_cross_kv(params["layers"], enc, cfg)
+                caches["cross_kv"] = cross_kvs
+        elif caches is not None:     # decode: the cached cross K/V
+            cross_kvs = caches["cross_kv"]
+        else:
+            raise ValueError(f"{cfg.name}: an encoder-decoder forward without "
+                             f"a cache needs frames= (the encoder's input)")
+
     offset = 0
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     body = _maybe_remat(block_apply, cfg)
     for name, kind, n in layer_plan(cfg):
         win, theta = window_theta_arrays(cfg, n, offset)
         grp_cache = caches.get(name) if caches is not None else None
+        grp_cross = cross_kvs if kind == "encdec" else None
         layers = tree_unbind(params[name], n)
         for i in range(n):
             x, _, aux = body(
@@ -243,11 +315,13 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
                        else None),
                 cache_pos=cache_pos, cache_write_mask=cache_write_mask,
                 prefill=is_prefill, page_table=page_table,
-                paged_impl=paged_impl)
+                paged_impl=paged_impl, enc=enc,
+                cross_kv=(tree_index(grp_cross, i) if grp_cross is not None
+                          else None))
             aux_total = aux_total + aux
         offset += n
     x = norm_apply(x, params["final_norm"], cfg)
-    return x, aux_total, caches
+    return x[:, n_prefix:], aux_total, caches
 
 
 def logits_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:

@@ -11,10 +11,11 @@ positions (a ``(B,)`` position vector). Finished slots refill from the queue.
   own row with identical values, so tokens match one-step-at-a-time decode.
 * **Bucketed batched prefill**: prompts pad to power-of-2 buckets and
   same-bucket requests prefill together, straight into the shared slot cache
-  under a row mask. An SSM state has no sequence axis, so it cannot take a
-  masked prefill; an SSM model, or ``prefill_buckets=False``, takes the
-  per-slot scatter prefill instead: a batch-1 forward into a fresh cache,
-  copied into the slot (axis 1 of every cache leaf).
+  under a row mask. That needs a sequence axis in every cache leaf; an SSM
+  state and an encoder's cross K/V have none, so such a model, or
+  ``prefill_buckets=False``, takes the per-slot scatter prefill instead: a
+  batch-1 forward into a fresh cache, copied into the slot (axis 1 of every
+  cache leaf).
 
 The K/V cache is updated IN PLACE (``models.attention._cache_write``): the
 server only ever holds the newest cache, so no per-dispatch copy is kept.
@@ -82,6 +83,19 @@ def _ffip_weights(node, quantized: bool):
         return
     for val in node.values():
         yield from _ffip_weights(val, quantized)
+
+
+def _cache_supports_buckets(model: Model, batch: int, max_len: int) -> bool:
+    """Bucketed prefill needs every cache leaf to have a sequence axis (one
+    that scales with max_len), so a masked prefill at offset 0 commits
+    exactly the prompt rows. SSM states and encoder cross-K/V leaves have
+    none, so those models take the per-slot scatter prefill. Decided from
+    the cache's shapes, as the reference decides, on the meta device
+    (nothing is allocated)."""
+    meta = Model(model.cfg, device="meta")
+    a = _leaves(meta.init_cache(batch, max_len))
+    b = _leaves(meta.init_cache(batch, max_len + 1))
+    return all(x.shape != y.shape for x, y in zip(a, b))
 
 
 def _leaves(tree) -> List[Tensor]:
@@ -215,10 +229,8 @@ class BatchServer:
             self._bucketed = False
         else:
             self.cache = model.init_cache(batch_slots, max_len)
-            # bucketed prefill needs a sequence axis in every cache leaf
-            # (GQA K/V, MLA's latent and rope key); an SSM state has none
-            self._bucketed = prefill_buckets and all(
-                kind != "ssm1" for _, kind, _ in T.layer_plan(model.cfg))
+            self._bucketed = prefill_buckets and _cache_supports_buckets(
+                model, batch_slots, max_len)
         if quantized or gemm_impl is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):

@@ -865,3 +865,88 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# --- whisper-small's encoder and pixtral-12b's prefix ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,d,causal", [
+    (12, 1500, 64, False),      # whisper-small's encoder: 1500 = 11 x 128 + 92
+    (4, 1500, 64, True),        # the same ragged S under the causal mask
+    (32, 384, 128, True),       # pixtral-12b's prefill: 256 patches + 128
+    (8, 93, 64, False)])        # one ragged block each way
+def test_flash_kernel_encdec_widths_match_plain(dev, dtype, bh, sq, d,
+                                                causal):
+    """K4 non-causal at whisper-small's ragged S 1500, where only the k_pos
+    < Sk test hides the last key block's padded keys (no causal mask lies
+    above them), and at pixtral-12b's d 128 prefill of a 256-patch prefix
+    and a 128-token prompt, against its plain version under the flash bars:
+    o within one bf16 rounding (2e-3 in f32), lse 2e-3."""
+    g = torch.Generator(device=dev).manual_seed(51)
+    q, k, v = (torch.randn((bh, sq, d), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    compat.reset_counters()
+    o, lse = _flash_fwd(q, k, v, 0, causal=causal)
+    assert compat.launch_counts()["flash_fwd"] == 1
+    o_ref, lse_ref = _flash_fwd_plain(q, k, v, 0, causal=causal)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_ref.float().cpu().numpy(), rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_ref.cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,causal", [(4, 1500, False), (2, 1500, True),
+                                         (4, 93, False)])
+def test_flash_bwd_kernel_encdec_widths_match_plain(dev, dtype, bh, s,
+                                                    causal):
+    """K8 non-causal at whisper-small's ragged S 1500 (its encoder trained,
+    d 64) under K8's bars: f32 dq/dk/dv rtol 1e-4, atol 1e-4 * max|plain|,
+    and once cast to bf16 one ulp beyond that atol."""
+    from repro_torch.kernels.flash_attention import (_flash_bwd,
+                                                     _flash_bwd_plain)
+    g = torch.Generator(device=dev).manual_seed(52)
+    q, k, v, do = (torch.randn((bh, s, 64), generator=g, device=dev).to(
+        dtype) for _ in range(4))
+    o, lse = _flash_fwd(q, k, v, 0, causal=causal)
+    compat.reset_counters()
+    got = _flash_bwd(q, k, v, o, lse, do, 0, causal=causal)
+    assert compat.launch_counts()["flash_bwd"] == 1
+    want = _flash_bwd_plain(q, k, v, o, lse, do, 0, causal=causal)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, want):
+        atol = 1e-4 * float(b_.abs().max())
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.cpu().numpy(),
+                                   rtol=1e-4, atol=atol)
+        assert _bf16_cast_ulps(a_, b_, atol) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq", [1, 4])
+def test_paged_kernel_pixtral_widths_match_plain(dev, dtype, sq):
+    """K5 at pixtral-12b's decode (H 32, KV 8: GQA 4, d 128) over contexts
+    that count a 256-patch prefix, against its plain version; a sequence of
+    length 0 gives exact zeros."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    b, h, kv, d, ps, mp = 4, 32, 8, 128, 16, 32
+    n_pages = b * mp + 2
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    kp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dtype)
+    vp = torch.randn((n_pages, ps, kv, d), generator=g, device=dev).to(dtype)
+    pt = torch.randperm(n_pages, generator=g, device=dev)[:b * mp]
+    pt = pt.reshape(b, mp).to(torch.int32)
+    lengths = torch.tensor([0, 256 + 17, 256 + 128 + 16, ps * mp],
+                           device=dev)
+    q_start = (lengths - sq).clamp_min(0)
+    compat.reset_counters()
+    o = flash_attention_paged(q, kp, vp, pt, lengths, q_start, 0)
+    assert compat.launch_counts()["flash_paged"] == 1
+    want = flash_attention_paged_plain(q, kp, vp, pt, lengths, q_start, 0)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 2 ** -7
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol,
+                               atol=tol)
+    assert torch.count_nonzero(o[0]) == 0

@@ -1,7 +1,10 @@
 """The four LM families' smoke models (gemma3-4b, mixtral-8x22b,
 starcoder2-3b, deepseek-coder-33b) served from the port's paged cache
 against the contiguous server and the reference's paged server, on the
-setups of tests/test_torch_families.py (JAX on the CPU).
+setups of tests/test_torch_families.py (JAX on the CPU). This file holds
+the check and gemma3-4b's cases; tests/test_torch_paged_{mixtral,
+starcoder2,deepseek_coder}.py hold the other archs' cases, each a file of
+its own so that a run split by file spreads them over its workers.
 
 Paged, gather and flash (K5's plain version), float and int8 FFIP, on
 tests/test_serve_paged.py's shared-prefix workload with attention_impl
@@ -15,7 +18,7 @@ import pytest
 from repro.serve.batcher import BatchServer as JServer
 from repro.serve.batcher import Request as JRequest
 from repro_torch.serve.batcher import BatchServer, Request
-from test_torch_families import ARCHS, MAX_LEN, _setup
+from test_torch_families import MAX_LEN, _setup
 from test_torch_serve_families import _run
 
 PS = 8
@@ -39,16 +42,16 @@ def _paged_workload(vocab, seed=0):
 _STATS = ("pages_peak", "prefix_hit_tokens", "cow_copies", "prefill_chunks")
 
 
-@pytest.mark.parametrize("quantized,decode_chunk,paged_attention", [
+# (quantized, decode_chunk, paged_attention) of every arch's cases
+PAGED_CASES = ("quantized,decode_chunk,paged_attention", [
     (False, 1, "gather"),
     (True, 4, "gather"),
     (False, 4, "flash"),
     (True, 1, "flash"),
 ])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_paged_tokens_match_contiguous_and_reference(arch, quantized,
-                                                     decode_chunk,
-                                                     paged_attention):
+
+
+def check_paged_tokens(arch, quantized, decode_chunk, paged_attention):
     """attention_impl "naive" as tests/test_serve_paged.py runs it: the
     gathered view and K5's plain version against the contiguous server's
     tokens and the reference's paged server, with its page counters."""
@@ -73,3 +76,11 @@ def test_paged_tokens_match_contiguous_and_reference(arch, quantized,
     assert srv.stats["prefix_hit_tokens"] > 0
     assert srv._reserved == 0, "reservation ledger must drain"
     assert srv.alloc.free_count + srv.alloc.in_use == srv.alloc.num_pages
+
+
+@pytest.mark.parametrize(*PAGED_CASES)
+@pytest.mark.parametrize("arch", ["gemma3-4b"])
+def test_paged_tokens_match_contiguous_and_reference(arch, quantized,
+                                                     decode_chunk,
+                                                     paged_attention):
+    check_paged_tokens(arch, quantized, decode_chunk, paged_attention)
