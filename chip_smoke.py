@@ -117,7 +117,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bit and within 0.35 of the plain float logits.
 8. Count and profile one contiguous prefill dispatch and decode step, one
    paged decode step, one paged prefill chunk and one ResNet-50 forward.
-9. The Mamba1 path (phase ssm): falcon-mamba-7b at its published widths and
+9. The router and ``repro_torch.obs`` (phase fleet), on the same
+   minicpm-2b model, every replica sharing its weights, 2 slots each, the
+   prompts of 4., 16 new tokens: no-fault oracles (ffip with the profiler
+   hooks toggled every step, its decode ms/step with them off and on
+   printed; int8-ffip; paged flash fip), then ``ReplicaRouter`` on a FakeClock over ffip +
+   int8-ffip under each fault plan of tests/test_serve_router.py (raise,
+   hang, exhaust, poison; FLEET_PLANS) and over paged flash fip (K2, K5)
+   + int8-ffip under exhaust. Every request must end DONE with its
+   configuration's oracle tokens (a difference is read against the plain
+   path and fails the run), each fault must fire, every page ledger
+   drain, and no replica step may raise what its plan did not inject
+   (both parts). Then the SLO loop through ``launch.serve.main``
+   (``--replicas 2 --quantized-replicas 1 --fault-plan flaky --slo
+   "ttft_ms p99 < 2000"``, the baseline GEMM K1), ``launch.obs_check`` on its metrics and trace
+   (tighten, probe and recover counted, the alert cleared) and one
+   ``launch.dash`` frame.
+10. The Mamba1 path (phase ssm): falcon-mamba-7b at its published widths and
    40 of its 64 layers (SSM_SERVE_LAYERS), bf16, random weights from --seed, served as in
    4. (every prompt in its own scatter-prefill dispatch) with ffip, fip,
    baseline and int8 ffip. Each run must meet every budget, launch its GEMM
@@ -125,7 +141,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the plain path (plain selective scan included) under the same bars, with
    ssm.out_proj taken from the next layer as the planted fault; then one
    128-token prefill and one decode step profiled.
-10. The training path (phase train, TRAIN_RUNS): minicpm-2b at its
+11. The training path (phase train, TRAIN_RUNS): minicpm-2b at its
    published widths and 40 layers (batch 4 x 256) and falcon-mamba-7b at its
    widths and 48 of 64 layers (batch 2 x 256; 64 layers' bf16 params, grads
    and f32 moments would pass the card's 80 GB), bf16, random weights from
@@ -142,7 +158,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    once more at AdamWConfig's default learning rate through the kernels and
    through the plain path: where the plain path's last loss falls below its
    first, the kernels' must too.
-11. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
+12. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
    widths and 14 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
    from --seed, served as in 4.
    with ffip, fip, baseline and int8 ffip (every prefill dispatch launches
@@ -158,7 +174,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    layer the planted fault. Then trained as in 10. at MOE_TRAIN_RUNS' depth
    (K4 + K8 once per layer a step; the aux loss finite) with its gradient
    reading.
-12. The other LM families (phase families, FAMILY_RUNS), each at its
+13. The other LM families (phase families, FAMILY_RUNS), each at its
    published widths, bf16, random weights from --seed: gemma3-4b at 34
    layers (5 local : 1 global, windows of 1024, thetas 1e4 / 1e6, K4, K8
    and K5 at d 256), mixtral-8x22b at 12 of 56 (GQA 48 : 8 + MoE 8 experts
@@ -175,7 +191,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    middle layer's attn.wo taken from the next layer the planted fault
    (float and int8). gemma3 is then trained as in 10. at batch 1 x 1536
    through K4 + K8 at (256, 256), with its gradient reading.
-13. The encoder-decoder and the patch prefix (phase encdec), each at its
+14. The encoder-decoder and the patch prefix (phase encdec), each at its
    published widths, bf16, random weights and stub frontend inputs from
    --seed. whisper-small at its 12 + 12 layers (d 768, 12 heads of 64,
    layernorm, gelu, a qkv bias, vocab 51865 tied): the frontend entry point
@@ -200,7 +216,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a middle decoder layer's cross wk and wv, each taken from the next
    layer's; pixtral: a middle layer's attn.wo from the next, and the same
    prompts prefilled without their patches) must read above them.
-14. Print the kernels line (JSON), then the result line.
+15. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -433,6 +449,14 @@ HEADLINE_PAGED = ("decode", "bf16")
 # 64; 8 prompts of 16-128 tokens, the even ones behind a shared 64-token
 # prefix, the last a copy of the first.
 PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
+# Phase fleet: 2-slot replicas behind the router; the fault plans of
+# tests/test_serve_router.py (replica 0, seed 3): kind -> (at_dispatch,
+# duration). The poison window is stretched from 8 to 24 dispatches: a
+# poison fires only on a completion, and with 16 new tokens replica 0's
+# first one comes at its 16th dispatch (5 new tokens in the test).
+FLEET_SLOTS = 2
+FLEET_PLANS = {"raise": (1, 2), "hang": (1, 2), "exhaust": (0, 3),
+               "poison": (0, 24)}
 # Depth of the paged identity runs (chunk widths, gather vs contiguous): the
 # first layers of the same weights, to keep the whole run short.
 IDENTITY_LAYERS = 8
@@ -471,9 +495,9 @@ HEADLINE_SCAN_BWD = "train B 2 S 256"
 TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
 # Depth of the served runs of phases ssm and moe: falcon-mamba-7b at 40 of
 # its 64 layers, deepseek-v2-lite-16b at 14 of 27, widths kept, so that the
-# whole run, phase encdec included, stays near half its 1200-s limit: at
-# their published depths it took 837.9 s before phase encdec on an H100
-# (PERF.md section 4).
+# whole run, phases encdec and fleet included, stays under its 1200-s
+# limit: at their published depths it took 837.9 s before phases encdec
+# and fleet on an H100 (PERF.md section 4).
 SSM_SERVE_LAYERS = 40
 MOE_SERVE_LAYERS = 14
 # phase moe: deepseek-v2-lite-16b (MLA + MoE) served at its published widths
@@ -2491,6 +2515,211 @@ def print_profile(steps, want_fn, problems):
             problems.append(f"{phase} launched {got}, expected {want}")
 
 
+def run_fleet(args, model, params, prompts, problems):
+    """Phase fleet: the router and repro_torch.obs on minicpm-2b's model
+    (the main phase's weights, shared by every replica). (a) Oracles: one
+    no-fault 2-slot server a configuration (ffip with the profiler hooks
+    toggled every step, for their decode cost), then two-replica routers on
+    a FakeClock under each fault plan: ffip + int8-ffip (contiguous, K3
+    and K4) under raise, hang, exhaust and poison, and paged flash fip (K2
+    and K5) + int8-ffip under exhaust. Every request must end DONE with its
+    configuration's oracle tokens, each fault must fire, every paged ledger
+    drain. (b) The SLO loop through ``launch.serve.main`` with the
+    baseline GEMM (K1), then ``launch.obs_check`` on its files and one
+    ``launch.dash`` frame. In both, a replica step that raises what no
+    fault plan injected (an out-of-memory error, a kernel's) is a problem,
+    not a failover (``launch.serve.unplanned_failures``). Returns the
+    phase's launch counts."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.kernels import compat
+    from repro_torch.launch import dash, obs_check
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.batcher import BatchServer, Request
+    from repro_torch.serve.faults import FakeClock, FaultPlan, FaultSpec
+    from repro_torch.serve.lifecycle import Lifecycle
+    from repro_torch.serve.router import ReplicaRouter, RouterConfig
+
+    t0 = time.perf_counter()
+    print(f"phase fleet: minicpm-2b, {model.cfg.n_layers} layers, replicas "
+          f"of {FLEET_SLOTS} slots sharing its weights, the {len(prompts)} "
+          f"served prompts, {args.max_new} new tokens each", flush=True)
+    base = dict(batch_slots=FLEET_SLOTS, max_len=PAGED_MAX_LEN,
+                gemm_impl="cuda", device=model.device)
+    kinds = {"ffip": dict(gemm_algo="ffip"),
+             "int8-ffip": dict(gemm_algo="ffip", quantized=True),
+             "paged flash fip": dict(gemm_algo="fip", paged=True,
+                                     page_size=PAGE_SIZE,
+                                     prefill_chunk=PREFILL_CHUNK,
+                                     paged_attention="flash")}
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=args.max_new,
+                        eos_id=-1) for i, p in enumerate(prompts)]
+
+    compat.reset_counters()
+    # The oracles: one no-fault server a configuration. The ffip one
+    # toggles the profiler hooks every step, so its decode steps with the
+    # hooks off and on interleave in one run and share its warm-up.
+    oracle, step_ms = {}, {False: [], True: []}
+    hooks = obs.profile.enable(False)
+    for label in kinds:
+        t1 = time.perf_counter()
+        srv = BatchServer(model, registry=obs.Registry(), **base,
+                          **kinds[label])
+        for r in requests():
+            srv.submit(r)
+        toggle = label == "ffip"
+        for i in range(10_000):
+            on = not toggle or i % 2 == 1
+            obs.profile.enable(on)
+            before = (srv.stats["decode_s"], srv.stats["decode_dispatches"])
+            work = srv.step(params)
+            if toggle and srv.stats["decode_dispatches"] > before[1]:
+                step_ms[on].append(1e3 * (srv.stats["decode_s"] - before[0]))
+            if work == 0 and not srv.has_queued():
+                break
+        obs.profile.enable(False)
+        done = srv.take_completed()
+        oracle[label] = {r.rid: list(r.out_tokens) for r in done}
+        st = srv.stats
+        budget_ok = (len(done) == len(prompts)
+                     and all(len(r.out_tokens) == args.max_new for r in done))
+        if not budget_ok:
+            problems.append(f"fleet oracle {label}: a request missed its "
+                            f"budget")
+        print(f"  [fleet oracle {label}] {len(done)}/{len(prompts)} "
+              f"requests, exact budgets {budget_ok}; decode "
+              f"{1e3 * st['decode_s'] / max(1, st['steps']):.2f} ms/step "
+              f"over {st['steps']} steps; prefill {st['prefill_s']:.3f} s; "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        del srv
+    # the hooks' own host cost, apart from the steps' spread: one decode
+    # step's on_gemm calls (7 a layer and the unembed) at its shapes
+    x = torch.zeros(FLEET_SLOTS, model.cfg.d_model, device=model.device)
+    w = torch.zeros(model.cfg.d_model, model.cfg.d_ff, device=model.device)
+    calls = 7 * model.cfg.n_layers + 1
+    obs.profile.enable(True)
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        obs.profile.on_gemm(x, w, "ffip")
+    hook_ms = 1e3 * (time.perf_counter() - t1)
+    obs.profile.enable(hooks)
+    off, on = (float(np.mean(step_ms[k])) for k in (False, True))
+    print(f"fleet profiler hooks: decode {off:.2f} ms/step off "
+          f"({len(step_ms[False])} steps), {on:.2f} ms/step on "
+          f"({len(step_ms[True])} steps), {on - off:+.2f} ms (the ffip "
+          f"oracle, 2 slots, the hooks toggled every step); a step's "
+          f"{calls} on_gemm calls alone take {hook_ms:.3f} ms of host time",
+          flush=True)
+    del x, w
+    t_oracles, t_runs = time.perf_counter() - t0, time.perf_counter()
+
+    outcomes, stats = {}, {}
+    plain = {}
+    for labels, kind in ([(("ffip", "int8-ffip"), k) for k in FLEET_PLANS]
+                         + [(("paged flash fip", "int8-ffip"), "exhaust")]):
+        t1 = time.perf_counter()
+        clock, reg = FakeClock(), obs.Registry()
+        servers = [BatchServer(model, registry=reg, clock=clock, **base,
+                               **kinds[lb]) for lb in labels]
+        at, duration = FLEET_PLANS[kind]
+        plan = FaultPlan([FaultSpec(kind=kind, replica=0, at_dispatch=at,
+                                    duration=duration)], seed=3)
+        rt = ReplicaRouter(servers, params, fault_plan=plan, clock=clock,
+                           registry=reg,
+                           cfg=RouterConfig(step_timeout_s=5.0,
+                                            quarantine_s=0.2, max_retries=4))
+        for r in requests():
+            rt.submit(r)
+        recs = rt.drive(max_ticks=5000)
+        tier_label = {s.tier: lb for s, lb in zip(servers, labels)}
+        wrong = {rid: rec for rid, rec in recs.items()
+                 if rec.state is Lifecycle.DONE
+                 and rec.tokens != oracle[tier_label[rec.tier]][rid]}
+        fired = rt.stats["replica_failures"] + rt.stats["poisoned"]
+        causes = launch.unplanned_failures(rt.events)
+        ledgers = [(s._reserved, s.alloc.free_count + s.alloc.in_use
+                    == s.num_pages) for s in servers if s.paged]
+        got = rt.outcome_counts()
+        name = f"fleet {kind}: {' + '.join(labels)}"
+        print(f"  [{name}] outcomes {got}; faults fired {fired}; tokens "
+              f"identical to the oracles {not wrong}; paged ledgers "
+              f"(reserved, balanced) {ledgers}; {rt.ticks} ticks, "
+              f"{time.perf_counter() - t1:.1f} s; router {rt.stats}",
+              flush=True)
+        for k, v in got.items():
+            outcomes[k] = outcomes.get(k, 0) + v
+        for k, v in rt.stats.items():
+            stats[k] = stats.get(k, 0) + v
+        if got != {"done": len(prompts)}:
+            problems.append(f"{name}: outcomes {got}")
+        if fired < 1:
+            problems.append(f"{name}: the fault never fired")
+        if causes:
+            problems.append(f"{name}: {causes}")
+        if any(res != 0 or not bal for res, bal in ledgers):
+            problems.append(f"{name}: a page ledger did not drain")
+        for rid, rec in wrong.items():
+            want = oracle[tier_label[rec.tier]][rid]
+            at_tok = next(i for i, (a, b) in enumerate(zip(rec.tokens, want))
+                          if a != b)
+            q = rec.tier == "int8"
+            if q not in plain:
+                plain[q] = PlainPath(model, params, prompts, q)
+            read = [token_readings([types.SimpleNamespace(
+                rid=rid, out_tokens=t)], plain[q]) for t in (rec.tokens,
+                                                             want)]
+            problems.append(f"{name}: rid {rid} ({rec.tier}) differs from "
+                            f"its oracle from token {at_tok} (0 = the "
+                            f"prefill's); readings served {read[0]}, "
+                            f"oracle {read[1]}")
+        # the router and its records hold each other (the lifecycle
+        # observer, the tracer's clock): collect them before the next run
+        del rt, servers, recs, wrong
+        free_device()
+    counts = compat.launch_counts()
+    print(f"fleet: 5 router runs, outcomes {outcomes}, router stats summed "
+          f"{stats}; launches {counts}; {time.perf_counter() - t0:.1f} s "
+          f"(oracles {t_oracles:.1f} s, router runs "
+          f"{time.perf_counter() - t_runs:.1f} s)", flush=True)
+    del plain
+    free_device()
+
+    # (b) the SLO loop through the launcher, as the reference's README runs
+    # it (4 new tokens a request), on the baseline GEMM (K1) and flash
+    # prefill (K4)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        m, t = f"{tmp}/metrics.json", f"{tmp}/trace.jsonl"
+        launch.main(["--arch", "minicpm-2b", "--layers", str(args.layers),
+                     "--requests", "8", "--slots", "2", "--replicas", "2",
+                     "--quantized-replicas", "1", "--fault-plan", "flaky",
+                     "--slo", "ttft_ms p99 < 2000", "--slo-windows", "2,8",
+                     "--slo-min-count", "2", "--slo-drain-ticks", "1600",
+                     "--gemm-impl", "cuda", "--gemm-algo", "baseline",
+                     "--max-new", "4", "--seed", str(args.seed),
+                     "--metrics-json", m,
+                     "--trace-out", t])
+        for name, n in compat.launch_counts().items():
+            counts[name] += n
+        free_device()
+        rc = obs_check.main(["--metrics-json", m, "--trace", t,
+                             "--replicas", "2", "--requests", "8",
+                             "--min-retries", "1", "--expect-slo", "ttft_ms",
+                             "--expect-controller", "tighten,probe,recover",
+                             "--expect-recovery"])
+        if rc:
+            problems.append("fleet: obs_check failed on the launcher's files")
+        with open(m) as f:
+            print(dash.render(json.load(f), source="fleet SLO loop"),
+                  flush=True)
+    print(f"phase fleet: {time.perf_counter() - t0:.1f} s (the SLO loop "
+          f"{time.perf_counter() - t1:.1f} s); launches {counts}", flush=True)
+    return counts
+
+
 def run_ssm(args, readings: Readings, problems):
     """falcon-mamba-7b at its published widths through the Mamba1 path:
     served four ways (every prefill layer through K6, the projections
@@ -3703,8 +3932,13 @@ def run_encdec(args, readings: Readings, problems):
 
 
 def free_device():
+    """Drop the module memo and every unreachable cycle (a router and its
+    records) before returning the cached blocks."""
+    import gc
+
     from repro_torch.kernels import compat
     compat.derived.clear()
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3949,8 +4183,17 @@ def main(argv=None) -> int:
         {"ffip_gemm_y": 7 * cfg.n_layers + 1,
          "flash_fwd": cfg.n_layers if phase == "prefill" else 0,
          "flash_paged": cfg.n_layers if "paged" in phase else 0}), problems)
-    del steps, model, params, naive, model_id, naive_id, params_id
+    del steps, naive, model_id, naive_id, params_id
     free_device()
+
+    # 8. the router and repro_torch.obs over replicas of the same model
+    fleet = run_fleet(args, model, params, prompts, problems)
+    for name in totals:
+        totals[name] += fleet[name]
+    del model, params
+    free_device()
+    print(f"  device memory still allocated after the minicpm phases: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
 
     # 8. the Mamba1 path: falcon-mamba-7b through K6 and K1-K3
     ssm_runs = run_ssm(args, readings, problems)
@@ -4067,6 +4310,7 @@ def main(argv=None) -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": shape,
+            "fleet_launches": fleet[name],
             "per_shape": [{k: v for k, v in r.items()
                            if k not in ("kernel", "ok")} for r in recs_k]})
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """CNN workload shape tables (AlexNet, VGG16, ResNet-50/101/152).
 Counterpart of ``repro/core/workloads.py`` (a copy; :class:`GemmShape` is
-copied from ``repro/core/analytical.py`` without the Fig. 9 cycle model).
+copied from ``repro/core/analytical.py``, and the port's
+:mod:`repro_torch.core.analytical` imports it from here).
 
 The single source of truth for the paper's CNN workloads. Each model is
 declared as a structured :class:`ConvSpec` list (plus FC shapes); two

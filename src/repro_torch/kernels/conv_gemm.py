@@ -54,6 +54,7 @@ from repro_torch.kernels.baseline_gemm import (acc_dtype_of,
 from repro_torch.kernels.ffip_gemm import carry_table, ffip_gemm_y_plain
 from repro_torch.kernels.fip_gemm import (PAIR_BK, fip_gemm_plain,
                                           launch_plan, pair_geom, split_plan)
+from repro_torch.obs import profile as _obs_profile
 
 Tensor = torch.Tensor
 
@@ -306,6 +307,10 @@ def conv_gemm_fused(x: Tensor, kernel: Tensor, *, stride: Size2 = 1,
     if ph or pw:
         x = F.pad(x, (0, 0, pw, pw, ph, ph))
     kh, kw, _, _ = kernel.shape
+    sh, sw = as_pair(stride)
+    _obs_profile.on_conv(x, kernel, oh=(x.shape[1] - kh) // sh + 1,
+                         ow=(x.shape[2] - kw) // sw + 1, groups=groups,
+                         algo=algo)
     bg = compat.current_derived().get(
         f"stack{groups}", kernel, lambda k_: _kernel_to_stack(k_, groups))
     out = fused_conv_raw(x, bg, kh=kh, kw=kw, stride=stride, groups=groups,

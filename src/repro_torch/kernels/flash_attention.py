@@ -45,6 +45,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import compat
+from repro_torch.obs import profile as _obs_profile
 
 Tensor = torch.Tensor
 NEG_INF = -1e30
@@ -245,7 +246,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, window: int = 0,
                     causal: bool = True) -> Tensor:
     """q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> o (BH, Sq, dv):
     K4 forward, and K8 backward when autograd asks (the reference's custom
-    VJP entry point); dv may differ from d (MLA's 192 / 128)."""
+    VJP entry point); dv may differ from d (MLA's 192 / 128). The forward
+    without autograd is the reference's primal, which
+    ``repro_torch.obs.profile`` counts."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, window, causal)
+    _obs_profile.on_flash(q, k, causal=causal)
     return _flash_fwd(q, k, v, window, causal=causal)[0]

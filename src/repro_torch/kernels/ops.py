@@ -18,6 +18,7 @@ from repro_torch.kernels.baseline_gemm import (TC_BK, baseline_gemm,
                                                tc_blocks)
 from repro_torch.kernels.ffip_gemm import ffip_gemm
 from repro_torch.kernels.fip_gemm import fip_gemm, pair_blocks
+from repro_torch.obs import profile as _obs_profile
 
 Tensor = torch.Tensor
 
@@ -61,9 +62,12 @@ def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,
 
     Returns the promoted input dtype for floats and int32 for integer inputs
     (the accumulator; the caller rescales). ``fold_beta`` (FIP/FFIP) leaves
-    beta for the caller to add from ``fold_beta_into_bias`` (Eq. 15)."""
+    beta for the caller to add from ``fold_beta_into_bias`` (Eq. 15).
+    While its hooks are on, ``repro_torch.obs.profile`` counts every call (a
+    call inside a CUDA graph capture as a trace)."""
     compat.refuse_grad(f"the {algo} GEMM kernel", a, b,
                        hint=" or train through GemmConfig(impl='torch')")
+    _obs_profile.on_gemm(a, b, algo)
     *batch, m, k = a.shape
     k2, n = b.shape
     if k != k2:

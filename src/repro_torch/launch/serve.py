@@ -35,16 +35,44 @@ sharing has something to share; ``--compare-contiguous`` serves the same
 workload again from the contiguous cache and requires identical tokens. The
 run exits non-zero if a request is dropped or misses its token budget, or
 (paged) if the page ledger does not balance.
+
+``--replicas N`` serves the workload through the fault-tolerant router
+(:mod:`repro_torch.serve.router`) over N ``BatchServer`` replicas sharing
+the one model's weights (``--quantized-replicas M`` makes the last M int8
+FFIP shed targets), with load-aware dispatch, a bounded queue, deadlines
+(``--deadline-ms``), bounded retries and a circuit breaker per replica.
+``--fault-plan`` installs a deterministic chaos schedule (inline JSON,
+``@path``, or ``flaky``: replica 0 flaps raise/hang), driven on a fake
+clock; every request must end DONE with its tier's no-fault tokens or
+failed with a typed error, and a replica step may raise only what the
+plan injects. ``--slo "ttft_ms p99 < 2000"`` (repeatable,
+``--slo-windows``, ``--slo-min-count``) turns on the burn-rate degradation
+controller, and ``--slo-drain-ticks`` idles the router afterwards so the
+alerts clear. ``--metrics-json PATH`` dumps the ``repro_torch.obs``
+registry snapshot, ``--trace-out PATH`` the span trace (``.jsonl`` one span
+a line, else Chrome ``trace_event`` JSON), ``--metrics-port N`` serves
+Prometheus text on 127.0.0.1:N while the run lasts; either of these two
+turns the kernel hooks (``repro_torch.obs.profile``) on for the run.
+``python -m repro_torch.launch.obs_check`` checks the two files:
+
+  python -m repro_torch.launch.serve --arch minicpm-2b --smoke --device cpu \
+      --slots 2 --requests 8 --max-new 4 --replicas 2 --quantized-replicas 1 \
+      --fault-plan flaky --slo "ttft_ms p99 < 2000" --slo-windows 2,8 \
+      --slo-min-count 2 --slo-drain-ticks 1600 --metrics-json m.json \
+      --trace-out t.jsonl
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import sys
 import time
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch import configs
 from repro_torch.kernels import compat
 from repro_torch.models.model import Model
@@ -82,6 +110,147 @@ def serve(model: Model, params, prompts, *, max_new: int, **server_kw):
         srv.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
     done = srv.run_until_drained(params)
     return srv, done, time.perf_counter() - t0
+
+
+def unplanned_failures(events) -> list:
+    """The replica failures in a router's ``events`` that no fault plan
+    made: a step may raise only the plan's ``InjectedFault``, or a
+    ``RuntimeError`` while an ``exhaust`` fault holds its replica's page pool
+    (between that replica's ``exhaust_begin`` and ``exhaust_end``); a hang is
+    a ``replica_hang``, never a failure. Anything else (an out-of-memory
+    error, a kernel's) is a fault of the program that the router would
+    otherwise absorb as a failover."""
+    drained, bad = set(), []
+    for ev in events:
+        if ev[0] == "exhaust_begin":
+            drained.add(ev[1])
+        elif ev[0] == "exhaust_end":
+            drained.discard(ev[1])
+        elif ev[0] == "replica_failure":
+            _, idx, tick, name = ev
+            if not (name == "InjectedFault"
+                    or (name == "RuntimeError" and idx in drained)):
+                bad.append(f"replica {idx} step raised {name} at tick "
+                           f"{tick}, which no fault plan injected")
+    return bad
+
+
+def serve_router(model: Model, params, prompts, args, server_kw: dict):
+    """The multi-replica path (``--replicas``), as the reference's: returns
+    ``(problems, router)``. Under a fault plan every replica reads the
+    router's fake clock, so latencies and spans follow the fault schedule,
+    and a kernel's first launch costs no fake time."""
+    from repro_torch.serve.faults import FakeClock, FaultPlan
+    from repro_torch.serve.lifecycle import Lifecycle, ServeStallError
+    from repro_torch.serve.router import ReplicaRouter, RouterConfig
+
+    plan = None
+    if args.fault_plan:
+        plan = (FaultPlan.flaky_replica(0) if args.fault_plan == "flaky"
+                else FaultPlan.parse(args.fault_plan))
+    nq = min(args.quantized_replicas, args.replicas)
+    tiers = [i >= args.replicas - nq for i in range(args.replicas)]
+    clock = FakeClock() if plan is not None else None
+    objectives = None
+    if args.slo:
+        fast_s, slow_s = (float(x) for x in args.slo_windows.split(","))
+        objectives = [obs.Objective.parse(
+            spec, fast_window_s=fast_s, slow_window_s=slow_s,
+            min_count=args.slo_min_count) for spec in args.slo]
+
+    def mk(q):
+        return BatchServer(model, device=model.device,
+                           **dict(server_kw, quantized=q), clock=clock)
+
+    servers = [mk(q or args.quantized) for q in tiers]
+    rt = ReplicaRouter(servers, params, fault_plan=plan, clock=clock,
+                       cfg=RouterConfig(
+                           step_timeout_s=5.0, quarantine_s=0.2,
+                           max_retries=4, objectives=objectives,
+                           default_deadline_s=(args.deadline_ms / 1000.0
+                                               if args.deadline_ms else
+                                               None)))
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        rt.submit(Request(rid=i, prompt=p, max_new_tokens=args.max_new,
+                          eos_id=-1))
+    try:
+        recs = rt.drive(max_ticks=50_000)
+    except ServeStallError as e:
+        raise SystemExit(f"FAIL: {e}")
+    # idle ticks so the burn windows expire and the degradation controller
+    # walks back to healthy (obs_check's recovery gate)
+    for _ in range(args.slo_drain_ticks):
+        rt.step()
+    dt = time.perf_counter() - t0
+
+    # the no-fault single-server oracle of each tier that served work
+    want = {}
+    for q in sorted({rec.tier == "int8" for rec in recs.values()
+                     if rec.state is Lifecycle.DONE}):
+        ref = mk(q)
+        for i, p in enumerate(prompts):
+            ref.submit(Request(rid=i, prompt=p, max_new_tokens=args.max_new,
+                               eos_id=-1))
+        want[q] = {r.rid: list(r.out_tokens)
+                   for r in ref.run_until_drained(params)}
+
+    outcomes = rt.outcome_counts()
+    done = [rec for rec in recs.values() if rec.state is Lifecycle.DONE]
+    lat = np.array(sorted(rec.t_done - rec.t_submit for rec in done)) \
+        if done else np.zeros((0,))
+    unit = "fake-s" if clock is not None else "s"
+    mode = (f"router x{args.replicas}"
+            + (f" ({nq} int8 shed targets)" if nq else "")
+            + ("/paged" if args.paged else "")
+            + (f"/faults[{len(plan.faults)}]" if plan is not None else ""))
+    print(f"[{mode}] {len(done)}/{len(prompts)} done in {dt:.2f}s wall, "
+          f"outcomes {outcomes}")
+    if len(lat):
+        print(f"  e2e latency ({unit}): p50={np.percentile(lat, 50):.4f} "
+              f"p99={np.percentile(lat, 99):.4f}")
+    print(f"  router: {rt.stats}")
+    if rt.slo is not None:
+        states = {k: v.name for k, v in rt.slo.states().items()}
+        ctl = {key[0]: int(c.value) for key, c in
+               rt.registry.get("router_controller_total")._children.items()}
+        print(f"  slo: states={states} controller={rt.ctl_state} "
+              f"actions={ctl}")
+
+    problems = []
+    if any(not rec.terminal for rec in recs.values()):
+        problems.append("non-terminal requests after drive()")
+    for rec in recs.values():
+        if rec.state is Lifecycle.DONE:
+            if rec.tokens != want[rec.tier == "int8"][rec.req.rid]:
+                problems.append(
+                    f"rid {rec.req.rid}: tokens diverge from the no-fault "
+                    f"{rec.tier} oracle")
+        elif rec.error is None:
+            problems.append(f"rid {rec.req.rid}: failed without a typed "
+                            f"error ({rec.state.value})")
+    if plan is None and args.deadline_ms is None and len(done) != len(recs):
+        problems.append("requests failed with no faults injected")
+    problems += unplanned_failures(rt.events)
+    for s in servers:
+        if s.paged and s._reserved != 0:
+            problems.append("page reservation ledger did not drain to 0")
+    return problems, rt
+
+
+def write_obs(args, tracer) -> None:
+    """Dump --metrics-json / --trace-out (before the gates fail a run, so a
+    failing run leaves its telemetry behind)."""
+    if args.metrics_json:
+        payload = {"metrics": obs.get_registry().snapshot(),
+                   "compile": obs.compile_snapshot()}
+        with open(args.metrics_json, "w") as f:
+            json.dump(payload, f, indent=1, sort_keys=True)
+        print(f"  obs: metrics -> {args.metrics_json}")
+    if args.trace_out and tracer is not None:
+        tracer.write(args.trace_out)
+        print(f"  obs: trace ({len(tracer.spans)} spans, "
+              f"{tracer.dropped} dropped) -> {args.trace_out}")
 
 
 def main(argv=None):
@@ -128,6 +297,40 @@ def main(argv=None):
                     help="serve the workload again from the contiguous "
                          "cache and require identical tokens (needs "
                          "--paged)")
+    ap.add_argument("--replicas", type=int, default=0, metavar="N",
+                    help="serve through the multi-replica router over N "
+                         "BatchServer replicas (0 = one server, the "
+                         "default)")
+    ap.add_argument("--quantized-replicas", type=int, default=0, metavar="M",
+                    help="make the last M of --replicas int8-FFIP shed "
+                         "targets (graceful degradation under pressure)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request end-to-end deadline for the router "
+                         "path (typed TIMED_OUT past it)")
+    ap.add_argument("--fault-plan", default=None, metavar="JSON|@FILE|flaky",
+                    help="deterministic chaos schedule for the router path "
+                         "(inline JSON, @path, or 'flaky'); runs on a fake "
+                         "clock")
+    ap.add_argument("--slo", action="append", default=None, metavar="SPEC",
+                    help="SLO objective for the router path, repeatable: "
+                         "'ttft_ms p99 < 2000' or 'error_rate < 0.25'; "
+                         "turns on the burn-rate degradation controller")
+    ap.add_argument("--slo-windows", default="5,30", metavar="FAST,SLOW",
+                    help="burn-rate window lengths in (fake) seconds")
+    ap.add_argument("--slo-min-count", type=int, default=3,
+                    help="min samples per window before an SLO can PAGE")
+    ap.add_argument("--slo-drain-ticks", type=int, default=0, metavar="N",
+                    help="idle router ticks after the workload drains, so "
+                         "burn windows expire and the controller recovers")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the repro_torch.obs registry snapshot (+ "
+                         "the compile counters) as JSON at exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the span trace: *.jsonl one span a line, "
+                         "else Chrome trace_event JSON (Perfetto)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="N",
+                    help="serve Prometheus text on 127.0.0.1:N/metrics "
+                         "while the run lasts (0 = a free port)")
     ap.add_argument("--device", default=None,
                     help="default: the card (cuda:0); 'cpu' for the plain "
                          "versions on the host")
@@ -135,7 +338,35 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.compare_contiguous and not args.paged:
         ap.error("--compare-contiguous requires --paged")
+    if args.slo and not args.replicas:
+        ap.error("--slo requires --replicas (the burn-rate degradation "
+                 "controller lives in the router)")
+    # a fresh registry and profiler a run, so --metrics-json holds exactly
+    # this run (servers, routers and kernel hooks resolve the default at
+    # construction); the kernel hooks count only when the run's metrics are
+    # read. All three are put back at the end: the run's registry holds its
+    # router (an SLO window's clock), and through it every replica.
+    prev = (obs.set_registry(obs.Registry()), obs.profile.set_profiler(None),
+            obs.profile.enable(bool(args.metrics_json)
+                               or args.metrics_port is not None))
+    httpd = None
+    try:
+        if args.metrics_port is not None:
+            httpd = obs.start_metrics_server(obs.get_registry(),
+                                             port=args.metrics_port)
+            print(f"metrics: http://{httpd.server_address[0]}:"
+                  f"{httpd.server_address[1]}/metrics")
+        _run(args)
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        obs.set_registry(prev[0])
+        obs.profile.set_profiler(prev[1])
+        obs.profile.enable(prev[2])
 
+
+def _run(args) -> None:
     cfg = configs.get_config(args.arch)
     if args.smoke:
         cfg = configs.smoke_config(cfg)
@@ -157,8 +388,19 @@ def main(argv=None):
                     paged_attention=args.paged_attention) if args.paged else {}
 
     compat.reset_counters()
+    if args.replicas:
+        problems, rt = serve_router(model, params, prompts, args,
+                                    dict(server_kw, **paged_kw))
+        print(f"  kernel launches: {compat.launch_counts()}")
+        write_obs(args, rt.tracer)
+        if problems:
+            print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
+            raise SystemExit(1)
+        print("OK")
+        return
     srv, done, dt = serve(model, params, prompts, max_new=args.max_new,
                           **server_kw, **paged_kw)
+    write_obs(args, srv.tracer)
     total = sum(len(r.out_tokens) for r in done)
     st = srv.stats
     algo = (args.gemm_algo if args.quantized or args.gemm_impl == "cuda"

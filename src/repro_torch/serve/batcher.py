@@ -38,28 +38,41 @@ interleaved with the decode dispatch. ``paged_attention="flash"`` attends
 through the paged kernel (K5); ``"gather"`` runs the contiguous decode math
 over a gathered view, so its tokens match ``paged=False``.
 
-Meshes, prepared artifacts and the ``repro.obs`` hooks come in later slices;
-asking for one raises ``NotImplementedError``. Until the obs port,
-:attr:`BatchServer.events` is a bounded list of dispatch tuples instead of
-a view of the span ring.
+**Observability** (``repro_torch.obs``, as the reference's): every time
+read goes through the injected ``clock`` (default
+:func:`repro_torch.obs.default_clock`), so a ``FakeClock`` makes stats,
+histograms and span timestamps deterministic. The server mirrors its work
+into ``serve_*`` counters and histograms labelled ``{replica, phase}``,
+windowed TTFT and inter-token latency labelled ``{replica, tier}``
+(``obs_window_s``), and request / prefill / prefill_chunk / decode spans in
+a bounded ring (``trace_capacity``); :attr:`BatchServer.events` is a view
+of that ring. The reference's ``serve_compiles_total`` and ``compiles``
+count jit traces; the port dispatches eagerly and has neither. The router
+(:mod:`repro_torch.serve.router`) relabels each replica with
+:meth:`BatchServer.set_obs_labels` and reads :meth:`free_slots`,
+:meth:`outstanding_rows`, :meth:`page_headroom` and :meth:`request_phase`.
+
+Meshes and prepared artifacts come in later slices; asking for one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core.gemm import GemmConfig, use_gemm
 from repro_torch.core.quant import attach_quantized_weights
 from repro_torch.kernels import compat, ffip_gemm
 from repro_torch.kernels.compat import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
+from repro_torch.obs.trace import Tracer
 from repro_torch.serve.lifecycle import (AdmissionImpossibleError,
                                          ServeStallError)
 from repro_torch.serve.paged import (PageAllocator, PrefixIndex, page_keys,
@@ -68,7 +81,6 @@ from repro_torch.serve.paged import (PageAllocator, PrefixIndex, page_keys,
 Tensor = torch.Tensor
 
 _MIN_BUCKET = 4
-_EVENT_CAPACITY = 4096   # the reference tracer's default ring capacity
 
 
 def _ffip_weights(node, quantized: bool):
@@ -153,10 +165,10 @@ class BatchServer:
                  paged_attention: str = "gather",
                  prefix_sharing: bool = True, mesh=None,
                  moe_partition: Optional[str] = None, prepared=None,
-                 registry=None, tracer=None,
-                 clock: Optional[Callable[[], float]] = None):
-        for name, val in (("mesh", mesh), ("prepared", prepared),
-                          ("registry", registry), ("tracer", tracer)):
+                 clock: Optional[Callable[[], float]] = None,
+                 registry=None, tracer=None, trace_capacity: int = 4096,
+                 obs_window_s: float = 30.0):
+        for name, val in (("mesh", mesh), ("prepared", prepared)):
             if val:
                 raise NotImplementedError(
                     f"BatchServer({name}=...) is not ported yet "
@@ -179,9 +191,21 @@ class BatchServer:
         self.max_len = max_len
         self.decode_chunk = decode_chunk
         self.paged = paged
-        self.quantized = quantized
+        self.quantized = quantized   # the router's tier tag (shed policy)
         self.tier = "int8" if quantized else "float"
-        self._clock = clock if clock is not None else time.perf_counter
+        self.obs_window_s = obs_window_s  # sliding-window span for TTFT/ITL
+        # every time read goes through `_clock`: inject a FakeClock (as the
+        # router takes) and stats, histograms and spans run on fake time
+        self._clock = clock if clock is not None else obs.default_clock
+        self.registry = (registry if registry is not None
+                         else obs.get_registry())
+        self.tracer = tracer if tracer is not None else Tracer(
+            clock=self._clock, capacity=trace_capacity)
+        # the router relabels per replica (set_obs_labels) and sets
+        # trace_requests=False: it owns the per-rid root "request" span
+        self.trace_requests = True
+        self._req_spans: Dict[int, Any] = {}
+        self.set_obs_labels({"replica": "solo"})
         self.slots = [_Slot() for _ in range(batch_slots)]
         self._queue: "collections.deque[Request]" = collections.deque()
         self._completed: List[Request] = []
@@ -193,10 +217,6 @@ class BatchServer:
         self._result_cache_size = 1024
         self._dup_waiters: Dict[int, List[Request]] = {}
         self._cached_hits: List[Request] = []
-        # dispatch order: ("prefill_chunk", rid, start, end) and
-        # ("decode", (rids...)) tuples, bounded like the reference's ring
-        self._events: "collections.deque[Tuple]" = collections.deque(
-            maxlen=_EVENT_CAPACITY)
         if paged:
             if page_size < 1 or (page_size & (page_size - 1)):
                 raise ValueError(f"page_size must be a power of two, "
@@ -250,7 +270,13 @@ class BatchServer:
 
     @staticmethod
     def _fresh_stats() -> Dict[str, Any]:
-        """Per-drain statistics (reset by :meth:`run_until_drained`)."""
+        """Per-drain statistics: :meth:`run_until_drained` replaces
+        ``self.stats`` with a fresh copy at entry, so after a drain it
+        describes that drain only (``pages_peak`` is the peak within it; the
+        allocator's lifetime peak is ``alloc.peak_in_use``). What spans
+        drains lives in the ``repro_torch.obs`` metrics (``self.registry``)
+        and the span ring (``self.tracer``). :meth:`step`, as the router
+        calls it, resets nothing."""
         return {"prefill_s": 0.0, "decode_s": 0.0, "steps": 0,
                 "prefill_tokens": 0, "decode_tokens": 0,
                 "prefill_dispatches": 0, "decode_dispatches": 0,
@@ -261,12 +287,83 @@ class BatchServer:
                 "prefix_hit_tokens": 0, "cow_copies": 0,
                 "pages_in_use": 0, "pages_peak": 0}
 
+    # -- observability ------------------------------------------------------
+    def set_obs_labels(self, labels: Dict[str, str]) -> None:
+        """(Re)bind this server's metric children. Standalone servers carry
+        ``{"replica": "solo"}``; the router rebinds each to its index."""
+        self.obs_labels = dict(labels)
+        r = self.registry
+        rep = self.obs_labels.get("replica", "solo")
+        lab = ("replica", "phase")
+        self._m_dispatch = {
+            p: r.counter("serve_dispatches_total",
+                         "device dispatches", lab).labels(replica=rep,
+                                                          phase=p)
+            for p in ("prefill", "decode")}
+        self._m_tokens = {
+            p: r.counter("serve_tokens_total",
+                         "tokens prefilled / decoded", lab).labels(
+                             replica=rep, phase=p)
+            for p in ("prefill", "decode")}
+        self._m_dispatch_s = {
+            p: r.histogram("serve_dispatch_seconds",
+                           "wall time per device dispatch", lab).labels(
+                               replica=rep, phase=p)
+            for p in ("prefill", "decode")}
+        self._m_host_bytes = {
+            p: r.counter("serve_host_bytes_total",
+                         "bytes crossing the device->host boundary", lab)
+            .labels(replica=rep, phase=p)
+            for p in ("prefill", "decode", "page_tables")}
+        self._m_e2e = r.histogram(
+            "serve_request_e2e_seconds", "submit -> done", ("replica",)
+        ).labels(replica=rep)
+        self._m_ttft = r.histogram(
+            "serve_request_ttft_seconds", "submit -> first token",
+            ("replica",)).labels(replica=rep)
+        self._m_pages = r.gauge(
+            "serve_pages_in_use", "page-pool pages currently referenced",
+            ("replica",)).labels(replica=rep)
+        self._m_prefix_hits = r.counter(
+            "serve_prefix_hit_tokens_total",
+            "prompt tokens skipped via prefix sharing", ("replica",)
+        ).labels(replica=rep)
+        self._m_cow = r.counter(
+            "serve_cow_copies_total", "copy-on-write page copies",
+            ("replica",)).labels(replica=rep)
+        # the SLO-facing latencies over the last `obs_window_s` seconds,
+        # labelled by replica AND tier so a mixed fleet reads per-tier
+        # percentiles off one family
+        wlab = ("replica", "tier")
+        self._w_ttft = r.windowed_histogram(
+            "serve_ttft_window_seconds",
+            "submit -> first token, sliding window", wlab,
+            window_s=self.obs_window_s, clock=self._clock
+        ).labels(replica=rep, tier=self.tier)
+        self._w_itl = r.windowed_histogram(
+            "serve_itl_window_seconds",
+            "per-token inter-token latency, sliding window", wlab,
+            window_s=self.obs_window_s, clock=self._clock
+        ).labels(replica=rep, tier=self.tier)
+
     @property
     def events(self) -> List[Tuple]:
-        """Dispatch interleaving, oldest first: ``("prefill_chunk", rid,
-        start, end)`` and ``("decode", (rids...))`` tuples, the last 4096
-        of the server's life (not reset per drain)."""
-        return list(self._events)
+        """Dispatch interleaving, oldest first, reconstructed from the span
+        ring: ``("prefill_chunk", rid, start, end)`` and ``("decode",
+        (rids...))`` tuples. Bounded by the tracer's capacity."""
+        out: List[Tuple] = []
+        for s in self.tracer.spans:
+            if s.name == "prefill_chunk":
+                out.append(("prefill_chunk", s.attrs["rid_int"],
+                            s.attrs["start"], s.attrs["end"]))
+            elif s.name == "decode" and "rids" in s.attrs:
+                out.append(("decode", tuple(s.attrs["rids"])))
+        return out
+
+    def _end_req_span(self, rid: int, **attrs) -> None:
+        span = self._req_spans.pop(rid, None)
+        if span is not None:
+            self.tracer.end(span, **attrs)
 
     # -- GEMM scope and run-ready params ------------------------------------
     def _gemm_scope(self):
@@ -369,10 +466,15 @@ class BatchServer:
                     f"prompt/budget than its cached completion")
             req.out_tokens = list(toks)
             req.t_first = req.t_done = self._clock()
+            self.tracer.event("request", rid=str(req.rid), cached=True)
             self._cached_hits.append(req)
             return
         req.out_tokens = []
         req.itl_s = []
+        if self.trace_requests and req.rid not in self._req_spans:
+            self._req_spans[req.rid] = self.tracer.start(
+                "request", rid=str(req.rid), prompt=len(req.prompt),
+                max_new_tokens=req.max_new_tokens)
         self._queue.append(req)
 
     def has_queued(self) -> bool:
@@ -380,6 +482,10 @@ class BatchServer:
 
     def _finish(self, req: Request):
         req.t_done = self._clock()
+        self._m_e2e.observe(req.t_done - req.t_submit)
+        if req.t_first:
+            self._m_ttft.observe(req.t_first - req.t_submit)
+        self._end_req_span(req.rid, tokens=len(req.out_tokens))
         self._completed.append(req)
         self._results[req.rid] = (self._req_key(req), list(req.out_tokens))
         self._results.move_to_end(req.rid)
@@ -393,6 +499,8 @@ class BatchServer:
             self._completed.append(w)
 
     def take_completed(self) -> List[Request]:
+        """Drain the completion list (the router's per-tick collection;
+        :meth:`run_until_drained` keeps accumulating instead)."""
         done, self._completed = self._completed, []
         return done
 
@@ -421,7 +529,25 @@ class BatchServer:
                     break
         for w in self._dup_waiters.pop(rid, []):
             self._queue.appendleft(w)
+        if found:
+            self._end_req_span(rid, aborted=True)
         return found
+
+    # -- router-facing load/health introspection ---------------------------
+    def free_slots(self) -> int:
+        return sum(1 for s in self.slots if s.req is None)
+
+    def outstanding_rows(self) -> int:
+        """Worst-case cache rows committed to requests this server holds
+        (slots + internal queue): the router's least-loaded metric."""
+        rows = 0
+        for s in self.slots:
+            if s.req is not None:
+                rows += self.cache_rows(len(s.req.prompt),
+                                        s.req.max_new_tokens)
+        for r in self._queue:
+            rows += self.cache_rows(len(r.prompt), r.max_new_tokens)
+        return rows
 
     def page_headroom(self) -> Optional[int]:
         """Upper bound on pages a NEW request could still claim: free pages
@@ -448,6 +574,7 @@ class BatchServer:
     def _place(self, slot_i: int, req: Request, first: int):
         req.out_tokens.append(first)
         req.t_first = self._clock()
+        self._w_ttft.observe(req.t_first - req.t_submit)
         slot = self.slots[slot_i]
         if req.max_new_tokens <= 1 or first == req.eos_id:
             self._finish(req)          # done at prefill: slot stays free
@@ -497,6 +624,8 @@ class BatchServer:
             lengths[slot_i] = n
             mask[slot_i] = True
             self.stats["prefill_tokens"] += n
+        span = self.tracer.start("prefill", bucket=bucket,
+                                 rids=[r.rid for r in batch])
         t0 = self._clock()
         dev = self.device
         with self._gemm_scope():
@@ -505,9 +634,15 @@ class BatchServer:
                 torch.from_numpy(lengths).to(dev),
                 torch.from_numpy(mask).to(dev))
         first_h = first.cpu().numpy()
-        self.stats["prefill_s"] += self._clock() - t0
+        dt = self._clock() - t0
+        self.tracer.end(span)
+        self.stats["prefill_s"] += dt
         self.stats["prefill_dispatches"] += 1
         self.stats["host_bytes_prefill"] += int(first_h.nbytes)
+        self._m_dispatch["prefill"].inc()
+        self._m_dispatch_s["prefill"].observe(dt)
+        self._m_tokens["prefill"].inc(sum(len(r.prompt) for r in batch))
+        self._m_host_bytes["prefill"].inc(int(first_h.nbytes))
         for slot_i, req in zip(free, batch):
             self._place(slot_i, req, int(first_h[slot_i]))
 
@@ -519,6 +654,8 @@ class BatchServer:
         dev = self.device
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=dev)[None]
+        span = self.tracer.start("prefill", rid=str(req.rid),
+                                 tokens=len(req.prompt))
         t0 = self._clock()
         with self._gemm_scope():
             one, logits = self.model.prefill(
@@ -527,10 +664,16 @@ class BatchServer:
                 full[:, slot_i].copy_(part[:, 0])
             first = torch.argmax(logits[0]).to(torch.int32)
         first_h = int(first)
-        self.stats["prefill_s"] += self._clock() - t0
+        dt = self._clock() - t0
+        self.tracer.end(span)
+        self.stats["prefill_s"] += dt
         self.stats["prefill_tokens"] += len(req.prompt)
         self.stats["prefill_dispatches"] += 1
         self.stats["host_bytes_prefill"] += 4
+        self._m_dispatch["prefill"].inc()
+        self._m_dispatch_s["prefill"].observe(dt)
+        self._m_tokens["prefill"].inc(len(req.prompt))
+        self._m_host_bytes["prefill"].inc(4)
         self._place(slot_i, req, first_h)
 
     # -- paged mode --------------------------------------------------------
@@ -596,6 +739,8 @@ class BatchServer:
             return False
         self._reserved += worst
         self.stats["prefix_hit_tokens"] += hit
+        if hit:
+            self._m_prefix_hits.inc(hit)
         seq = _PagedSeq(
             n=n, pages=attached, keys=keys, pkey=pkey, filled=hit,
             # a fully shared prompt still recomputes its LAST token (the
@@ -640,6 +785,7 @@ class BatchServer:
                 self.alloc.decref(old)
                 seq.pages[li] = new
                 self.stats["cow_copies"] += 1
+                self._m_cow.inc()
 
     def _register_prefix(self, seq: _PagedSeq, upto_rows: int):
         """Publish every FULL prompt page whose rows are all filled."""
@@ -679,6 +825,7 @@ class BatchServer:
         for i, seq in seqs:
             pt[i, :len(seq.pages)] = seq.pages
         self.stats["host_bytes_page_tables"] += int(pt.nbytes)
+        self._m_host_bytes["page_tables"].inc(int(pt.nbytes))
         return torch.from_numpy(pt).to(self.device)
 
     def _prefill_tick(self, params) -> int:
@@ -697,7 +844,9 @@ class BatchServer:
             self._ensure_pages(slot, max(start, seq.filled), end)
             tokens = np.zeros((1, chunk), np.int64)
             tokens[0, :end - start] = slot.req.prompt[start:end]
-            self._events.append(("prefill_chunk", slot.req.rid, start, end))
+            span = self.tracer.start("prefill_chunk", rid=str(slot.req.rid),
+                                     rid_int=slot.req.rid, start=start,
+                                     end=end)
             t0 = self._clock()
             pt = self._page_table(1, [(0, seq)])
             with self._gemm_scope():
@@ -709,10 +858,16 @@ class BatchServer:
             if last_chunk:                 # the token means something here
                 first = int(tok)
                 self.stats["host_bytes_prefill"] += 4
-            self.stats["prefill_s"] += self._clock() - t0
+                self._m_host_bytes["prefill"].inc(4)
+            dt = self._clock() - t0
+            self.tracer.end(span)
+            self.stats["prefill_s"] += dt
             self.stats["prefill_tokens"] += end - start
             self.stats["prefill_dispatches"] += 1
             self.stats["prefill_chunks"] += 1
+            self._m_dispatch["prefill"].inc()
+            self._m_dispatch_s["prefill"].observe(dt)
+            self._m_tokens["prefill"].inc(end - start)
             seq.compute_next = end
             seq.filled = max(seq.filled, end)
             self._register_prefix(seq, seq.filled)
@@ -724,6 +879,7 @@ class BatchServer:
     def _refresh_page_stats(self):
         self.stats["pages_in_use"] = self.alloc.in_use
         self.stats["pages_peak"] = self.alloc.peak_in_use
+        self._m_pages.set(self.alloc.in_use)
 
     # -- decode ------------------------------------------------------------
     def step(self, params) -> int:
@@ -760,8 +916,9 @@ class BatchServer:
         # frozen slots rewrite their own row with unchanged values
         # (contiguous) or write nothing (paged: pool rows may be shared).
         dev = self.device
-        self._events.append(("decode",
-                             tuple(self.slots[i].req.rid for i in active)))
+        span = self.tracer.start(
+            "decode", rids=[self.slots[i].req.rid for i in active],
+            chunk=self.decode_chunk)
         pt = None
         if self.paged:
             for i in active:
@@ -782,9 +939,13 @@ class BatchServer:
                 paged_impl=self.paged_attention if self.paged else "gather")
         toks_h = toks.cpu().numpy().astype(np.int32)     # (chunk, B)
         dt = self._clock() - t0
+        self.tracer.end(span)
         self.stats["decode_s"] += dt
         self.stats["decode_dispatches"] += 1
         self.stats["host_bytes_decode"] += int(toks_h.nbytes)
+        self._m_dispatch["decode"].inc()
+        self._m_dispatch_s["decode"].observe(dt)
+        self._m_host_bytes["decode"].inc(int(toks_h.nbytes))
         # replay the device's (eos, remaining) bookkeeping to see which of
         # the chunk's tokens were emitted; each is charged dt / chunk.
         step_dt = dt / toks_h.shape[0]
@@ -796,6 +957,7 @@ class BatchServer:
                     continue
                 nxt = int(toks_h[j, i])
                 slot.req.out_tokens.append(nxt)
+                self._w_itl.observe(step_dt)
                 if slot.req.itl_s is not None:
                     slot.req.itl_s.append(step_dt)
                 slot.pos += 1
@@ -809,6 +971,7 @@ class BatchServer:
             if emitted:
                 self.stats["steps"] += 1
                 self.stats["decode_tokens"] += emitted
+                self._m_tokens["decode"].inc(emitted)
         if self.paged:
             self._refresh_page_stats()
         return len(active) + prefill_work

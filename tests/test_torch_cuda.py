@@ -25,6 +25,9 @@ gradients bit for bit. K5's rows are bit for bit the same whatever chunk
 or batch they sit in. K3's carry-table kernel is bit for bit (the plain
 version's adds in its order). Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
+``repro_torch.obs.profile`` counts a GEMM inside a CUDA graph capture as a
+trace, not a dispatch, and one cell of the router's fault matrix ends
+token-identical to its no-fault oracle on the card.
 """
 import numpy as np
 import pytest
@@ -950,3 +953,93 @@ def test_paged_kernel_pixtral_widths_match_plain(dev, dtype, sq):
                                want.float().cpu().numpy(), rtol=tol,
                                atol=tol)
     assert torch.count_nonzero(o[0]) == 0
+
+
+# --- repro_torch.obs and the router on the card ----------------------------
+
+def test_matmul_in_graph_capture_counts_a_trace_not_a_dispatch(dev):
+    """``obs.profile`` counts an eager ``ops.matmul`` on the card as a
+    dispatch; the same call inside a CUDA graph capture runs its Python body
+    once for every replay to come, so it counts as a trace (the reference's
+    call under JAX tracing), and replays count nothing."""
+    from repro_torch.obs import Registry
+    from repro_torch.obs import profile as obs_profile
+    prev = obs_profile.set_profiler(obs_profile.KernelProfiler(Registry()))
+    on = obs_profile.enable(True)
+    try:
+        prof = obs_profile.get_profiler()
+        a, b = _operands(16, 256, 384, torch.bfloat16, dev)
+        lab = dict(kernel="gemm", algo="ffip", dtype="bfloat16")
+        with torch.no_grad():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                want = ops.matmul(a, b, algo="ffip")     # eager, off capture
+            torch.cuda.current_stream().wait_stream(side)
+            assert prof.dispatches.labels(**lab).value == 1.0
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = ops.matmul(a, b, algo="ffip")
+            for _ in range(3):
+                graph.replay()
+            torch.cuda.synchronize()
+        assert prof.traces.labels(**lab).value == 1.0
+        assert prof.dispatches.labels(**lab).value == 1.0
+        assert torch.equal(got, want)
+    finally:
+        obs_profile.set_profiler(prev)
+        obs_profile.enable(on)
+
+
+def test_router_fault_case_on_card_matches_no_fault_oracle(dev):
+    """One cell of the fault matrix on the card: the minicpm-2b smoke model
+    in bf16, two float replicas through K3 and K4 under the ``raise`` plan
+    of tests/test_serve_router.py, on a FakeClock. Every request ends DONE
+    with the tokens of a no-fault single server on the card (K1-K3 are
+    batch-invariant and greedy decode deterministic)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import unplanned_failures
+    from repro_torch.models.model import Model
+    from repro_torch.obs import Registry
+    from repro_torch.serve.batcher import BatchServer, Request
+    from repro_torch.serve.faults import FakeClock, FaultPlan, FaultSpec
+    from repro_torch.serve.router import ReplicaRouter, RouterConfig
+    cfg = dataclasses.replace(configs.smoke_config(configs.get_config(
+        "minicpm-2b")), param_dtype="bfloat16")
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=(n,))
+               for n in (3, 7, 5, 9, 4, 6)]
+    kw = dict(batch_slots=2, max_len=48, gemm_algo="ffip", gemm_impl="cuda",
+              device=dev, registry=Registry())
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=5, eos_id=-1)
+                for i, p in enumerate(prompts)]
+
+    solo = BatchServer(model, **kw)
+    for r in reqs():
+        solo.submit(r)
+    want = {r.rid: list(r.out_tokens)
+            for r in solo.run_until_drained(params)}
+    plan = FaultPlan([FaultSpec(kind="raise", replica=0, at_dispatch=1,
+                                duration=2)], seed=3)
+    clock = FakeClock()
+    compat.reset_counters()
+    rt = ReplicaRouter([BatchServer(model, clock=clock, **kw)
+                        for _ in range(2)], params, fault_plan=plan,
+                       clock=clock, registry=kw["registry"],
+                       cfg=RouterConfig(step_timeout_s=5.0, quarantine_s=0.2,
+                                        max_retries=4))
+    for r in reqs():
+        rt.submit(r)
+    rt.drive(max_ticks=2000)
+    counts = compat.launch_counts()
+    assert rt.outcome_counts() == {"done": len(prompts)}
+    assert rt.stats["replica_failures"] >= 1
+    assert unplanned_failures(rt.events) == []
+    assert rt.completed_tokens() == want
+    assert counts["ffip_gemm_y"] > 0 and counts["flash_fwd"] > 0

@@ -1,8 +1,10 @@
-"""The port stands alone: importing every module of repro_torch pulls in
+"""The port stands alone: importing every module of repro_torch (the
+observability package, the router and the fault plans included) pulls in
 neither JAX nor the reference package (nor ml_dtypes), and its entry points
-(the LM models, dense and SSM, the server, the vision models and launcher,
-the training loop and launcher) default to the card, raising (not falling
-back to the CPU) when there is none."""
+(the LM models, dense and SSM, the server, the serve launcher with its
+router, the vision models and launcher, the training loop and launcher)
+default to the card, raising (not falling back to the CPU) when there is
+none."""
 import os
 import pathlib
 import subprocess
@@ -25,12 +27,19 @@ assert len(names) >= 20, names
 for name in ("repro_torch.optim.adamw", "repro_torch.data.pipeline",
              "repro_torch.ckpt.manager", "repro_torch.watchdog",
              "repro_torch.train.watchdog", "repro_torch.train.step",
-             "repro_torch.train.loop", "repro_torch.launch.train"):
+             "repro_torch.train.loop", "repro_torch.launch.train",
+             "repro_torch.core.analytical", "repro_torch.obs",
+             "repro_torch.obs.metrics", "repro_torch.obs.trace",
+             "repro_torch.obs.window", "repro_torch.obs.slo",
+             "repro_torch.obs.profile", "repro_torch.serve.router",
+             "repro_torch.serve.faults", "repro_torch.serve.lifecycle",
+             "repro_torch.launch.obs_check", "repro_torch.launch.dash"):
     assert name in names, name
 
 import torch
 from repro_torch import configs
 from repro_torch.kernels import compat
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.launch import vision as launch_vision
 from repro_torch.models.model import Model
@@ -51,7 +60,9 @@ for make in (lambda: Model(cfg), lambda: Model(ssm),
              lambda: train_loop.train(Model(cfg),
                                       loop_cfg=train_loop.LoopConfig()),
              lambda: launch_train.main(["--arch", "minicpm-2b", "--smoke",
-                                        "--steps", "1"])):
+                                        "--steps", "1"]),
+             lambda: launch_serve.main(["--arch", "minicpm-2b", "--smoke",
+                                        "--replicas", "2"])):
     try:
         make()
     except RuntimeError as e:

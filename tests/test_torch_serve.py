@@ -139,10 +139,16 @@ def test_launch_serve_cli_on_cpu(capsys):
 
 
 def test_unported_options_raise():
+    """mesh= and prepared= wait for their slices; registry= and tracer=
+    (the repro_torch.obs hooks) are taken."""
+    from repro_torch.obs import Registry, Tracer
     cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
     m = Model(cfg, device="cpu")
-    for kw in ({"mesh": object()}, {"prepared": object()},
-               {"registry": object()}, {"tracer": object()}):
+    for kw in ({"mesh": object()}, {"prepared": object()}):
         with pytest.raises(NotImplementedError):
             BatchServer(m, batch_slots=1, max_len=8, device="cpu", **kw)
+    reg, tracer = Registry(), Tracer()
+    srv = BatchServer(m, batch_slots=1, max_len=8, device="cpu",
+                      registry=reg, tracer=tracer)
+    assert srv.registry is reg and srv.tracer is tracer
     assert torch.device("cpu") == m.device
