@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    shapes: the GEMMs K1-K3 at minicpm-2b's M in {4, 512} x (K, N) in
    {(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753)} and
    falcon-mamba-7b's M in {4, 128} x (K, N) in {(4096, 16384), (8192, 288),
-   (256, 8192), (8192, 4096), (4096, 65024)}, in bf16 (beta unfolded) and
+   (256, 8192), (8192, 4096), (4096, 65024)}, gemma3-4b's unembed and
+   zamba2-1.2b's dtp and bc_proj at decode (M 4; (2560, 262144), (2048,
+   64), (2048, 128)), in bf16 (beta unfolded) and
    int8 (beta folded, as the int8 dense layer calls them); the flash kernel
    K4 at BH = 4 x 36 over the prefill buckets S in {16, 32, 64, 128} and
    the trained S 256 (d 64, causal), d 128, d 40, a window of 32 and
@@ -216,7 +218,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a middle decoder layer's cross wk and wv, each taken from the next
    layer's; pixtral: a middle layer's attn.wo from the next, and the same
    prompts prefilled without their patches) must read above them.
-15. Print the kernels line (JSON), then the result line.
+15. The Mamba2 + shared attention hybrid (phase hybrid): zamba2-1.2b at its
+   published widths and all 38 layers (6 groups of 6 Mamba2 layers, each
+   group followed by the one shared GQA block, then a tail of 2), bf16,
+   random weights from --seed, served as in 4. with ffip, fip, baseline and
+   int8 ffip: every prompt in its own scatter-prefill dispatch (the state
+   has no sequence axis to bucket), each dispatch launching K4 once per
+   group (6) and decode none; K5, K6 and K7 never. Tokens against the plain
+   path (plain GEMMs or int8 algebra, plain attention, the same SSD code)
+   under the same bars, with a middle Mamba2 layer's ssm.out_proj taken
+   from the next layer the planted fault; one 128-token prefill and one
+   decode step profiled. Then trained as in 11. at batch 2 x 256 (K4 = K8
+   = 6 a step) with its gradient reading at HYBRID_GRAD_LAYERS layers.
+16. Print the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -278,14 +292,16 @@ def pair_ms(adds: float, mads: float, integer: bool) -> float:
 # (M 4) and prefill (M 512); falcon-mamba-7b's in_proj, x_proj (N 288, not a
 # multiple of 64), dt_proj (K 256: 16 FFIP splits), out_proj and tied logits
 # at decode (M 4) and at a 128-token prompt (M 128); gemma3-4b's tied
-# unembed (N 262144, the widest the port serves) at decode
+# unembed (N 262144, the widest the port serves) at decode; zamba2-1.2b's
+# narrowest projections at decode, dtp (N 64, one column a head) and
+# bc_proj (N 128, B and C)
 GEMM_CASES = tuple(
     (m, k, n) for ms, kns in (
         ((4, 512), ((2304, 2304), (2304, 5760), (5760, 2304),
                     (2304, 122753))),
         ((4, 128), ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
                     (4096, 65024))),
-        ((4,), ((2560, 262144),)))
+        ((4,), ((2560, 262144), (2048, 64), (2048, 128))))
     for m in ms for k, n in kns)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # K4 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36
@@ -555,6 +571,13 @@ FAMILY_RUNS = (
 # layers (10.1 B) take about 67 GiB of the card's 79. whisper is trained at
 # WHISPER_TRAIN: batch 2 x 448 decoder tokens (its decoder's length) over
 # 1500 frames.
+# phase hybrid: zamba2-1.2b at its published widths and all 38 layers (1.06
+# B parameters, 2.1 GB in bf16), trained at HYBRID_TRAIN (bf16 params and
+# grads and f32 AdamW moments: ~13 GB); its gradient reading at 2 groups of
+# 6 Mamba2 layers, each with its shared attention block.
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_TRAIN = (2, 256)
+HYBRID_GRAD_LAYERS = 12
 ENCDEC_ROWS = 4
 WHISPER_PROMPT = 32
 PIXTRAL_LAYERS = 32
@@ -2475,18 +2498,19 @@ def vision_step(dev, seed: int):
     return lambda: vm.apply(model, params, x)
 
 
-def ssm_steps(model, params, prompt_len: int = 128):
-    """One falcon-mamba prefill of a ``prompt_len``-token prompt (the
-    scatter prefill's batch-1 forward) and one decode step over 4 slots."""
+def ssm_steps(model, params, prompt_len: int = 128, tag: str = "falcon"):
+    """One prefill of a ``prompt_len``-token prompt (the scatter prefill's
+    batch-1 forward) and one decode step over 4 slots, of an SSM or hybrid
+    model."""
     dev = model.device
     cache = model.init_cache(4, 256)
     prompt = torch.zeros((1, prompt_len), dtype=torch.long, device=dev)
     ids = torch.zeros((4, 1), dtype=torch.long, device=dev)
     pos = torch.full((4,), prompt_len, dtype=torch.long, device=dev)
     return {
-        "falcon prefill": lambda: model.prefill(
+        f"{tag} prefill": lambda: model.prefill(
             params, prompt, model.init_cache(1, 256)),
-        "falcon decode_step": lambda: model.sample_step(params, ids, cache,
+        f"{tag} decode_step": lambda: model.sample_step(params, ids, cache,
                                                         pos),
     }
 
@@ -3203,22 +3227,24 @@ def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
+def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int,
+                 layers: int = IDENTITY_LAYERS):
     """One step's loss and per-stacked-leaf gradient relative L2 error
     through the kernels against the plain path (plain attention; for MLA
     the flash Function's plain versions, with the kernel side's expert
     choices; or autograd through the plain f32 recurrence) at the first
-    IDENTITY_LAYERS
-    layers, same weights and batch; then the same reading of a planted
-    fault on the kernel side. Returns (largest sound reading, the fault's
-    reading)."""
+    ``layers`` layers, same weights and batch; then the same reading of a
+    planted fault on the kernel side (a middle layer's output projection,
+    for the hybrid a Mamba2 layer's, taken from the next layer). Returns
+    (largest sound reading, the fault's reading)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import Model
 
-    n_id = min(IDENTITY_LAYERS, cfg.n_layers)
+    n_id = min(layers, cfg.n_layers)
     cfg_id = dataclasses.replace(cfg, n_layers=n_id)
     model = Model(cfg_id)
     params = model.init(seed)
+    stack = "layers"
     data = SyntheticLM(DataConfig(global_batch=batch_size, seq_len=seq,
                                   vocab=cfg.vocab, seed=seed)).batch_at(0)
     batch = {k: torch.from_numpy(v).to(model.device)
@@ -3240,6 +3266,8 @@ def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
         plain_model = Model(dataclasses.replace(cfg_id,
                                                 attention_impl="naive"))
         scope, group, name = contextlib.nullcontext, "attn", "wo"
+        if cfg.family == "hybrid":
+            stack, group, name = "hybrid_groups", "ssm", "out_proj"
     # an MoE model's plain side takes the kernel side's expert choices
     # (``routing``), the planted fault's run as the sound one's
     moe = cfg.moe is not None
@@ -3249,8 +3277,9 @@ def grad_reading(arch: str, cfg, seed: int, batch_size: int, seq: int):
         loss_p, g_p = one_step_grads(plain_model, params, batch)
     sound = {k: _rel_l2(g_k[k], g_p[k]) for k in g_p}
     del g_k
-    label, faulty = wrong_layer(params, group, name,
-                                params["layers"][group][name]["w"].shape[0])
+    label, faulty = next_layer_fault(
+        params, [(stack, group, name, "w")],
+        params[stack][group][name]["w"].shape[0])
     with routing() as chosen:
         loss_f, g_f = one_step_grads(model, faulty, batch)
     if moe:
@@ -3344,11 +3373,14 @@ def run_train(args, problems, runs=TRAIN_RUNS, witness: bool = True):
               f"batch {batch_size} x seq {seq}, {TRAIN_STEPS} AdamW steps "
               f"(lr {TRAIN_LR}, WSD, warmup 2), weights from seed "
               f"{args.seed}", flush=True)
+        # attention layers: the hybrid's one shared block runs once a group
+        n_attn = (n_layers // cfg.hybrid_attn_period
+                  if cfg.family == "hybrid" else n_layers)
         if cfg.family == "ssm":
             want = {"selective_scan": n_layers, "selective_scan_bwd": n_layers,
                     "flash_fwd": 0, "flash_bwd": 0}
         else:
-            want = {"flash_fwd": n_layers, "flash_bwd": n_layers,
+            want = {"flash_fwd": n_attn, "flash_bwd": n_attn,
                     "selective_scan": 0, "selective_scan_bwd": 0}
         want.update({k: 0 for k in TRAIN_OTHER_KERNELS})
         marks = []
@@ -3425,8 +3457,10 @@ def run_train(args, problems, runs=TRAIN_RUNS, witness: bool = True):
                             counts=counts, profile=prof))
         del out, model, batch
         free_device()
-        readings.append((arch, *grad_reading(arch, cfg, args.seed,
-                                             batch_size, seq)))
+        readings.append((arch, *grad_reading(
+            arch, cfg, args.seed, batch_size, seq,
+            HYBRID_GRAD_LAYERS if cfg.family == "hybrid"
+            else IDENTITY_LAYERS)))
         free_device()
         if cfg.family == "dense" and witness:
             lr_witness(arch, cfg, args.seed, batch_size, seq, problems)
@@ -3931,6 +3965,103 @@ def run_encdec(args, readings: Readings, problems):
     return recs
 
 
+def run_hybrid(args, readings: Readings, problems):
+    """zamba2-1.2b at its published widths and all 38 layers through the
+    Mamba2 + shared attention path: served four ways (every prompt its own
+    scatter prefill, K4 once per group's shared block, the projections
+    through K1-K3, the SSD in torch ops), tokens held to the plain path
+    (torch.matmul or the plain int8 algebra, plain attention, the same SSD
+    code), a middle Mamba2 layer's ssm.out_proj from the next layer the
+    planted fault, one prefill and one decode step profiled; then trained
+    (K4 + K8 once per group a step) with its gradient reading. Returns the
+    served runs and the training records."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(HYBRID_ARCH)
+    s_cfg = cfg.ssm
+    period = cfg.hybrid_attn_period
+    n_groups = cfg.n_layers // period
+    n_grouped = n_groups * period
+    di = s_cfg.expand * cfg.d_model
+    print(f"phase hybrid: {cfg.name} d_model {cfg.d_model}, d_inner {di} in "
+          f"{di // s_cfg.head_dim} heads of {s_cfg.head_dim}, d_state "
+          f"{s_cfg.d_state}, n_groups "
+          f"{s_cfg.n_groups}, chunk {s_cfg.chunk}; shared attention "
+          f"{cfg.n_heads}x{cfg.hd} (kv {cfg.n_kv_heads}) after each of "
+          f"{n_groups} groups of {period}, a tail of "
+          f"{cfg.n_layers - n_grouped}; vocab {cfg.vocab}, {cfg.param_dtype}, "
+          f"tied; n_layers {cfg.n_layers} (published), "
+          f"{cfg.param_count() / 1e9:.3f} B params", flush=True)
+    model = Model(cfg)
+    params = model.init(args.seed)
+    prompts = served_prompts(cfg.vocab, args.seed)
+    print(f"  4 slots, max_len 256, prompt lengths "
+          f"{[len(p) for p in prompts]}, {args.max_new} new tokens each; "
+          f"weights from seed {args.seed} in {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    runs = drive_main_path(model, params, prompts, args.max_new,
+                           tag="zamba2 ")
+    gemm = {"ffip": "ffip_gemm_y", "fip": "fip_gemm",
+            "baseline": "baseline_gemm"}
+    for r in runs:
+        dispatches = r["stats"]["prefill_dispatches"]
+        if not r["budget_ok"]:
+            problems.append(f"{r['label']}: a request missed its token budget")
+        if dispatches != len(prompts):
+            problems.append(f"{r['label']}: {dispatches} prefill dispatches, "
+                            f"want one scatter prefill a prompt")
+        # K4 once per group's shared block a prefill dispatch, never at
+        # decode (plain attention over the cache, as the reference's)
+        check_launches(problems, r, {gemm[r["algo"]]: None,
+                                     "flash_fwd": n_groups * dispatches})
+    print(f"phase hybrid serve: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t1 = time.perf_counter()
+    with int8_products_by_f64():
+        plain = {q: PlainPath(model, params, prompts, q)
+                 for q in (False, True)}
+        for r in runs:
+            tier = "int8" if r["quantized"] else "float"
+            readings.read(r["label"], r["done"], plain[r["quantized"]], tier)
+    print(f"  plain paths built and read in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    for r in runs:
+        if not r["quantized"]:
+            readings.deviation(r["label"], kernel_deviation(
+                model, params, prompts, plain[False], r["algo"]))
+    label, faulty = next_layer_fault(
+        params, [("hybrid_groups", "ssm", "out_proj", "w")], n_grouped)
+    for quantized in (True, False):
+        _, done, _ = serve(model, faulty, prompts, max_new=2, batch_slots=4,
+                           max_len=256, quantized=quantized, gemm_algo="ffip",
+                           gemm_impl="cuda")
+        tier = "int8" if quantized else "float"
+        with int8_products_by_f64():
+            readings.read(f"zamba2 planted fault: {label}, {tier} ffip",
+                          done, plain[quantized], tier, fault=True)
+    del faulty, plain
+    print(f"phase hybrid check: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # per token: 5 Mamba2 projections a layer, 4 in each group's shared
+    # block, the tied unembed
+    gemms = 5 * cfg.n_layers + 4 * n_groups + 1
+    print_profile(ssm_steps(model, params, tag="zamba2"), lambda phase: {
+        "ffip_gemm_y": gemms,
+        "flash_fwd": n_groups if phase == "zamba2 prefill" else 0},
+        problems)
+    del model, params
+    free_device()
+    print(f"phase hybrid serve and check: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    train_recs, _ = run_train(args, problems, runs=(
+        (HYBRID_ARCH, cfg.n_layers, *HYBRID_TRAIN),), witness=False)
+    print(f"phase hybrid: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs, train_recs
+
+
 def free_device():
     """Drop the module memo and every unreachable cycle (a router and its
     records) before returning the cached blocks."""
@@ -4238,12 +4369,20 @@ def main(argv=None) -> int:
     for name in totals:
         totals[name] += sum(r["counts"].get(name, 0) for r in encdec)
     free_device()
+
+    # 14. the Mamba2 + shared attention hybrid zamba2-1.2b served through
+    # K1-K4 and trained through K4 + K8
+    hybrid_runs, hybrid_train = run_hybrid(args, readings, problems)
+    for name in totals:
+        totals[name] += sum(r["counts"].get(name, 0)
+                            for r in hybrid_runs + hybrid_train)
+    free_device()
     readings.gate()
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         return 1
 
-    # 14. the kernels line and the result line
+    # 15. the kernels line and the result line
     kernels = []
     for name in SOURCES:
         recs_k = [r for r in recs if r["kernel"] == name]

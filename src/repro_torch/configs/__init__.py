@@ -4,8 +4,9 @@ The port carries the archs whose path it has ported so far: the dense
 minicpm-2b, gemma3-4b (local:global windows), starcoder2-3b (layernorm,
 gelu, qkv bias) and deepseek-coder-33b, the Mamba1 falcon-mamba-7b, the
 MLA + MoE deepseek-v2-lite-16b, the GQA + MoE mixtral-8x22b (sliding
-window), the encoder-decoder whisper-small and pixtral-12b (a dense
-decoder behind a patch prefix); ``smoke_config`` is a copy of
+window), the encoder-decoder whisper-small, pixtral-12b (a dense
+decoder behind a patch prefix) and the Mamba2 + shared attention hybrid
+zamba2-1.2b; ``smoke_config`` is a copy of
 the reference's, so a smoke config here has the same widths as its
 counterpart there."""
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.pixtral_12b import CONFIG as _pixtral
 from repro_torch.configs.starcoder2_3b import CONFIG as _starcoder2
 from repro_torch.configs.whisper_small import CONFIG as _whisper
+from repro_torch.configs.zamba2_1p2b import CONFIG as _zamba2
 
 ARCHS = {
     "deepseek-coder-33b": _deepseek_coder,
@@ -36,6 +38,7 @@ ARCHS = {
     "pixtral-12b": _pixtral,
     "starcoder2-3b": _starcoder2,
     "whisper-small": _whisper,
+    "zamba2-1.2b": _zamba2,
 }
 
 

@@ -1,10 +1,16 @@
-"""State-space blocks, counterpart of ``repro/models/ssm.py``: Mamba1
-(falcon-mamba). Prefill (S > 1) runs the recurrence through the selective
-scan kernel K6, and a training forward through the K6 + K9 pair; decode
-(S = 1) takes the plain f32 scan, as the reference does outside any kernel. The streaming cache ``{"conv": (B, W-1, di),
-"ssm": (B, di, N) f32}`` is updated in place.
+"""State-space blocks, counterpart of ``repro/models/ssm.py``.
 
-Mamba2 (zamba2's SSD) is a later slice; asking for it raises.
+Mamba1 (falcon-mamba): prefill (S > 1) runs the recurrence through the
+selective scan kernel K6, and a training forward through the K6 + K9 pair;
+decode (S = 1) takes the plain f32 scan, as the reference does outside any
+kernel. The streaming cache ``{"conv": (B, W-1, di), "ssm": (B, di, N)
+f32}`` is updated in place.
+
+Mamba2 (zamba2's SSD, a scalar decay per head): the chunked SSD of the
+reference, einsums outside any kernel as there (the reference computes them
+outside any Pallas kernel too); its projections run through the GEMM
+provider. The cache ``{"conv": (B, W-1, di), "conv_bc": (B, W-1, 2 G N),
+"ssm": (B, H, P, N) f32}`` is updated in place.
 """
 from __future__ import annotations
 
@@ -18,10 +24,6 @@ from repro_torch.kernels import selective_scan as ssk
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
-
-MAMBA2_TODO = ("Mamba2 (zamba2's SSD blocks and hybrid stack) is not ported "
-               "yet: ROADMAP queue 1 item 10, the zamba2 hybrid")
-
 
 def _causal_conv(x: Tensor, w: Tensor, state: Optional[Tensor] = None
                  ) -> Tuple[Tensor, Tensor]:
@@ -160,3 +162,141 @@ def _selective_scan_fused(xs, dt, bmat, cmat, A, h0, chunk, *,
                                             bd), None
     y, h, _ = ssk.selective_scan(xs, dt, bmat, cmat, A, h0, chunk=ck, bd=bd)
     return y, h
+
+
+# --- Mamba2 (SSD, scalar-per-head decay) -------------------------------------
+
+def mamba2_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
+    """The reference's tree and distributions: separate z / x / BC / dt
+    projections and the depthwise conv split into ``conv_x`` and
+    ``conv_bc``; ``lead`` prepends the stacked-layer dims."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    n_heads = di // s.head_dim
+    bc_dim = 2 * s.n_groups * s.d_state
+    kw = dict(device=device, lead=lead)
+
+    def conv(width):
+        return (torch.randn((*lead, s.d_conv, width), generator=gen,
+                            dtype=torch.float32, device=device)
+                * 0.1).to(dtype)
+
+    def per_head(t):
+        return t.expand(*lead, n_heads).to(dtype).contiguous()
+
+    a_log = torch.log(torch.linspace(1.0, 16.0, n_heads, dtype=torch.float32,
+                                     device=device))
+    return {
+        "z_proj": L.dense_init(gen, d, di, dtype, **kw),
+        "x_proj_in": L.dense_init(gen, d, di, dtype, **kw),
+        "bc_proj": L.dense_init(gen, d, bc_dim, dtype, **kw),
+        "dtp": L.dense_init(gen, d, n_heads, dtype, **kw),
+        "conv_x": conv(di),
+        "conv_bc": conv(bc_dim),
+        "A_log": per_head(a_log),
+        "D": per_head(torch.ones((), device=device)),
+        "dt_bias": per_head(torch.zeros((), device=device)),
+        "norm": L.rmsnorm_init(di, dtype, **kw),
+        "out_proj": L.dense_init(gen, di, d, dtype, **kw),
+    }
+
+
+def _segsum(log_a: Tensor) -> Tensor:
+    """(..., C) -> (..., C, C) lower-triangular cumulative log-decay sums,
+    -inf above the diagonal."""
+    c = log_a.shape[-1]
+    cums = torch.cumsum(log_a, dim=-1)
+    diff = cums[..., :, None] - cums[..., None, :]
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool,
+                                 device=log_a.device))
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def _ssd_chunked(xh: Tensor, dt: Tensor, log_a: Tensor, B: Tensor,
+                 C: Tensor, h0: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+    """Mamba2 SSD. xh: (Bt, S, H, P) in the model dtype; dt, log_a: (Bt, S,
+    H) f32; B, C: (Bt, S, G, N); h0: (Bt, H, P, N) f32. A loop over chunks;
+    within one, the attention-like products of the SSD paper. Returns (y
+    (Bt, S, H, P) f32, h_final f32).
+
+    The reference's dtype steps: intra-chunk tensors in the model dtype, the
+    state carry in f32, every contraction accumulated in f32 (its
+    ``preferred_element_type``: here the operands are upcast first, so the
+    products are exact and only the order of the sums differs)."""
+    bt, s, h, p_ = xh.shape
+    g = B.shape[2]
+    n_chunks = max(1, s // chunk)
+    if s % n_chunks:
+        raise ValueError(f"_ssd_chunked: S ({s}) must split into {n_chunks} "
+                         f"equal chunks (chunk {chunk})")
+    c = s // n_chunks
+    cdt = xh.dtype
+    f32 = torch.float32
+    hstate, ys = h0, []
+    for k in range(n_chunks):
+        sl = slice(k * c, (k + 1) * c)
+        xk, dtk, lak = xh[:, sl], dt[:, sl], log_a[:, sl]
+        bk_h = torch.repeat_interleave(B[:, sl], h // g, dim=2)  # (Bt,c,H,N)
+        ck_h = torch.repeat_interleave(C[:, sl], h // g, dim=2)
+        decay = torch.exp(_segsum(lak.transpose(1, 2)))        # (Bt,H,c,c)
+        xdt = xk * dtk[..., None].to(cdt)                      # dt folded
+        scores = torch.einsum("bqhn,bkhn->bhqk", ck_h.to(f32),
+                              bk_h.to(f32))
+        scores = (scores * decay).to(cdt)
+        intra = torch.einsum("bhqk,bkhp->bqhp", scores.to(f32),
+                             xdt.to(f32))
+        # inter-chunk: the carried state's contribution, then its update
+        cum = torch.cumsum(lak, dim=1)                         # (Bt,c,H)
+        c_scaled = ck_h * torch.exp(cum)[..., None].to(cdt)
+        inter = torch.einsum("bqhn,bhpn->bqhp", c_scaled.to(f32), hstate)
+        total_decay = torch.exp(cum[:, -1])                    # (Bt,H)
+        x_tail = xdt * torch.exp(cum[:, -1][:, None] - cum)[..., None].to(cdt)
+        hstate = (hstate * total_decay[..., None, None]
+                  + torch.einsum("bkhp,bkhn->bhpn", x_tail.to(f32),
+                                 bk_h.to(f32)))
+        ys.append(intra + inter)
+    return torch.cat(ys, dim=1), hstate
+
+
+def mamba2_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
+                 cache: Optional[dict] = None
+                 ) -> Tuple[Tensor, Optional[dict]]:
+    """One Mamba2 mixer. ``cache`` = {"conv": (B, W-1, di), "conv_bc": (B,
+    W-1, 2 G N), "ssm": (B, H, P, N)} for streaming decode, written in
+    place."""
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    di = s_cfg.expand * d
+    hdim = s_cfg.head_dim
+    n_heads = di // hdim
+    g, n = s_cfg.n_groups, s_cfg.d_state
+    f32 = torch.float32
+    z = L.dense(x, p["z_proj"])
+    xin = L.dense(x, p["x_proj_in"])
+    bc = L.dense(x, p["bc_proj"])
+    dt = L.dense(x, p["dtp"])
+    xs, new_conv_x = _causal_conv(xin, p["conv_x"],
+                                  cache["conv"] if cache is not None else None)
+    bc, new_conv_bc = _causal_conv(
+        bc, p["conv_bc"], cache["conv_bc"] if cache is not None else None)
+    xs = F.silu(xs)
+    bc = F.silu(bc)
+    bmat, cmat = torch.split(bc, [g * n, g * n], dim=-1)
+    dt = softplus(dt.to(f32) + p["dt_bias"].to(f32))
+    log_a = -torch.exp(p["A_log"].to(f32)) * dt                 # (B,S,H)
+    xh = xs.reshape(b, s, n_heads, hdim)                        # model dtype
+    h0 = (cache["ssm"].to(f32) if cache is not None
+          else torch.zeros((b, n_heads, hdim, n), dtype=f32,
+                           device=x.device))
+    y, h = _ssd_chunked(xh, dt, log_a, bmat.reshape(b, s, g, n),
+                        cmat.reshape(b, s, g, n), h0, s_cfg.chunk)
+    y = y + (xh * p["D"][None, None, :, None].to(xh.dtype)).to(y.dtype)
+    y = y.reshape(b, s, di).to(x.dtype) * F.silu(z)
+    out = L.dense(L.rmsnorm(y, p["norm"], cfg.norm_eps), p["out_proj"])
+    if cache is None:
+        return out, None
+    cache["conv"].copy_(new_conv_x)
+    cache["conv_bc"].copy_(new_conv_bc)
+    cache["ssm"].copy_(h)
+    return out, cache

@@ -1,13 +1,13 @@
 """Model stacks, counterpart of ``repro/models/transformer.py``: the dense
 decoder, the MoE decoder (GQA or MLA attention, a first dense block), the
-Mamba1 SSM stack, the encoder-decoder (whisper: a non-causal encoder over
-frame embeddings, cross attention in every decoder layer) and the dense
-decoder behind a patch prefix (pixtral). Parameters keep the reference
-tree's layout
-(stacked ``(L, ...)`` leaves under ``"layers"``); the reference's
-``lax.scan`` over layers is a Python loop over that leading axis. Caches are
-stacked the same way and written in place; a paged cache stacks page pools
-(:func:`init_paged_cache`)."""
+Mamba1 and Mamba2 SSM stacks, the zamba2 hybrid (groups of Mamba2 layers,
+each followed by one shared attention block), the encoder-decoder (whisper:
+a non-causal encoder over frame embeddings, cross attention in every
+decoder layer) and the dense decoder behind a patch prefix (pixtral).
+Parameters keep the reference tree's layout (stacked ``(L, ...)`` leaves
+under ``"layers"``); the reference's ``lax.scan`` over layers is a Python
+loop over that leading axis. Caches are stacked the same way and written in
+place; a paged cache stacks page pools (:func:`init_paged_cache`)."""
 from __future__ import annotations
 
 import functools
@@ -38,6 +38,7 @@ def norm_apply(x, p, cfg: ModelConfig):
 
 
 _ATTN_KINDS = ("dense", "moe", "mla_dense", "mla_moe", "encoder", "encdec")
+_SSM_INITS = {"ssm1": S.mamba1_init, "ssm2": S.mamba2_init}
 
 
 def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
@@ -45,12 +46,12 @@ def block_init(gen, cfg: ModelConfig, dtype, *, kind: str, device,
     """kind encodes attention x FFN: "dense" (GQA + gated MLP), "moe" (GQA +
     MoE), "mla_dense", "mla_moe" (MLA attention), "encoder" (whisper's
     encoder layer: GQA + MLP), "encdec" (whisper's decoder layer: GQA, cross
-    attention behind its own norm ``ln_x``, MLP) or "ssm1" (a Mamba1 mixer,
-    no FFN)."""
+    attention behind its own norm ``ln_x``, MLP), "ssm1" or "ssm2" (a
+    Mamba1 or Mamba2 mixer, no FFN)."""
     kw = dict(device=device, lead=lead)
-    if kind == "ssm1":
+    if kind in _SSM_INITS:
         return {"ln1": norm_init(cfg, dtype, **kw),
-                "ssm": S.mamba1_init(gen, cfg, dtype, **kw)}
+                "ssm": _SSM_INITS[kind](gen, cfg, dtype, **kw)}
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     p = {"ln1": norm_init(cfg, dtype, **kw),
@@ -74,18 +75,21 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
                 cross_kv: Optional[dict] = None
                 ) -> Tuple[Tensor, Optional[dict], Tensor]:
     """Pre-norm block with a residual: attention (GQA or MLA) + gated MLP or
-    MoE, or a Mamba1 mixer alone ("ssm1"). An "encdec" layer attends to the
-    encoder between the two: to this layer's precomputed keys and values
-    ``cross_kv`` (prefill and decode) or else to the encoder states ``enc``
-    (training). Returns (x, new_cache, aux_loss); the aux loss is the MoE
-    router's, else zero."""
+    MoE, or a Mamba1 or Mamba2 mixer alone ("ssm1", "ssm2"). An "encdec"
+    layer attends to the encoder between the two: to this layer's
+    precomputed keys and values ``cross_kv`` (prefill and decode) or else
+    to the encoder states ``enc`` (training). Returns (x, new_cache,
+    aux_loss); the aux loss is the MoE router's, else zero."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "ssm1":
+    if kind in _SSM_INITS:
         if page_table is not None:
             raise ValueError("paged KV cache requires attention layers; "
                              f"got layer kind {kind!r}")
-        h, new_cache = S.mamba1_apply(p["ssm"], norm_apply(x, p["ln1"], cfg),
-                                      cfg=cfg, cache=cache, prefill=prefill)
+        hn = norm_apply(x, p["ln1"], cfg)
+        h, new_cache = (
+            S.mamba1_apply(p["ssm"], hn, cfg=cfg, cache=cache,
+                           prefill=prefill) if kind == "ssm1"
+            else S.mamba2_apply(p["ssm"], hn, cfg=cfg, cache=cache))
         return x + h, new_cache, aux
     if kind not in _ATTN_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
@@ -114,13 +118,20 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
 
 def layer_plan(cfg: ModelConfig):
     """(group_name, kind, n_layers) per stacked group. MoE stacks put their
-    first ``first_k_dense`` layers (dense FFN) in a "dense_head" group."""
+    first ``first_k_dense`` layers (dense FFN) in a "dense_head" group; the
+    hybrid puts its whole groups of ``hybrid_attn_period`` Mamba2 layers in
+    "hybrid_groups" and the rest in a "tail"."""
     if cfg.family == "ssm":
-        if cfg.ssm.version != 1:
-            raise NotImplementedError(S.MAMBA2_TODO)
-        return [("layers", "ssm1", cfg.n_layers)]
+        return [("layers", "ssm1" if cfg.ssm.version == 1 else "ssm2",
+                 cfg.n_layers)]
     if cfg.family == "hybrid":
-        raise NotImplementedError(S.MAMBA2_TODO)
+        period = cfg.hybrid_attn_period or cfg.n_layers
+        n_full = cfg.n_layers // period
+        rem = cfg.n_layers - n_full * period
+        plan = [("hybrid_groups", "ssm2", n_full * period)]
+        if rem:
+            plan.append(("tail", "ssm2", rem))
+        return plan
     if cfg.family == "moe":
         plan = []
         if cfg.first_k_dense:
@@ -225,12 +236,74 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     for name, kind, n in layer_plan(cfg):
         params[name] = block_init(gen, cfg, dtype, kind=kind, device=device,
                                   lead=(n,))
+    if cfg.family == "hybrid" and cfg.hybrid_attn_period:
+        params["shared_attn"] = {
+            "ln": norm_init(cfg, dtype, device=device),
+            "attn": A.gqa_init(gen, cfg, dtype, device=device)}
     if cfg.encoder is not None:
         params["encoder"] = {
             "layers": block_init(gen, cfg, dtype, kind="encoder",
                                  device=device, lead=(cfg.encoder.n_layers,)),
             "norm": norm_init(cfg, dtype, device=device)}
     return params
+
+
+def _hybrid_groups(tree, n_full: int, period: int):
+    """A ``(n_full * period, ...)`` stacked tree as ``n_full`` groups, each
+    a list of ``period`` per-layer trees of views (the reference's
+    ``(n_full, period, ...)`` reshape, unbound for training)."""
+    grouped = _tree_map(lambda t: t.reshape(n_full, period, *t.shape[1:]),
+                        tree)
+    return [tree_unbind(g, period) for g in tree_unbind(grouped, n_full)]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _hybrid_forward(params, x: Tensor, *, cfg: ModelConfig,
+                    positions: Tensor, caches: Optional[dict] = None,
+                    cache_pos=None, prefill: bool = False) -> Tensor:
+    """zamba2: each group of ``hybrid_attn_period`` Mamba2 layers is
+    followed by the one shared GQA block (full attention; its prompt
+    through K4 at prefill), which keeps its own K/V cache in every group;
+    then the tail's Mamba2 layers. Caches: ``hybrid_groups`` leaves of
+    (n_full, period, B, ...), ``shared_attn`` K/V of (n_full, B, max_len,
+    KV, hd), ``tail`` leaves of (rem, B, ...)."""
+    period = cfg.hybrid_attn_period
+    n_full = cfg.n_layers // period
+    sa = params["shared_attn"]
+    layer = _maybe_remat(block_apply, cfg)
+
+    def group(x, layers, grp_cache, sa_cache):
+        for i, p in enumerate(layers):
+            x, _, _ = layer(p, x, cfg=cfg, kind="ssm2", positions=positions,
+                            cache=(tree_index(grp_cache, i)
+                                   if grp_cache is not None else None),
+                            cache_pos=cache_pos)
+        h, _ = A.gqa_apply(sa["attn"], norm_apply(x, sa["ln"], cfg), cfg=cfg,
+                           positions=positions, window=0, cache=sa_cache,
+                           cache_pos=cache_pos, prefill=prefill)
+        return x + h
+
+    group = _maybe_remat(group, cfg)
+    for gi, layers in enumerate(_hybrid_groups(params["hybrid_groups"],
+                                               n_full, period)):
+        x = group(x, layers,
+                  *((tree_index(caches["hybrid_groups"], gi),
+                     tree_index(caches["shared_attn"], gi))
+                    if caches is not None else (None, None)))
+    if "tail" in params:
+        tail_c = caches["tail"] if caches is not None else None
+        n_tail = cfg.n_layers - n_full * period
+        for i, p in enumerate(tree_unbind(params["tail"], n_tail)):
+            x, _, _ = layer(p, x, cfg=cfg, kind="ssm2", positions=positions,
+                            cache=(tree_index(tail_c, i)
+                                   if tail_c is not None else None),
+                            cache_pos=cache_pos)
+    return x
 
 
 def encode(params, frames: Tensor, cfg: ModelConfig) -> Tensor:
@@ -301,7 +374,16 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
     offset = 0
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     body = _maybe_remat(block_apply, cfg)
-    for name, kind, n in layer_plan(cfg):
+    plan = layer_plan(cfg)
+    if cfg.family == "hybrid":
+        if page_table is not None:
+            raise ValueError("paged KV cache is not supported for hybrid "
+                             "(SSM-state) stacks")
+        x = _hybrid_forward(params, x, cfg=cfg, positions=positions,
+                            caches=caches, cache_pos=cache_pos,
+                            prefill=is_prefill)
+        plan = []           # every group ran, the shared block between
+    for name, kind, n in plan:
         win, theta = window_theta_arrays(cfg, n, offset)
         grp_cache = caches.get(name) if caches is not None else None
         grp_cross = cross_kvs if kind == "encdec" else None
@@ -339,26 +421,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
                device) -> dict:
     """Zero caches stacked per layer group: K/V rows for GQA attention, the
     compressed latent and rope key for MLA, the streaming state (conv
-    inputs in ``dtype``, the scan state in f32) for Mamba1."""
+    inputs in ``dtype``, the scan state in f32) for Mamba1 and Mamba2. The
+    hybrid's Mamba2 groups stack as (n_full, period, batch, ...), beside
+    the shared block's K/V of (n_full, batch, max_len, KV, hd) and the
+    tail's (rem, batch, ...)."""
     dtype = dtype or cfg.dtype
-    caches = {}
-    for name, kind, n in layer_plan(cfg):
-        if kind == "ssm1":
-            s = cfg.ssm
-            di = s.expand * cfg.d_model
-            caches[name] = {
-                "conv": torch.zeros((n, batch, s.d_conv - 1, di),
-                                    dtype=dtype, device=device),
-                "ssm": torch.zeros((n, batch, di, s.d_state),
-                                   dtype=torch.float32, device=device)}
-            continue
-        if kind.startswith("mla"):
-            caches[name] = _mla_cache(cfg, n, batch, max_len, dtype, device)
-            continue
+
+    def kv(n):
         shp = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
-        caches[name] = {"k": torch.zeros(shp, dtype=dtype, device=device),
-                        "v": torch.zeros(shp, dtype=dtype, device=device)}
+        return {"k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
+
+    caches = {}
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_attn_period
+        n_full = cfg.n_layers // period
+        rem = cfg.n_layers - n_full * period
+        caches["hybrid_groups"] = _tree_map(
+            lambda t: t.reshape(n_full, period, *t.shape[1:]),
+            _ssm_cache(cfg, n_full * period, batch, dtype, device))
+        caches["shared_attn"] = kv(n_full)
+        if rem:
+            caches["tail"] = _ssm_cache(cfg, rem, batch, dtype, device)
+        return caches
+    for name, kind, n in layer_plan(cfg):
+        if kind in _SSM_INITS:
+            caches[name] = _ssm_cache(cfg, n, batch, dtype, device)
+        elif kind.startswith("mla"):
+            caches[name] = _mla_cache(cfg, n, batch, max_len, dtype, device)
+        else:
+            caches[name] = kv(n)
     return caches
+
+
+def _ssm_cache(cfg: ModelConfig, n: int, batch: int, dtype, device) -> dict:
+    """n layers' streaming state: the conv inputs in ``dtype`` (Mamba2's x
+    and BC convs apart), the scan state in f32: (n, batch, di, N) for
+    Mamba1, (n, batch, H, P, N) for Mamba2."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((n, batch, *shape), dtype=dt, device=device)
+
+    if s.version == 1:
+        return {"conv": zeros(s.d_conv - 1, di),
+                "ssm": zeros(di, s.d_state, dt=torch.float32)}
+    return {"conv": zeros(s.d_conv - 1, di),
+            "conv_bc": zeros(s.d_conv - 1, 2 * s.n_groups * s.d_state),
+            "ssm": zeros(di // s.head_dim, s.head_dim, s.d_state,
+                         dt=torch.float32)}
 
 
 def _mla_cache(cfg: ModelConfig, n: int, rows: int, width: int, dtype,

@@ -14,8 +14,9 @@ positions (a ``(B,)`` position vector). Finished slots refill from the queue.
   under a row mask. That needs a sequence axis in every cache leaf; an SSM
   state and an encoder's cross K/V have none, so such a model, or
   ``prefill_buckets=False``, takes the per-slot scatter prefill instead: a
-  batch-1 forward into a fresh cache, copied into the slot (axis 1 of every
-  cache leaf).
+  batch-1 forward into a fresh cache, copied into the slot along each cache
+  leaf's own batch axis (axis 1 of an ``(L, B, ...)`` leaf, axis 2 of the
+  hybrid's ``(n_groups, period, B, ...)`` ones).
 
 The K/V cache is updated IN PLACE (``models.attention._cache_write``): the
 server only ever holds the newest cache, so no per-dispatch copy is kept.
@@ -108,6 +109,27 @@ def _cache_supports_buckets(model: Model, batch: int, max_len: int) -> bool:
     a = _leaves(meta.init_cache(batch, max_len))
     b = _leaves(meta.init_cache(batch, max_len + 1))
     return all(x.shape != y.shape for x, y in zip(a, b))
+
+
+def _cache_batch_axes(model: Model, batch: int, max_len: int) -> List[int]:
+    """The batch axis of every cache leaf (in ``_leaves`` order), found from
+    shapes as the reference finds it: the axis whose size changes with
+    init_cache's batch argument (on the meta device: nothing is allocated).
+    Unlike assuming axis 1, this holds for the hybrid's ``(n_groups,
+    period, B, ...)`` leaves, and never mistakes a layer, head or state axis
+    that happens to equal the slot count for the batch."""
+    meta = Model(model.cfg, device="meta")
+    a = _leaves(meta.init_cache(batch, max_len))
+    b = _leaves(meta.init_cache(batch + 1, max_len))
+    return [next(i for i, (m, n) in enumerate(zip(x.shape, y.shape)) if m != n)
+            for x, y in zip(a, b)]
+
+
+def _scatter_slot(cache: dict, one: dict, axes: List[int], slot: int):
+    """Copy the batch-1 cache ``one`` into row ``slot`` of ``cache``, along
+    each leaf's batch axis, in place."""
+    for full, part, axis in zip(_leaves(cache), _leaves(one), axes):
+        full.select(axis, slot).copy_(part.select(axis, 0))
 
 
 def _leaves(tree) -> List[Tensor]:
@@ -251,6 +273,7 @@ class BatchServer:
             self.cache = model.init_cache(batch_slots, max_len)
             self._bucketed = prefill_buckets and _cache_supports_buckets(
                 model, batch_slots, max_len)
+            self._batch_axes = _cache_batch_axes(model, batch_slots, max_len)
         if quantized or gemm_impl is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):
@@ -648,8 +671,8 @@ class BatchServer:
 
     def _admit_one(self, params, slot_i: int):
         """The per-slot scatter prefill: one prompt through a batch-1
-        forward into a fresh cache, copied into slot ``slot_i`` (every cache
-        leaf is ``(L, B, ...)``); the argmax stays on the device."""
+        forward into a fresh cache, copied into slot ``slot_i`` along each
+        leaf's batch axis; the argmax stays on the device."""
         req = self._queue.popleft()
         dev = self.device
         tokens = torch.as_tensor(np.asarray(req.prompt, np.int64),
@@ -660,8 +683,7 @@ class BatchServer:
         with self._gemm_scope():
             one, logits = self.model.prefill(
                 params, tokens, self.model.init_cache(1, self.max_len))
-            for full, part in zip(_leaves(self.cache), _leaves(one)):
-                full[:, slot_i].copy_(part[:, 0])
+            _scatter_slot(self.cache, one, self._batch_axes, slot_i)
             first = torch.argmax(logits[0]).to(torch.int32)
         first_h = int(first)
         dt = self._clock() - t0

@@ -870,6 +870,88 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# --- zamba2-1.2b: Mamba2 groups and one shared attention block ---------------
+
+def _zamba2_smoke(dtype="bfloat16"):
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.smoke_config(configs.get_config(
+        "zamba2-1.2b")), param_dtype=dtype)
+
+
+@pytest.mark.parametrize("quantized,dtype", [(False, "bfloat16"),
+                                             (True, "float32")])
+def test_zamba2_smoke_serve_through_kernels(dev, quantized, dtype):
+    """The zamba2 smoke model (2 groups of 2 Mamba2 layers, each followed by
+    the shared attention block, then a tail of 1), served on the card
+    through ``gemm_impl="cuda"`` (K3 for every projection, K4 for the
+    shared block's prompt: once per group and scatter prefill, never at
+    decode), gives the tokens of the same server on the host, where every
+    kernel wrapper runs its plain version. Float FFIP in bf16; int8 FFIP
+    in f32: its per-token activation quantization turns the card's other
+    rounding of the float ops around the exact int8 GEMMs (K4 against its
+    plain version, the SSD's einsums on the card against the host's) into
+    whole int8 steps, which in bf16 moved a served token within 2-4 steps
+    (chip_smoke.py's int8 readings hold those to a bar instead)."""
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import Model
+    cfg = _zamba2_smoke(dtype)
+    n_groups = cfg.n_layers // cfg.hybrid_attn_period
+    # one chunk of the smoke chunk 8 up to 15 tokens: the chunk contract
+    prompts = make_prompts(cfg.vocab, 6, np.random.default_rng(5), 3, 16)
+    kw = dict(max_new=6, batch_slots=2, max_len=32, gemm_algo="ffip",
+              gemm_impl="cuda", quantized=quantized, decode_chunk=4)
+    host = Model(cfg, device="cpu")
+    host_params = host.init(0)
+    _, want, _ = serve(host, host_params, prompts, **kw)
+    compat.reset_counters()
+    srv, got, _ = serve(Model(cfg, device=dev), _to(host_params, dev),
+                        prompts, **kw)
+    counts = compat.launch_counts()
+    assert ({r.rid: list(r.out_tokens) for r in got}
+            == {r.rid: list(r.out_tokens) for r in want})
+    assert srv.stats["prefill_dispatches"] == len(prompts)
+    assert counts["ffip_gemm_y"] > 0
+    assert counts["flash_fwd"] == n_groups * len(prompts)
+    for name in ("flash_paged", "flash_bwd", "selective_scan", "conv_gemm"):
+        assert counts[name] == 0
+
+
+def test_zamba2_smoke_train_step_launches_k4_and_k8_per_group(dev):
+    """One training step's loss and gradients of the zamba2 smoke model on
+    the card: K4 and K8 once per group (the shared block's gradients summed
+    over its uses), no GEMM kernel (training runs torch.matmul), the loss
+    that of the host's plain path and every gradient finite."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    cfg = _zamba2_smoke()
+    n_groups = cfg.n_layers // cfg.hybrid_attn_period
+    host = Model(cfg, device="cpu")
+    params = host.init(0)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+        global_batch=2, seq_len=32, vocab=cfg.vocab,
+        seed=0)).batch_at(0).items()}
+    with torch.no_grad():
+        want = float(host.loss(params, batch))
+    card = Model(cfg, device=dev)
+    p = adamw.tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+    compat.reset_counters()
+    loss = card.loss(p, {k: v.to(dev) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, adamw.tree_leaves(p))
+    torch.cuda.synchronize()
+    counts = compat.launch_counts()
+    assert (counts["flash_fwd"], counts["flash_bwd"]) == (n_groups, n_groups)
+    for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y"):
+        assert counts[name] == 0
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert abs(float(loss) - want) <= 1e-2 * abs(want)
+    shared = p["shared_attn"]["attn"]["wq"]["w"]
+    assert next(g for t, g in zip(adamw.tree_leaves(p), grads)
+                if t is shared).abs().sum() > 0
+
+
 # --- whisper-small's encoder and pixtral-12b's prefix ----------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -32,6 +32,7 @@ from repro.core.gemm import GemmConfig as JGemm
 from repro.core.gemm import use_gemm as j_use_gemm
 from repro.kernels.selective_scan import selective_scan as j_scan
 from repro.models import ssm as JS
+from repro.models import transformer as JT
 from repro.models.model import build_model as j_build
 from repro.serve.batcher import BatchServer as JServer
 from repro.serve.batcher import Request as JRequest
@@ -445,11 +446,14 @@ def test_ssm_serving_errors():
         srv.run_until_drained(model.init(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Model(cfg)
-    for other in (dataclasses.replace(cfg, ssm=dataclasses.replace(
-                      cfg.ssm, version=2)),
-                  dataclasses.replace(cfg, family="hybrid")):
-        with pytest.raises(NotImplementedError, match="zamba2"):
-            T.layer_plan(other)
+    # a Mamba2 stack and a hybrid one are served too: their plans are the
+    # reference's
+    jc, _ = _smoke()
+    v2 = [dataclasses.replace(c, ssm=dataclasses.replace(c.ssm, version=2))
+          for c in (cfg, jc)]
+    hybrid = [dataclasses.replace(c, family="hybrid") for c in (cfg, jc)]
+    for mine, ref in (v2, hybrid):
+        assert T.layer_plan(mine) == JT.layer_plan(ref)
 
 
 def test_launch_serve_ssm_on_cpu(capsys):
