@@ -76,6 +76,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    against the same rows at M = 4, 64 and 256 (f32 and bf16), rows 0-3 of
    falcon-mamba-7b's in_proj (K 4096, N 16384) at M = 128 against M = 1, 4
    and 16, and image 0 of a batch-8 K7 call against the batch-1 call.
+   Then phase faults (ROADMAP queue 3): F7, the torch provider's baseline
+   conv (``vision.layers._nchw_conv``) at ResNet-50 s2b1.c2's geometry,
+   batch 2, unit-normal data, under PyTorch's default cuDNN flags, within
+   the reference's f32 GEMM bar of the host's conv and leaving the flags as
+   it found them (``F.conv2d`` as called before the repair printed beside
+   it); F6, the zamba2 and minicpm smoke models in bf16 served int8 FFIP
+   through the kernels give the host's tokens.
 4. Serve minicpm-2b at its published widths (random weights from --seed)
    through ``BatchServer(gemm_impl="cuda")``: 4 slots, 8 requests of 16-128
    prompt tokens, 16 new tokens each, once each with gemm_algo ffip, fip and
@@ -119,8 +126,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    bit and within 0.35 of the plain float logits.
 8. Count and profile one contiguous prefill dispatch and decode step, one
    paged decode step, one paged prefill chunk and one ResNet-50 forward.
+8a. The autotuner (phase tune): ``launch.tune --arch minicpm-2b`` into a
+   temporary ``REPRO_TUNE_CACHE`` over the served (K, N) set at the M
+   buckets of 4. (TUNE_M), ffip / fip / baseline in bf16 and int8, and the
+   prefills' flash buckets; ``tune.tune_conv`` on ResNet-50 s2b1.c2 (batch
+   8, f32 FFIP). Each bucket's tuned and default times are printed, and
+   every candidate is held to the default bit for bit by the tuner. A
+   second run with ``--expect-cached`` must measure nothing. minicpm-2b is
+   served ffip once more with ``gemm_block="auto"``: no lookup may miss and
+   the tokens must be 4.'s ffip tokens.
+8b. Prepared artifacts (phase prepare): ``launch.prepare`` writes
+   minicpm-2b at its published widths and PREPARE_LAYERS of 40 layers, int8
+   FFIP, with the tune phase's schedule slice (bytes printed); it is loaded
+   (seconds printed) and the prompts of 4. served through
+   ``BatchServer(prepared=, gemm_block="auto")``: ``recomputed == 0``, no
+   lookup missed, no carry table launched while serving, and the tokens of
+   an unprepared server on the same weights; each server's first step
+   (preparation and first prefill) is timed.
 9. The router and ``repro_torch.obs`` (phase fleet), on the same
-   minicpm-2b model, every replica sharing its weights, 2 slots each, the
+   minicpm-2b model, every replica sharing its weights and its tier's one
+   ``repro_torch.prepare`` preparation (float or int8: no server derives y,
+   carry tables or int8 weights), 2 slots each, the
    prompts of 4., 16 new tokens: no-fault oracles (ffip with the profiler
    hooks toggled every step, its decode ms/step with them off and on
    printed; int8-ffip; paged flash fip), then ``ReplicaRouter`` on a FakeClock over ffip +
@@ -578,6 +604,15 @@ FAMILY_RUNS = (
 HYBRID_ARCH = "zamba2-1.2b"
 HYBRID_TRAIN = (2, 256)
 HYBRID_GRAD_LAYERS = 12
+# phase tune: the M buckets minicpm-2b's served runs dispatch (decode: 4
+# slots; bucketed prefill: 4 slots x prompt buckets of 16-128 tokens)
+TUNE_M = "4,64,128,256,512"
+TUNE_SEQ = "16,32,64,128"
+# phase prepare: minicpm-2b at its published widths and 8 of 40 layers
+# (0.49 B dense parameters and the 0.28 B tied embedding; ~5 GB of bf16
+# weights, int8 codes and y deltas written and loaded), the cut for the
+# run's time and the artifact's bytes
+PREPARE_LAYERS = 8
 ENCDEC_ROWS = 4
 WHISPER_PROMPT = 32
 PIXTRAL_LAYERS = 32
@@ -2565,18 +2600,33 @@ def run_fleet(args, model, params, prompts, problems):
     from repro_torch.serve.lifecycle import Lifecycle
     from repro_torch.serve.router import ReplicaRouter, RouterConfig
 
+    from repro_torch import prepare
+
     t0 = time.perf_counter()
     print(f"phase fleet: minicpm-2b, {model.cfg.n_layers} layers, replicas "
           f"of {FLEET_SLOTS} slots sharing its weights, the {len(prompts)} "
           f"served prompts, {args.max_new} new tokens each", flush=True)
+    # one preparation a tier (repro_torch.prepare), which every server of
+    # the tier shares: no server derives y, carry tables or int8 weights
+    compat.reset_counters()
+    tiers = {q: prepare.prepare_lm(params, quantized=q) for q in (False,
+                                                                  True)}
+    torch.cuda.synchronize()
+    prepared_at = prepare.counters_snapshot()
+    print(f"  one preparation a tier: float {len(tiers[False].derived)} y "
+          f"deltas, int8 {len(tiers[True].derived)}; carry tables "
+          f"{compat.launch_counts()['ffip_carry_table']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     base = dict(batch_slots=FLEET_SLOTS, max_len=PAGED_MAX_LEN,
                 gemm_impl="cuda", device=model.device)
-    kinds = {"ffip": dict(gemm_algo="ffip"),
-             "int8-ffip": dict(gemm_algo="ffip", quantized=True),
+    kinds = {"ffip": dict(gemm_algo="ffip", prepared=tiers[False]),
+             "int8-ffip": dict(gemm_algo="ffip", quantized=True,
+                               prepared=tiers[True]),
              "paged flash fip": dict(gemm_algo="fip", paged=True,
                                      page_size=PAGE_SIZE,
                                      prefill_chunk=PREFILL_CHUNK,
-                                     paged_attention="flash")}
+                                     paged_attention="flash",
+                                     prepared=tiers[False])}
 
     def requests():
         return [Request(rid=i, prompt=p, max_new_tokens=args.max_new,
@@ -2708,7 +2758,14 @@ def run_fleet(args, model, params, prompts, problems):
           f"{stats}; launches {counts}; {time.perf_counter() - t0:.1f} s "
           f"(oracles {t_oracles:.1f} s, router runs "
           f"{time.perf_counter() - t_runs:.1f} s)", flush=True)
-    del plain
+    derived = {k: v - prepared_at[k]
+               for k, v in prepare.counters_snapshot().items()}
+    print(f"  offline work of the fleet's servers beside their tiers' "
+          f"preparations: {derived}", flush=True)
+    if any(derived.values()) and not plain:
+        problems.append(f"fleet: servers derived what their tier's "
+                        f"preparation holds: {derived}")
+    del plain, tiers, kinds
     free_device()
 
     # (b) the SLO loop through the launcher, as the reference's README runs
@@ -4062,6 +4119,260 @@ def run_hybrid(args, readings: Readings, problems):
     return runs, train_recs
 
 
+def run_faults(dev, problems):
+    """Phase faults (ROADMAP queue 3). F7: ResNet-50 s2b1.c2's geometry at
+    batch 2 on unit-normal data under PyTorch's default cuDNN flags (TF32
+    allowed), ``F.conv2d`` as called before the repair and the baseline
+    conv of the torch provider (``vision.layers._nchw_conv``) after it,
+    each against the host's f32 conv under the reference's f32 GEMM bar;
+    the repaired one must hold it and leave the flags as it found them.
+    F6: the zamba2 and minicpm smoke models, bf16, int8 FFIP through the
+    kernels, give the host's tokens (the prompts and schedule of
+    tests/test_torch_cuda.py's zamba2 case)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.core.gemm import GemmConfig, use_gemm
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import Model
+    from repro_torch.vision import layers as vl
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 56, 56, 64), generator=g)
+    w = torch.randn((3, 3, 64, 64), generator=g)
+
+    def nchw(x_, w_):
+        return F.conv2d(x_.permute(0, 3, 1, 2), w_.permute(3, 2, 0, 1),
+                        padding=1).permute(0, 2, 3, 1)
+
+    cudnn = torch.backends.cudnn
+    legacy = cudnn.allow_tf32
+    cudnn.allow_tf32 = True                  # PyTorch's default
+    try:
+        flags = (cudnn.allow_tf32,
+                 getattr(getattr(cudnn, "conv", None), "fp32_precision",
+                         None))
+        with torch.no_grad(), use_gemm(GemmConfig()):
+            want = nchw(x, w).double()
+            before = nchw(x.to(dev), w.to(dev)).cpu().double()
+            after = vl.conv2d(x.to(dev), {"w": w.to(dev)},
+                              pad=1).cpu().double()
+        kept = flags == (cudnn.allow_tf32,
+                         getattr(getattr(cudnn, "conv", None),
+                                 "fp32_precision", None))
+    finally:
+        cudnn.allow_tf32 = legacy
+    bar = 1e-3 * (3 * 3 * 64 // 64) + 1e-4 * want.abs()
+    for label, got in (("F.conv2d under the default flags (before)", before),
+                       ("vision.layers._nchw_conv (after)", after)):
+        d = (got - want).abs()
+        print(f"  F7 {label}: max abs err {float(d.max()):.6g}, worst "
+              f"err / bar {float((d / bar).max()):.4g}, "
+              f"{int((d > bar).sum())} of {d.numel()} over the bar",
+              flush=True)
+    if bool(((after - want).abs() > bar).any()) or not kept:
+        problems.append(f"F7: the baseline conv misses the f32 bar or "
+                        f"changed the caller's flags (kept {kept})")
+
+    for arch in ("zamba2-1.2b", "minicpm-2b"):
+        cfg = dataclasses.replace(
+            configs.smoke_config(configs.get_config(arch)),
+            param_dtype="bfloat16")
+        prompts = make_prompts(cfg.vocab, 6, np.random.default_rng(5), 3,
+                               16)
+        kw = dict(max_new=6, batch_slots=2, max_len=32, gemm_algo="ffip",
+                  gemm_impl="cuda", quantized=True, decode_chunk=4)
+        host = Model(cfg, device="cpu")
+        params = host.init(0)
+        _, want_t, _ = serve(host, params, prompts, **kw)
+        _, got_t, _ = serve(Model(cfg, device=dev), _tree_to(params, dev),
+                            prompts, **kw)
+        same = ({r.rid: r.out_tokens for r in got_t}
+                == {r.rid: r.out_tokens for r in want_t})
+        print(f"  F6 {arch} smoke, bf16 int8 ffip: card tokens equal to "
+              f"the host's: {same}", flush=True)
+        if not same:
+            problems.append(f"F6: {arch} int8 tokens on the card differ "
+                            f"from the host's")
+    print(f"phase faults: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def run_tune(args, model, params, prompts, ffip_done, problems):
+    """Phase tune: ``launch.tune --arch minicpm-2b`` over its served (K, N)
+    set at the M buckets the served runs dispatch (decode 4, bucketed
+    prefill 4 x 16..128), ffip / fip / baseline in bf16 and int8, and the
+    flash buckets of their prefills, into a temporary REPRO_TUNE_CACHE; one
+    ResNet-50 conv (s2b1.c2, batch 8, f32 FFIP) through
+    ``tune.tune_conv``. The tuner holds every candidate against the
+    default bit for bit (``tune.measure``). A second CLI run with
+    ``--expect-cached`` must measure nothing. Then minicpm-2b served ffip
+    with ``gemm_block="auto"``: no miss, the main phase's ffip tokens.
+    Returns the phase's launch counts and the tuned entries."""
+    import os
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.kernels import compat
+    from repro_torch.launch import tune as launch_tune
+    from repro_torch.launch.serve import serve
+    from repro_torch.tune import measure
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tune_")
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "schedules.json")
+    print(f"phase tune: minicpm-2b's GEMM buckets (M {TUNE_M}), "
+          f"ffip/fip/baseline x bf16/int8, its flash buckets; ResNet-50 "
+          f"s2b1.c2 f32 ffip; cache {os.environ['REPRO_TUNE_CACHE']}",
+          flush=True)
+    compat.reset_counters()
+    argv = ["--arch", "minicpm-2b", "--m", TUNE_M, "--slots", "4",
+            "--seq", TUNE_SEQ, "--algos", "ffip,fip,baseline",
+            "--dtypes", "bfloat16,int8", "--iters", "3"]
+    timed0 = measure.counters["timed_candidates"]
+    if launch_tune.main(argv) != 0:
+        problems.append("tune: the tuner failed")
+    conv = tune.tune_conv(CONV_BATCH, 56, 56, 64, 64, 3, 3, torch.float32,
+                          pad=1, algo="ffip", iters=3)
+    print(f"  [tuned ] conv ffip float32 resnet50 s2b1.c2 batch "
+          f"{CONV_BATCH} -> {conv['blocks']} ({conv['us']}us, default "
+          f"{conv['default_blocks']} {conv['default_us']}us, "
+          f"{conv['candidates']} candidates)", flush=True)
+    tune.get_cache().save()
+    timed = measure.counters["timed_candidates"] - timed0
+    print(f"  {timed} candidates timed, each bit for bit the default's "
+          f"({measure.counters['failed_candidates']} failed); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if measure.counters["failed_candidates"]:
+        problems.append("tune: a candidate failed or disagreed")
+    warm0 = measure.counters["timed_candidates"]
+    if launch_tune.main(argv + ["--expect-cached"]) != 0 or (
+            measure.counters["timed_candidates"] != warm0):
+        problems.append("tune: the warm --expect-cached run measured")
+    print(f"  warm --expect-cached: "
+          f"{measure.counters['timed_candidates'] - warm0} measurements",
+          flush=True)
+    entries = tune.get_cache().entries_for_device(compat.device_kind())
+    tune.reset_stats()
+    _, done, _ = serve(model, params, prompts, max_new=args.max_new,
+                       batch_slots=4, max_len=256, gemm_algo="ffip",
+                       gemm_impl="cuda", gemm_block="auto")
+    same = ({r.rid: r.out_tokens for r in done}
+            == {r.rid: r.out_tokens for r in ffip_done})
+    print(f"  served ffip with gemm_block='auto': {dict(tune.stats)} "
+          f"lookups, tokens equal to the static default's: {same}",
+          flush=True)
+    if tune.stats["misses"] or not same:
+        problems.append(f"tune: auto serving missed {tune.stats['misses']} "
+                        f"lookups or changed tokens ({same})")
+    counts = compat.launch_counts()
+    print(f"phase tune: {time.perf_counter() - t0:.1f} s; launches {counts}",
+          flush=True)
+    return counts, entries
+
+
+def run_prepare(args, prompts, problems):
+    """Phase prepare: ``launch.prepare`` on minicpm-2b at its published
+    widths and PREPARE_LAYERS of its 40 layers, int8 FFIP, with the tune
+    phase's schedule slice; loaded, and the prompts served through
+    ``BatchServer(prepared=, gemm_block="auto")``: nothing recomputed, no
+    schedule miss, no carry table built while serving, and the tokens of an
+    unprepared server on the same weights. Prints the bytes written, the
+    load's seconds and each server's first step (its preparation, if any,
+    and first prefill dispatch)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs, prepare, tune
+    from repro_torch.kernels import compat
+    from repro_torch.launch import prepare as launch_prepare
+    from repro_torch.models.model import Model
+    from repro_torch.serve.batcher import BatchServer, Request
+
+    t0 = time.perf_counter()
+    full = configs.get_config("minicpm-2b")
+    cfg = dataclasses.replace(full, n_layers=PREPARE_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="prepare_")
+    out = f"{tmp}/minicpm-2b.prepared"
+    print(f"phase prepare: minicpm-2b at {PREPARE_LAYERS} of {full.n_layers} "
+          f"layers, int8 ffip -> {out}", flush=True)
+    try:
+        t1 = time.perf_counter()
+        if launch_prepare.main(["--arch", "minicpm-2b", "--layers",
+                                str(PREPARE_LAYERS), "--quantized", "--out",
+                                out, "--seed", str(args.seed)]) != 0:
+            problems.append("prepare: the launcher failed")
+        written = sum(f.stat().st_size for f in pathlib.Path(out).iterdir())
+        print(f"  launch.prepare: {time.perf_counter() - t1:.1f} s, "
+              f"{written} bytes written", flush=True)
+        free_device()
+        t1 = time.perf_counter()
+        pm = prepare.load(out)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        print(f"  load: {load_s:.2f} s ({len(pm.derived)} y deltas, "
+              f"{len(pm.schedule)} schedule entries, built at load "
+              f"{pm.built})", flush=True)
+        model = Model(cfg)
+        tokens, first_s = {}, {}
+        for label in ("prepared", "unprepared"):
+            tune.reset_stats()
+            compat.reset_counters()
+            base = pm.recompute_report()
+            kw = (dict(prepared=pm, gemm_block="auto")
+                  if label == "prepared" else {})
+            srv = BatchServer(model, batch_slots=4, max_len=256,
+                              quantized=True, gemm_algo="ffip",
+                              gemm_impl="cuda", **kw)
+            for i, p in enumerate(prompts):
+                srv.submit(Request(rid=i, prompt=p,
+                                   max_new_tokens=args.max_new))
+            params = None if label == "prepared" else model.init(args.seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            srv.step(params)
+            torch.cuda.synchronize()
+            first_s[label] = time.perf_counter() - t1
+            done = srv.run_until_drained(params)
+            tokens[label] = {r.rid: list(r.out_tokens) for r in done}
+            counts = compat.launch_counts()
+            work = {k: v - base[k]
+                    for k, v in pm.recompute_report().items()}
+            print(f"  [{label}] {len(done)}/{len(prompts)} requests; first "
+                  f"step (preparation and first prefill) "
+                  f"{first_s[label]:.3f} s; offline work while serving "
+                  f"{work}; tune {dict(tune.stats)}; launches {counts}",
+                  flush=True)
+            if label == "prepared":
+                served = counts
+                if (pm.recomputed or tune.stats["misses"]
+                        or counts["ffip_carry_table"]):
+                    problems.append(f"prepare: the prepared server derived "
+                                    f"{pm.recompute_report()} or missed "
+                                    f"{tune.stats['misses']} lookups")
+            del srv, params
+            free_device()
+        same = tokens["prepared"] == tokens["unprepared"]
+        print(f"  tokens prepared vs unprepared: "
+              f"{'identical' if same else 'DIFFER'}; first step "
+              f"{first_s['prepared']:.3f} s vs {first_s['unprepared']:.3f} s",
+              flush=True)
+        if not same:
+            problems.append("prepare: the prepared server's tokens differ")
+        del pm, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device()
+    print(f"phase prepare: {time.perf_counter() - t0:.1f} s", flush=True)
+    return served
+
+
 def free_device():
     """Drop the module memo and every unreachable cycle (a router and its
     records) before returning the cached blocks."""
@@ -4139,6 +4450,13 @@ def main(argv=None) -> int:
         return 1
     free_device()
 
+    # the faults of ROADMAP queue 3: F7 (TF32 in the baseline conv) and F6
+    # (int8 tokens on the card against the host's)
+    print("phase faults: F7 and F6 against the host", flush=True)
+    fault_problems = []
+    run_faults(dev, fault_problems)
+    free_device()
+
     # 3. minicpm-2b served at full width, contiguous cache
     t0 = time.perf_counter()
     full = configs.get_config("minicpm-2b")
@@ -4158,6 +4476,7 @@ def main(argv=None) -> int:
                 for r in runs if r["counts"][expect[r["algo"]]] == 0]
     problems += [f"{r['label']}: a request missed its token budget"
                  for r in runs if not r["budget_ok"]]
+    problems += fault_problems
     print(f"phase serve: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. first and second tokens against the plain path, and the bars'
@@ -4316,6 +4635,16 @@ def main(argv=None) -> int:
          "flash_paged": cfg.n_layers if "paged" in phase else 0}), problems)
     del steps, naive, model_id, naive_id, params_id
     free_device()
+
+    # the autotuner and the prepared artifacts: the served GEMM and flash
+    # buckets tuned, served with gemm_block="auto"; an 8-layer int8 FFIP
+    # artifact written, loaded and served warm
+    tune_counts, _ = run_tune(args, model, params, prompts, runs[0]["done"],
+                              problems)
+    free_device()
+    prep_counts = run_prepare(args, prompts, problems)
+    for name in totals:
+        totals[name] += tune_counts[name] + prep_counts[name]
 
     # 8. the router and repro_torch.obs over replicas of the same model
     fleet = run_fleet(args, model, params, prompts, problems)

@@ -17,11 +17,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Literal, Optional, Tuple, Union
+from typing import Callable, Literal, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tune
 from repro_torch.core import fip
 from repro_torch.kernels import ops
 
@@ -29,9 +30,11 @@ Tensor = torch.Tensor
 Algo = Literal["baseline", "fip", "ffip"]
 Impl = Literal["torch", "ref", "cuda"]
 # None -> the kernels' static defaults (ops.choose_blocks); (bm, bn, bk) ->
-# explicit override; "auto" -> the tuned schedule, which comes with the tune
-# port (ROADMAP queue 1, item 14) and raises until then.
+# explicit override; "auto" -> the tuned schedule of the repro_torch.tune
+# cache for the call's (algo, dtype, shape bucket, device), the static
+# default on a miss.
 Block = Union[None, str, Tuple[int, int, int]]
+Blocks = Tuple[int, int, int]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,19 +75,38 @@ def _pad_even_k(a: Tensor, b: Tensor):
     return F.pad(a, (0, 1)), F.pad(b, (0, 0, 0, 1))
 
 
-def resolve_blocks(cfg: GemmConfig) -> Tuple[int, int, int]:
-    """(0, 0, 0) means the kernels' static default."""
-    if cfg.block == "auto":
-        raise NotImplementedError(
-            "GemmConfig.block='auto' needs the tuned schedule cache, which "
-            "comes with the tune port (ROADMAP queue 1, item 14)")
+def resolve_blocks(cfg: GemmConfig, lookup: Callable[[], Optional[Blocks]]
+                   ) -> Blocks:
+    """(bm, bn, bk) of a cuda-provider call; (0, 0, 0) means the kernels'
+    static default. ``block="auto"`` calls ``lookup``, a
+    ``repro_torch.tune`` lookup for the call (a lookup, never a
+    measurement), and falls back to the default on a miss, which
+    ``tune.stats`` counts."""
     if cfg.block is None:
         return (0, 0, 0)
     if isinstance(cfg.block, (tuple, list)) and len(cfg.block) == 3:
         bm, bn, bk = cfg.block
         return (int(bm), int(bn), int(bk))
+    if cfg.block == "auto":
+        got = lookup()
+        return got if got is not None else (0, 0, 0)
     raise ValueError(f"GemmConfig.block must be None, 'auto' or "
                      f"(bm, bn, bk); got {cfg.block!r}")
+
+
+def gemm_blocks(cfg: GemmConfig, algo: str, m: int, n: int, k: int,
+                dtype: torch.dtype) -> Blocks:
+    """:func:`resolve_blocks` for an (m, k) x (k, n) GEMM in ``dtype``."""
+    return resolve_blocks(
+        cfg, lambda: tune.lookup_gemm_blocks(algo, dtype, m, n, k))
+
+
+def _call_blocks(cfg: GemmConfig, algo: str, a: Tensor, b: Tensor) -> Blocks:
+    """:func:`gemm_blocks` for ``a @ b``: M is the product of a's leading
+    dims, the dtype the promoted one (what ``ops.matmul`` runs)."""
+    return gemm_blocks(cfg, algo, a.numel() // max(1, a.shape[-1]),
+                       b.shape[-1], a.shape[-1],
+                       torch.promote_types(a.dtype, b.dtype))
 
 
 def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None) -> Tensor:
@@ -92,13 +114,13 @@ def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None) -> Tensor:
     cfg = cfg or current_config()
     if cfg.algo == "baseline":
         if cfg.impl == "cuda":
-            bm, bn, bk = resolve_blocks(cfg)
+            bm, bn, bk = _call_blocks(cfg, "baseline", a, b)
             return ops.matmul(a, b, algo="baseline", bm=bm, bn=bn, bk=bk)
         return torch.matmul(a, b)
 
     a, b = _pad_even_k(a, b)
     if cfg.impl == "cuda":
-        bm, bn, bk = resolve_blocks(cfg)
+        bm, bn, bk = _call_blocks(cfg, cfg.algo, a, b)
         return ops.matmul(a, b, algo=cfg.algo, bm=bm, bn=bn, bk=bk)
     # 'torch' and 'ref' both run the exact algebra; the trainable wrappers
     # give it the analytic (baseline) gradient

@@ -32,6 +32,28 @@ _INT_INFO = {
     torch.uint16: (0, 2 ** 16 - 1),
 }
 
+# Offline weight preparations (:func:`prepare_quantized_dense` calls), the
+# reference's counter: a prepared artifact's zero-recompute proof reads it.
+counters = {"prepare_dense": 0}
+
+_DIVISORS: dict = {}
+
+
+def range_div(num: Tensor, levels) -> Tensor:
+    """``num / levels`` as IEEE division on either device, the reference's
+    (and the host's) quotient. With a Python-number divisor PyTorch's CUDA
+    path multiplies by the reciprocal, which leaves some quotients one f32
+    ulp off the host's: a quantization scale one ulp off moves codes at a
+    rounding boundary, and one int8 code moves served tokens (ROADMAP queue
+    3, F6). The divisor is a 0-dim tensor on ``num``'s device, made once a
+    device and value."""
+    key = (num.device, num.dtype, float(levels))
+    d = _DIVISORS.get(key)
+    if d is None:
+        d = _DIVISORS[key] = torch.full((), float(levels), dtype=num.dtype,
+                                        device=num.device)
+    return num / d
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantParams:
@@ -64,14 +86,15 @@ def calibrate(x: Tensor, dtype=torch.int8, *, symmetric: bool = True,
         amax = torch.amax(torch.abs(x), dim=dims)
         # signed: +/-qmax around 0. unsigned: +/-(range/2) around midpoint zp.
         bound = qmax if qmin < 0 else (qmax - qmin) // 2
-        scale = torch.clamp_min(amax / bound, 1e-12)
+        scale = torch.clamp_min(range_div(amax, bound), 1e-12)
         zp = (torch.zeros_like(scale, dtype=torch.int32) if qmin < 0
               else torch.full_like(scale, (qmax + 1) // 2,
                                    dtype=torch.int32))
     else:
         xmin = torch.amin(x, dim=dims)
         xmax = torch.amax(x, dim=dims)
-        scale = torch.clamp_min((xmax - xmin) / (qmax - qmin), 1e-12)
+        scale = torch.clamp_min(range_div(xmax - xmin, qmax - qmin),
+                                1e-12)
         zp = torch.clamp(torch.round(qmin - xmin / scale),
                          qmin, qmax).to(torch.int32)
     return QuantParams(scale=scale, zero_point=zp, dtype=dtype, axis=axis)
@@ -145,18 +168,20 @@ def prepare_quantized_dense(w: Tensor, *, dtype=torch.int8,
         return {key: torch.stack([p[key] for p in per]).reshape(
                     *w.shape[:-2], *per[0][key].shape) for key in per[0]}
     qmin, qmax = _INT_INFO[dtype]
+    counters["prepare_dense"] += 1          # one a (K, N) matrix
     w = w.to(torch.float32)
     if symmetric:
         amax = torch.amax(torch.abs(w), dim=-2)
         bound = qmax if qmin < 0 else (qmax - qmin) // 2
-        scale = torch.clamp_min(amax / bound, 1e-12)
+        scale = torch.clamp_min(range_div(amax, bound), 1e-12)
         zp = (torch.zeros_like(scale, dtype=torch.int32) if qmin < 0
               else torch.full_like(scale, (qmax + 1) // 2,
                                    dtype=torch.int32))
     else:
         wmin = torch.amin(w, dim=-2)
         wmax = torch.amax(w, dim=-2)
-        scale = torch.clamp_min((wmax - wmin) / (qmax - qmin), 1e-12)
+        scale = torch.clamp_min(range_div(wmax - wmin, qmax - qmin),
+                                1e-12)
         zp = torch.clamp(torch.round(qmin - wmin / scale),
                          qmin, qmax).to(torch.int32)
     qw = torch.clamp(torch.round(w / scale[..., None, :]) + zp[..., None, :],
@@ -168,8 +193,27 @@ def prepare_quantized_dense(w: Tensor, *, dtype=torch.int8,
             "colsum": torch.sum(q32, dim=-2, dtype=torch.int32)}
 
 
+def quantize_activations(x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Per-token-row asymmetric int8 activations: ``(aq, a_scale, a_zp)``
+    with the row's range widened to hold 0, as the reference quantizes
+    them inside ``quantized_dense_apply``."""
+    qmin, qmax = _INT_INFO[torch.int8]
+    x32 = x.to(torch.float32)
+    xmin = torch.clamp_max(torch.amin(x32, dim=-1, keepdim=True), 0.0)
+    xmax = torch.clamp_min(torch.amax(x32, dim=-1, keepdim=True), 0.0)
+    a_scale = torch.clamp_min(range_div(xmax - xmin, qmax - qmin),
+                                1e-12)
+    a_zp = torch.clamp(torch.round(qmin - xmin / a_scale),
+                       qmin, qmax).to(torch.int32)
+    aq = torch.clamp(torch.round(x32 / a_scale) + a_zp,
+                     qmin, qmax).to(torch.int8)
+    return aq, a_scale, a_zp
+
+
 def quantized_dense_apply(x: Tensor, q: dict, *, algo: str = "ffip",
-                          impl: str = "torch", k_chunk: int = 0) -> Tensor:
+                          impl: str = "torch", k_chunk: int = 0,
+                          blocks: Tuple[int, int, int] = (0, 0, 0)
+                          ) -> Tensor:
     """A dense layer through its offline-prepared int8 weights.
 
     x: (M, K) float; q: one layer's dict from :func:`prepare_quantized_dense`.
@@ -181,24 +225,19 @@ def quantized_dense_apply(x: Tensor, q: dict, *, algo: str = "ffip",
     qw, with ``fold_beta`` and then ``+ neg_beta``), which never builds the
     (M, K/2, N) cross tensor; otherwise through the Eq. 15/16 algebra, as
     the reference does through XLA. The int32 result is identical.
+    ``blocks`` (cuda only): the kernels' (bm, bn, bk), (0, 0, 0) their
+    static default.
     """
-    qmin, qmax = _INT_INFO[torch.int8]
-    x32 = x.to(torch.float32)
-    xmin = torch.clamp_max(torch.amin(x32, dim=-1, keepdim=True), 0.0)
-    xmax = torch.clamp_min(torch.amax(x32, dim=-1, keepdim=True), 0.0)
-    a_scale = torch.clamp_min((xmax - xmin) / (qmax - qmin), 1e-12)
-    a_zp = torch.clamp(torch.round(qmin - xmin / a_scale),
-                       qmin, qmax).to(torch.int32)
-    aq = torch.clamp(torch.round(x32 / a_scale) + a_zp,
-                     qmin, qmax).to(torch.int8)
-
+    aq, a_scale, a_zp = quantize_activations(x)
     qw = q["qw"]
     k = qw.shape[-2]
     if impl == "cuda":
+        bm, bn, bk = blocks
         if algo == "baseline":
-            raw = ops.matmul(aq, qw, algo="baseline")
+            raw = ops.matmul(aq, qw, algo="baseline", bm=bm, bn=bn, bk=bk)
         else:
-            raw = ops.matmul(aq, qw, algo=algo, fold_beta=True) + q["neg_beta"]
+            raw = ops.matmul(aq, qw, algo=algo, fold_beta=True, bm=bm, bn=bn,
+                             bk=bk) + q["neg_beta"]
     else:
         a32 = aq.to(torch.int32)
         b32 = qw.to(torch.int32)

@@ -228,11 +228,18 @@ class DerivedCache:
     the version counter, which any in-place write to the weight bumps. A
     weakref on the view's base tensor drops the entry when the weight dies,
     so a recycled address can never alias a freed weight.
+
+    :meth:`seed` is the warm-start door (the reference's ``seed``):
+    ``repro_torch.prepare`` installs values it loaded from an artifact, so
+    the first use of a prepared weight is a hit, not a re-derivation.
+    ``stats["computed"]`` counts this memo's derivations; the module-level
+    :data:`computed_by_tag` counts every memo's, by tag, and is what an
+    artifact's zero-recompute guarantee reads.
     """
 
     def __init__(self):
         self._cache: dict = {}
-        self.stats = {"computed": 0, "hits": 0}
+        self.stats = {"computed": 0, "hits": 0, "seeded": 0}
 
     @staticmethod
     def _key(tag: str, t: torch.Tensor):
@@ -249,18 +256,35 @@ class DerivedCache:
             return hit[2]
         val = fn(t)
         self.stats["computed"] += 1
+        computed_by_tag[tag] = computed_by_tag.get(tag, 0) + 1
+        self._store(key, root, t._version, val)
+        return val
+
+    def seed(self, tag: str, t: torch.Tensor, val) -> None:
+        """Install ``val`` as ``t``'s derived value under ``tag``, keyed
+        as :meth:`get` keys it (a layer's view of a stacked weight is its
+        own entry)."""
+        self.stats["seeded"] += 1
+        root = t._base if t._base is not None else t
+        self._store(self._key(tag, t), root, t._version, val)
+
+    def _store(self, key, root, version, val) -> None:
         # the callback holds the memo only weakly: a strong reference would
         # close a cycle (memo -> entry -> weakref -> callback -> memo) that
         # keeps a dropped memo's values alive until the next gc pass
         self._cache[key] = (weakref.ref(root, functools.partial(
-            _drop_entry, weakref.ref(self), key)), t._version, val)
-        return val
+            _drop_entry, weakref.ref(self), key)), version, val)
 
     def __len__(self) -> int:
         return len(self._cache)
 
     def clear(self) -> None:
         self._cache.clear()
+
+
+# Derivations of every DerivedCache in the process, by tag (``"y"``,
+# ``"carry"``, ...): the counter behind ``prepare.counters_snapshot``.
+computed_by_tag: Dict[str, int] = {}
 
 
 def _drop_entry(memo_ref, key, _dead) -> None:

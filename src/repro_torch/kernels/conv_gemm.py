@@ -346,7 +346,7 @@ def quantize_input_per_tensor(xp: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     x32 = xp.to(torch.float32)
     xmin = torch.clamp_max(torch.amin(x32), 0.0)
     xmax = torch.clamp_min(torch.amax(x32), 0.0)
-    scale = torch.clamp_min((xmax - xmin) / 255.0, 1e-12)
+    scale = torch.clamp_min(quant.range_div(xmax - xmin, 255), 1e-12)
     zp = torch.clamp(torch.round(-128 - xmin / scale), -128, 127).to(
         torch.int32)
     xq = torch.clamp(torch.round(x32 / scale) + zp, -128, 127).to(torch.int8)

@@ -67,6 +67,16 @@ KERNEL_DMAX = {torch.bfloat16: 256, torch.float32: 128}
 KERNEL_DVMAX = {torch.bfloat16: 256, torch.float32: 128}
 
 
+def kernel_blocks(dtype: torch.dtype, sq: int) -> Tuple[int, int]:
+    """(bq, bk) of the tile K4 runs for ``dtype`` at ``sq`` query rows: the
+    bf16 bodies take 16 rows a warp, one to four warps as Sq needs, against
+    64-key blocks; the f32 kernel 32 x 32 (``csrc/flash_fwd.cu``). The only
+    schedule a ``repro_torch.tune`` flash entry may hold."""
+    if dtype == torch.float32:
+        return 32, 32
+    return (16 if sq <= 16 else 32 if sq <= 32 else 64), 64
+
+
 def _check_widths(name: str, q: Tensor, k: Tensor, v: Tensor) -> None:
     """Raise unless the card's kernel takes these operands: (BH, Sq, d),
     (BH, Sk, d), (BH, Sk, dv) of one dtype the kernels take, d and dv within

@@ -53,6 +53,16 @@ registry snapshot, ``--trace-out PATH`` the span trace (``.jsonl`` one span
 a line, else Chrome ``trace_event`` JSON), ``--metrics-port N`` serves
 Prometheus text on 127.0.0.1:N while the run lasts; either of these two
 turns the kernel hooks (``repro_torch.obs.profile``) on for the run.
+
+``--gemm-block auto`` picks the kernels' tiles (and looks up K4's) from
+the ``repro_torch.tune`` schedule cache, filled by ``python -m
+repro_torch.launch.tune``; ``--gemm-block bm,bn,bk`` pins them (with
+``--gemm-impl cuda``). ``--prepared DIR`` serves a ``repro_torch.prepare``
+artifact (``python -m repro_torch.launch.prepare``) through every server,
+the router's replicas included: no quantization, y derivation or carry
+table at the first prefill. ``--require-warm`` fails the run, listing the
+keys, if a schedule lookup missed or the artifact recomputed offline
+work.
 ``python -m repro_torch.launch.obs_check`` checks the two files:
 
   python -m repro_torch.launch.serve --arch minicpm-2b --smoke --device cpu \
@@ -277,6 +287,17 @@ def main(argv=None):
     ap.add_argument("--gemm-impl", choices=["torch", "cuda"], default=None,
                     help="cuda: the hand-written kernels; torch: plain "
                          "PyTorch (default: torch.matmul)")
+    ap.add_argument("--gemm-block", default=None, metavar="auto|BM,BN,BK",
+                    help="'auto' (the repro_torch.tune schedule cache; also "
+                         "looks up the flash tile) or explicit 'bm,bn,bk' "
+                         "(needs --gemm-impl cuda)")
+    ap.add_argument("--prepared", default=None, metavar="DIR",
+                    help="serve from a repro_torch.prepare artifact "
+                         "(python -m repro_torch.launch.prepare)")
+    ap.add_argument("--require-warm", action="store_true",
+                    help="fail, listing the missing keys, if any schedule "
+                         "lookup missed or the prepared artifact recomputed "
+                         "offline work")
     ap.add_argument("--paged", action="store_true",
                     help="block-paged KV cache (page pool + page tables, "
                          "prefix sharing, chunked prefill)")
@@ -341,6 +362,12 @@ def main(argv=None):
     if args.slo and not args.replicas:
         ap.error("--slo requires --replicas (the burn-rate degradation "
                  "controller lives in the router)")
+    args.gemm_block_parsed = args.gemm_block
+    if args.gemm_block and args.gemm_block != "auto":
+        args.gemm_block_parsed = tuple(
+            int(x) for x in args.gemm_block.split(","))
+        if len(args.gemm_block_parsed) != 3:
+            ap.error("--gemm-block takes 'auto' or bm,bn,bk")
     # a fresh registry and profiler a run, so --metrics-json holds exactly
     # this run (servers, routers and kernel hooks resolve the default at
     # construction); the kernel hooks count only when the run's metrics are
@@ -378,10 +405,17 @@ def _run(args) -> None:
     prompts = make_prompts(cfg.vocab, args.requests,
                            np.random.default_rng(args.seed), lo, hi,
                            shared_prefix=16 if args.shared_prefix else 0)
+    prepared = _load_prepared(args, model.device)
+    if args.require_warm:
+        from repro_torch import tune
+        tune.reset_stats()
     server_kw = dict(batch_slots=args.slots, max_len=args.max_len,
                      quantized=args.quantized, gemm_algo=args.gemm_algo,
-                     gemm_impl=args.gemm_impl, decode_chunk=args.decode_chunk,
-                     prefill_buckets=not args.no_prefill_buckets)
+                     gemm_impl=args.gemm_impl,
+                     gemm_block=args.gemm_block_parsed,
+                     decode_chunk=args.decode_chunk,
+                     prefill_buckets=not args.no_prefill_buckets,
+                     prepared=prepared)
     paged_kw = dict(paged=True, page_size=args.page_size,
                     num_pages=args.num_pages,
                     prefill_chunk=args.prefill_chunk,
@@ -393,6 +427,7 @@ def _run(args) -> None:
                                     dict(server_kw, **paged_kw))
         print(f"  kernel launches: {compat.launch_counts()}")
         write_obs(args, rt.tracer)
+        problems += _warm_problems(args, prepared)
         if problems:
             print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
             raise SystemExit(1)
@@ -409,6 +444,8 @@ def _run(args) -> None:
         f"{args.gemm_impl or 'torch'}"
     if args.paged:
         mode += f"/paged-{args.paged_attention}"
+    if prepared is not None:
+        mode += "/prepared"
     print(f"[{mode}] {cfg.name} L={cfg.n_layers} d={cfg.d_model} on "
           f"{model.device}: {len(done)}/{args.requests} requests / {total} "
           f"tokens in {dt:.3f}s ({total / dt:.1f} tok/s)")
@@ -450,7 +487,62 @@ def _run(args) -> None:
             raise SystemExit("FAIL: paged tokens differ from the contiguous "
                              "cache's")
         print(f"  compare-contiguous: {total} tokens identical")
+    if args.gemm_block == "auto":
+        from repro_torch import tune
+        print(f"  tune: {tune.stats['hits']} schedule hits / "
+              f"{tune.stats['misses']} misses (cache: "
+              f"{tune.get_cache().path})")
+    problems = _warm_problems(args, prepared)
+    if problems:
+        print("--require-warm: FAIL\n  " + "\n  ".join(problems),
+              file=sys.stderr)
+        raise SystemExit(1)
     print("OK")
+
+
+def _load_prepared(args, device):
+    """The ``--prepared`` artifact on ``device``, or None. An unusable one
+    (quarantined by the loader) falls back to preparing in the process,
+    unless ``--require-warm`` asked for the warm start."""
+    if not args.prepared:
+        return None
+    from repro_torch import prepare
+    t0 = time.perf_counter()
+    try:
+        pm = prepare.load(args.prepared, map_location=device)
+    except prepare.ArtifactError as e:
+        if args.require_warm:
+            raise SystemExit(f"--require-warm but the prepared artifact is "
+                             f"unusable: {e}")
+        print(f"WARNING: prepared artifact unusable ({e}); falling back to "
+              f"in-process preparation", file=sys.stderr)
+        return None
+    print(f"loaded prepared artifact {args.prepared} ({len(pm.derived)} "
+          f"y-deltas, {len(pm.schedule)} schedule entries, built at load "
+          f"{pm.built}, {time.perf_counter() - t0:.2f}s)")
+    return pm
+
+
+def _warm_problems(args, prepared) -> list:
+    """``--require-warm``'s failures: schedule misses (with their keys) and
+    offline work the artifact recomputed; the passed checks are printed."""
+    if not args.require_warm:
+        return []
+    from repro_torch import tune
+    problems = []
+    if tune.stats["misses"]:
+        problems.append(
+            f"{tune.stats['misses']} schedule-cache misses fell back to "
+            f"defaults:\n    " + "\n    ".join(sorted(tune._warned_keys)))
+    if prepared is not None and prepared.recomputed:
+        problems.append(f"prepared artifact recomputed offline work: "
+                        f"{prepared.recompute_report()}")
+    if not problems:
+        checks = ["0 schedule misses"]
+        if prepared is not None:
+            checks.append("prepared.recomputed == 0")
+        print(f"  require-warm: {', '.join(checks)}")
+    return problems
 
 
 if __name__ == "__main__":

@@ -22,8 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import tune
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.core.gemm import current_config
+from repro_torch.kernels.flash_attention import flash_attention, kernel_blocks
 from repro_torch.kernels.flash_paged import flash_attention_paged
 from repro_torch.models import layers as L
 
@@ -151,6 +153,19 @@ def _mask(q_pos: Tensor, k_pos: Tensor, window: int, causal: bool) -> Tensor:
     return keep
 
 
+def _flash_schedule(dtype, bh: int, sq: int, sk: int, d: int):
+    """K4's (bq, bk) under the ambient GEMM config, counterpart of the
+    reference's ``_flash_schedule``: ``GemmConfig(block="auto")`` looks the
+    shape bucket up in the ``repro_torch.tune`` cache (the one tile K4 runs;
+    a miss is counted as the GEMMs' are). The kernel takes no block: its
+    tile is fixed per (D, DV) body."""
+    if current_config().block == "auto":
+        got = tune.lookup_flash_blocks(dtype, bh, sq, sk, d)
+        if got is not None:
+            return got
+    return kernel_blocks(dtype, sq)
+
+
 def _flash_sdpa(q: Tensor, k: Tensor, v: Tensor, window: int,
                 causal: bool) -> Tensor:
     """Flash path for the prompt. q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd); GQA by
@@ -164,6 +179,7 @@ def _flash_sdpa(q: Tensor, k: Tensor, v: Tensor, window: int,
     kt = k.permute(0, 2, 1, 3).reshape(b * h, k.shape[1], hd).contiguous()
     vt = v.permute(0, 2, 1, 3).reshape(b * h, v.shape[1],
                                        v.shape[-1]).contiguous()
+    _flash_schedule(qt.dtype, b * h, sq, kt.shape[1], hd)
     out = flash_attention(qt, kt, vt, window or 0, causal)
     return out.reshape(b, h, sq, out.shape[-1]).permute(0, 2, 1, 3)
 

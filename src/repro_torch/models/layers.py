@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
-from repro_torch.core.gemm import current_config, gemm
+from repro_torch.core.gemm import current_config, gemm, gemm_blocks
 
 Tensor = torch.Tensor
 
@@ -38,9 +38,13 @@ def dense(x: Tensor, p: dict) -> Tensor:
     cfg = current_config()
     if cfg.quantized and "q" in p:
         algo = cfg.algo if cfg.algo != "baseline" else "ffip"
+        qw = p["q"]["qw"]
+        blocks = (gemm_blocks(cfg, algo, x.numel() // d_in, qw.shape[-1],
+                              d_in, qw.dtype)
+                  if cfg.impl == "cuda" else (0, 0, 0))
         out = quant.quantized_dense_apply(
             x.reshape(-1, d_in), p["q"], algo=algo, impl=cfg.impl,
-            k_chunk=cfg.k_chunk).to(x.dtype)
+            k_chunk=cfg.k_chunk, blocks=blocks).to(x.dtype)
     else:
         out = gemm(x.reshape(-1, d_in), p["w"])
     out = out.reshape(*lead, -1)

@@ -27,12 +27,11 @@ multiplier. This module gives every kernel call site one place to record:
   GOPS (histogram + last-value gauge per ``{kernel, algo, dtype}``).
 
 * **compile events** — :func:`compile_snapshot` gathers the weight-transform
-  memo's counters (``kernels/compat.DerivedCache.stats``). The reference
-  also reads its schedule cache and timing harness (``repro.tune``); the
-  port has no tuner yet (ROADMAP item 14), so those two entries are ``{}``,
-  as the reference gives for a missing subsystem. The reference's
-  ``dispatch_cost`` (a jaxpr cost model) waits for the profiler-based cost
-  report of ROADMAP item 15.
+  memo's counters (``kernels/compat.DerivedCache.stats``), the schedule
+  cache's lookups (``repro_torch.tune.stats``) and the timing harness's
+  candidates (``tune/measure.counters``), as the reference does. The
+  reference's ``dispatch_cost`` (a jaxpr cost model) waits for the
+  profiler-based cost report of ROADMAP item 15.
 
 These hooks count dispatches at the provider, on either device;
 ``kernels/compat.LaunchCounter`` counts CUDA launches only. They measure
@@ -261,10 +260,14 @@ def on_flash(q, k, *, causal: bool) -> None:
 
 def compile_snapshot() -> Dict[str, Dict[str, int]]:
     """One dict of the compile-side counters: ``derived_cache``
-    (``kernels/compat.DerivedCache.stats``, computed / hits of the module
-    memo), ``schedule_cache`` and ``measure`` (``{}``: no tuner yet, ROADMAP
-    item 14). The import is lazy: this module stays importable from
-    ``kernels/``."""
+    (``kernels/compat.DerivedCache.stats`` of the module memo: computed /
+    hits / seeded), ``schedule_cache`` (``repro_torch.tune.stats``: the
+    tuned-schedule lookups' hits and misses) and ``measure``
+    (``tune/measure.counters``: candidates timed / failed). The imports are
+    lazy: this module stays importable from ``kernels/``."""
+    from repro_torch import tune
     from repro_torch.kernels import compat
+    from repro_torch.tune import measure
     return {"derived_cache": dict(compat.derived.stats),
-            "schedule_cache": {}, "measure": {}}
+            "schedule_cache": dict(tune.stats),
+            "measure": dict(measure.counters)}

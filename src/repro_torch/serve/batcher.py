@@ -53,7 +53,15 @@ count jit traces; the port dispatches eagerly and has neither. The router
 :meth:`BatchServer.set_obs_labels` and reads :meth:`free_slots`,
 :meth:`outstanding_rows`, :meth:`page_headroom` and :meth:`request_phase`.
 
-Meshes and prepared artifacts come in later slices; asking for one raises
+``gemm_block`` (``"auto"`` or an explicit ``(bm, bn, bk)``) picks the
+kernels' tiles: ``"auto"`` from the ``repro_torch.tune`` schedule cache (and
+K4's one tile, so its key is looked up too); explicit blocks need
+``gemm_impl="cuda"``. ``prepared`` (a ``repro_torch.prepare`` artifact)
+serves its params, and the server seeds its own memo from the artifact's y
+deltas and carry tables: the first prefill derives nothing. A router's
+replicas of one tier share one artifact.
+
+A mesh comes with a later slice; asking for one raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -180,6 +188,7 @@ class BatchServer:
     def __init__(self, model: Model, *, batch_slots: int, max_len: int,
                  greedy: bool = True, quantized: bool = False,
                  gemm_algo: str = "ffip", gemm_impl: Optional[str] = None,
+                 gemm_block=None,
                  decode_chunk: int = 1, prefill_buckets: bool = True,
                  device=None, paged: bool = False, page_size: int = 16,
                  num_pages: Optional[int] = None,
@@ -190,11 +199,19 @@ class BatchServer:
                  clock: Optional[Callable[[], float]] = None,
                  registry=None, tracer=None, trace_capacity: int = 4096,
                  obs_window_s: float = 30.0):
-        for name, val in (("mesh", mesh), ("prepared", prepared)):
-            if val:
-                raise NotImplementedError(
-                    f"BatchServer({name}=...) is not ported yet "
-                    f"(single-device serving only)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "BatchServer(mesh=...) is not ported yet (single-device "
+                "serving only): ROADMAP queue 1 item 15 (distribution)")
+        if prepared is not None:
+            if prepared.kind != "lm":
+                raise ValueError(f"BatchServer needs an 'lm' artifact, got "
+                                 f"{prepared.kind!r}")
+            if quantized and not prepared.quantized:
+                raise ValueError(
+                    "quantized=True but the prepared artifact carries no "
+                    "int8 weights: re-run `python -m "
+                    "repro_torch.launch.prepare --quantized`")
         if moe_partition is not None:
             raise NotImplementedError(
                 "BatchServer(moe_partition=...) shards the expert banks over "
@@ -274,18 +291,31 @@ class BatchServer:
             self._bucketed = prefill_buckets and _cache_supports_buckets(
                 model, batch_slots, max_len)
             self._batch_axes = _cache_batch_axes(model, batch_slots, max_len)
-        if quantized or gemm_impl is not None:
+        # the GEMM provider of every dispatch; "auto" also looks up K4's
+        # tile, which is why a config is built even on the torch provider
+        if quantized or gemm_impl is not None or gemm_block is not None:
             impl = gemm_impl or "torch"
             if impl not in ("torch", "ref", "cuda"):
                 raise ValueError(f"gemm_impl must be torch, ref or cuda; "
                                  f"got {impl!r}")
+            if (gemm_block is not None and gemm_block != "auto"
+                    and impl != "cuda"):
+                # explicit blocks reach a kernel only through the cuda
+                # provider; elsewhere they would be a silent no-op
+                raise ValueError(
+                    "explicit gemm_block requires gemm_impl='cuda' "
+                    "(block='auto' alone is fine: it also looks up flash "
+                    "attention's tile)")
             algo = gemm_algo if (quantized or impl == "cuda") else "baseline"
             self._gemm_cfg = GemmConfig(algo=algo, impl=impl,
-                                        quantized=quantized)
+                                        quantized=quantized,
+                                        block=gemm_block)
         else:
             self._gemm_cfg = None
-        # the server's own per-weight memo (y-deltas, contiguous copies of
-        # weight views): what it prepares is freed with the server
+        self.prepared = prepared
+        # the server's own per-weight memo (y-deltas, carry tables,
+        # contiguous copies of weight views): what it prepares is freed with
+        # the server; an artifact's derived values are seeded into it
         self._derived = compat.DerivedCache()
         self._prepared_params = None
         self._prepared_src = None
@@ -398,11 +428,21 @@ class BatchServer:
         return stack
 
     def _params_for(self, params):
-        """The run-ready tree, built once per distinct params object: int8
-        ``q`` entries attached when quantized, and for the FFIP kernels the
-        y-deltas (and their carry tables) of every weight the forward will
-        hand them, computed now into the server's memo (it keys on storage,
-        so the per-layer views the forward slices later hit it)."""
+        """The run-ready tree. With a ``prepared`` artifact: its params, its
+        y deltas and carry tables seeded into the server's memo once
+        (``params`` is not read). Else, built once per distinct params
+        object: int8 ``q`` entries attached when quantized, and for the
+        FFIP kernels the y-deltas (and their carry tables) of every weight
+        the forward will hand them, computed now into the server's memo (it
+        keys on storage, so the per-layer views the forward slices later
+        hit it)."""
+        if self.prepared is not None:
+            if self._prepared_src is not self.prepared:
+                self._derived.clear()
+                self.prepared.seed_into(self._derived)
+                self._prepared_params = self.prepared.params
+                self._prepared_src = self.prepared
+            return self._prepared_params
         if self._gemm_cfg is None:
             return params
         if self._prepared_src is not params:

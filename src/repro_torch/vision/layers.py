@@ -17,14 +17,17 @@ layouts.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import im2col, quant
-from repro_torch.core.gemm import GemmConfig, current_config, gemm
-from repro_torch.core.im2col import Size2, as_pair
+from repro_torch import tune
+from repro_torch.core.gemm import (GemmConfig, current_config, gemm,
+                                   resolve_blocks)
+from repro_torch.core.im2col import Size2, as_pair, conv_out_hw
 from repro_torch.kernels import conv_gemm
 
 Tensor = torch.Tensor
@@ -51,25 +54,55 @@ def _effective_algo(cfg: GemmConfig) -> str:
     return cfg.algo if cfg.algo != "baseline" else "ffip"
 
 
-def _resolve_conv_blocks(cfg: GemmConfig) -> Tuple[int, int, int]:
-    """(bm, bn, bk) of the fused conv; (0, 0, 0) is the static default."""
-    if cfg.block == "auto":
-        raise NotImplementedError(
-            "GemmConfig.block='auto' needs the tuned schedule cache, which "
-            "comes with the tune port (ROADMAP queue 1, item 14)")
-    if cfg.block is None:
-        return (0, 0, 0)
-    if isinstance(cfg.block, (tuple, list)) and len(cfg.block) == 3:
-        bm, bn, bk = cfg.block
-        return (int(bm), int(bn), int(bk))
-    raise ValueError(f"GemmConfig.block must be None or (bm, bn, bk); "
-                     f"got {cfg.block!r}")
+def _resolve_conv_blocks(cfg: GemmConfig, algo: str, dtype, *, oh: int,
+                         ow: int, k: int, n: int, ckw: int
+                         ) -> Tuple[int, int, int]:
+    """(bm, bn, bk) of the fused conv; (0, 0, 0) is the static default.
+    ``block="auto"`` looks up the ``repro_torch.tune`` conv schedule under
+    ``algo``, the algo the kernel really runs (the quantized path's may
+    differ from ``cfg.algo``), as the reference does."""
+    return resolve_blocks(cfg, lambda: tune.lookup_conv_blocks(
+        algo, dtype, oh * ow, n, k, ckw))
+
+
+@contextlib.contextmanager
+def _cudnn_ieee_f32():
+    """cuDNN's f32 convolutions in IEEE f32 for the ``with`` body: PyTorch
+    lets cuDNN run them in TF32 by default (a 10-bit mantissa), against
+    the reference's f32 (ROADMAP queue 3, F7). Sets both the legacy
+    ``allow_tf32`` and, where this torch has it, the per-op
+    ``conv.fp32_precision``, and restores the caller's settings afterwards,
+    also when the body raises; the process's defaults are never changed."""
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+    per_op = conv is not None and hasattr(conv, "fp32_precision")
+    ops = (conv.fp32_precision, cudnn.rnn.fp32_precision) if per_op else None
+    try:
+        legacy = cudnn.allow_tf32
+    except RuntimeError:
+        # a caller who set conv and rnn apart through the per-op flags:
+        # the legacy getter refuses to read that mix
+        legacy = None
+    try:
+        cudnn.allow_tf32 = False
+        if per_op:
+            conv.fp32_precision = "ieee"
+        yield
+    finally:
+        # the legacy setter first: after a mix of the two APIs PyTorch
+        # reads the legacy flag again only once it has been set
+        if legacy is not None:
+            cudnn.allow_tf32 = legacy
+        if per_op:
+            conv.fp32_precision, cudnn.rnn.fp32_precision = ops
 
 
 def _nchw_conv(x: Tensor, w: Tensor, stride, pad, groups: int) -> Tensor:
-    """F.conv2d on the NHWC / HWIO layouts (the counterpart of lax.conv)."""
-    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                   stride=stride, padding=pad, groups=groups)
+    """F.conv2d on the NHWC / HWIO layouts (the counterpart of lax.conv),
+    in IEEE f32 on the card (:func:`_cudnn_ieee_f32`)."""
+    with _cudnn_ieee_f32():
+        out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                       stride=stride, padding=pad, groups=groups)
     return out.permute(0, 2, 3, 1)
 
 
@@ -81,10 +114,14 @@ def conv2d(x: Tensor, p: dict, *, stride: Size2 = 1, pad: Size2 = 0,
     w = p["w"]
     sh, sw = as_pair(stride)
     ph, pw = as_pair(pad)
+    kh, kw, cin_g, cout = w.shape
+    oh, ow = conv_out_hw(x.shape[1], x.shape[2], kh, kw, (sh, sw), (ph, pw))
+    geom = dict(oh=oh, ow=ow, k=kh * kw * cin_g, n=cout // groups,
+                ckw=cin_g * kw)
     if cfg.quantized and "q" in p:
         algo = _effective_algo(cfg)
         if cfg.impl == "cuda":
-            bm, bn, bk = _resolve_conv_blocks(cfg)
+            bm, bn, bk = _resolve_conv_blocks(cfg, algo, torch.int8, **geom)
             out = conv_gemm.quantized_conv_apply(
                 x, p["q"], stride=(sh, sw), pad=(ph, pw), algo=algo,
                 bm=bm, bn=bn, bk=bk)
@@ -94,7 +131,8 @@ def conv2d(x: Tensor, p: dict, *, stride: Size2 = 1, pad: Size2 = 0,
                 k_chunk=cfg.k_chunk)
         out = out.to(x.dtype)
     elif cfg.impl == "cuda":
-        bm, bn, bk = _resolve_conv_blocks(cfg)
+        bm, bn, bk = _resolve_conv_blocks(
+            cfg, cfg.algo, torch.promote_types(x.dtype, w.dtype), **geom)
         out = conv_gemm.conv_gemm_fused(
             x, w, stride=(sh, sw), pad=(ph, pw), groups=groups, algo=cfg.algo,
             bm=bm, bn=bn, bk=bk)

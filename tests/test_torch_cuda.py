@@ -354,6 +354,40 @@ def test_conv_kernel_matches_plain(dev, case, dtype):
         _compare(got, want, dtype, geom.k)
 
 
+def _cudnn_tf32_flags():
+    cudnn = torch.backends.cudnn
+    conv = getattr(cudnn, "conv", None)
+    if conv is not None and hasattr(conv, "fp32_precision"):
+        return (conv.fp32_precision, cudnn.rnn.fp32_precision,
+                cudnn.allow_tf32)
+    return (cudnn.allow_tf32,)
+
+
+def test_baseline_conv_is_ieee_f32_under_default_flags(dev):
+    """The baseline conv of the torch provider (``vision.layers._nchw_conv``,
+    ``F.conv2d``) runs in IEEE f32 on the card under PyTorch's default
+    flags, which let cuDNN run an f32 conv in TF32 (ROADMAP queue 3, F7):
+    ResNet-50 s2b1.c2's geometry at batch 2 (3x3, 64 -> 64 channels, 56 x
+    56, K 576) on unit-normal data, as the reference's GEMM tests draw
+    theirs, within their f32 bar of the host's conv. TF32's 10-bit
+    mantissa misses that bar there by several times. The caller's flags
+    are the same after the call."""
+    from repro_torch.core.gemm import GemmConfig, use_gemm
+    from repro_torch.vision import layers as vl
+    before = _cudnn_tf32_flags()
+    assert before in (("tf32", "tf32", True), (True,)), before  # defaults
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 56, 56, 64), generator=g)
+    p = {"w": torch.randn((3, 3, 64, 64), generator=g)}
+    with torch.no_grad(), use_gemm(GemmConfig(algo="baseline",
+                                              impl="torch")):
+        want = vl.conv2d(x, p, pad=1)
+        got = vl.conv2d(x.to(dev), {"w": p["w"].to(dev)}, pad=1)
+    torch.cuda.synchronize()
+    assert _cudnn_tf32_flags() == before
+    _compare(got, want, torch.float32, 3 * 3 * 64)
+
+
 @pytest.mark.parametrize("algo", ["baseline", "fip", "ffip"])
 def test_conv_kernel_equals_gemm_on_materialised_a(dev, algo):
     """K7 sums what K1, K2 and K3 sum over the materialised A, in the same
@@ -880,23 +914,24 @@ def _zamba2_smoke(dtype="bfloat16"):
         "zamba2-1.2b")), param_dtype=dtype)
 
 
-@pytest.mark.parametrize("quantized,dtype", [(False, "bfloat16"),
-                                             (True, "float32")])
-def test_zamba2_smoke_serve_through_kernels(dev, quantized, dtype):
+@pytest.mark.parametrize("quantized", [False, True])
+def test_zamba2_smoke_serve_through_kernels(dev, quantized):
     """The zamba2 smoke model (2 groups of 2 Mamba2 layers, each followed by
     the shared attention block, then a tail of 1), served on the card
     through ``gemm_impl="cuda"`` (K3 for every projection, K4 for the
     shared block's prompt: once per group and scatter prefill, never at
     decode), gives the tokens of the same server on the host, where every
-    kernel wrapper runs its plain version. Float FFIP in bf16; int8 FFIP
-    in f32: its per-token activation quantization turns the card's other
-    rounding of the float ops around the exact int8 GEMMs (K4 against its
-    plain version, the SSD's einsums on the card against the host's) into
-    whole int8 steps, which in bf16 moved a served token within 2-4 steps
-    (chip_smoke.py's int8 readings hold those to a bar instead)."""
+    kernel wrapper runs its plain version; float and int8 FFIP, in bf16.
+    The int8 case ran in f32 until ROADMAP queue 3's F6 was repaired: the
+    per-token activation scale ``(xmax - xmin) / 255`` took PyTorch's CUDA
+    path for a Python-number divisor (a multiply by the reciprocal), one
+    f32 ulp off the host's quotient on some rows, which moved int8 codes
+    from the first dense call on and served tokens 2-4 steps in
+    (``tools/int8_probe.py``; ``core.quant.range_div`` divides on both
+    devices alike)."""
     from repro_torch.launch.serve import make_prompts, serve
     from repro_torch.models.model import Model
-    cfg = _zamba2_smoke(dtype)
+    cfg = _zamba2_smoke()
     n_groups = cfg.n_layers // cfg.hybrid_attn_period
     # one chunk of the smoke chunk 8 up to 15 tokens: the chunk contract
     prompts = make_prompts(cfg.vocab, 6, np.random.default_rng(5), 3, 16)
@@ -1125,3 +1160,75 @@ def test_router_fault_case_on_card_matches_no_fault_oracle(dev):
     assert unplanned_failures(rt.events) == []
     assert rt.completed_tokens() == want
     assert counts["ffip_gemm_y"] > 0 and counts["flash_fwd"] > 0
+
+
+# --- the autotuner's space and prepared artifacts on the card ---------------
+
+@pytest.mark.parametrize("algo,dtype", [("ffip", torch.bfloat16),
+                                        ("fip", torch.int8),
+                                        ("baseline", torch.float32),
+                                        ("baseline", torch.bfloat16),
+                                        ("ffip", torch.int8)])
+def test_every_compiled_tile_equals_the_default(dev, algo, dtype,
+                                               tmp_path):
+    """Every tile ``repro_torch.tune.space`` may offer gives the static
+    default's result bit for bit (ragged M, K and N, K past one split), and
+    ``tune_gemm``'s own check agrees at the bucket shape."""
+    from repro_torch import tune
+    from repro_torch.tune import space
+    a, b = _operands(300, 2304, 1000, dtype, dev)
+    with torch.no_grad():
+        want = ops.matmul(a, b, algo=algo)
+        for bm, bn, bk in space.compiled_tiles(algo, dtype):
+            got = ops.matmul(a, b, algo=algo, bm=bm, bn=bn, bk=bk)
+            assert torch.equal(got, want), (bm, bn, bk)
+    cache = tune.ScheduleCache(tmp_path / "schedules.json")
+    entry = tune.tune_gemm(300, 1000, 2304, dtype, algo=algo, iters=1,
+                           cache=cache, persist=False)
+    assert entry["candidates"] == len(space.gemm_candidates(
+        512, 1024, 4096, algo, dtype))
+
+
+@pytest.mark.parametrize("algo,dtype", [("ffip", torch.float32),
+                                        ("baseline", torch.int8)])
+def test_every_conv_tile_equals_the_default(dev, algo, dtype):
+    from repro_torch.tune import space
+    x, kern = _conv_operands(2, 28, 28, 64, 64, 3, 3, 1, dtype, dev)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    stack = conv_gemm._kernel_to_stack(kern, 1)
+    with torch.no_grad():
+        want = conv_gemm.fused_conv_raw(xp, stack, kh=3, kw=3, algo=algo)
+        for bm, bn, bk in space.compiled_conv_tiles(algo):
+            got = conv_gemm.fused_conv_raw(xp, stack, kh=3, kw=3, algo=algo,
+                                           bm=bm, bn=bn, bk=bk)
+            assert torch.equal(got, want), (bm, bn, bk)
+
+
+def test_prepared_server_derives_nothing_on_the_card(dev, tmp_path):
+    """A ``repro_torch.prepare`` artifact of the minicpm-2b smoke model in
+    bf16, int8 FFIP, written and loaded on the card (its carry tables built
+    by the load), serves the unprepared server's tokens with
+    ``recomputed == 0`` and launches no carry-table kernel while serving."""
+    import dataclasses
+
+    from repro_torch import configs, prepare
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.smoke_config(configs.get_config(
+        "minicpm-2b")), param_dtype="bfloat16")
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    prompts = make_prompts(cfg.vocab, 6, np.random.default_rng(3), 3, 16)
+    kw = dict(max_new=5, batch_slots=2, max_len=32, gemm_algo="ffip",
+              gemm_impl="cuda", quantized=True)
+    _, want, _ = serve(model, params, prompts, **kw)
+    prepare.prepare_lm(params, quantized=True).save(tmp_path / "a")
+    pm = prepare.load(tmp_path / "a")
+    assert pm.built["carry"] > 0
+    compat.reset_counters()
+    _, got, _ = serve(model, None, prompts, prepared=pm, **kw)
+    counts = compat.launch_counts()
+    assert ({r.rid: r.out_tokens for r in got}
+            == {r.rid: r.out_tokens for r in want})
+    assert pm.recomputed == 0, pm.recompute_report()
+    assert counts["ffip_carry_table"] == 0 and counts["ffip_gemm_y"] > 0

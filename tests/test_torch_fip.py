@@ -147,12 +147,18 @@ def test_gemm_provider(algo, impl):
     _close(got, np.asarray(a, np.float64) @ np.asarray(b, np.float64), K + 1)
 
 
-def test_gemm_block_validation():
-    """A malformed block is a ValueError; "auto" (the tuned schedule) raises
-    NotImplementedError naming the tune port, as the vision path does."""
+def test_gemm_block_validation(tmp_path, monkeypatch):
+    """A malformed block is a ValueError; "auto" (the tuned schedule)
+    resolves through the repro_torch.tune cache: on an empty cache a miss,
+    counted, and the static default's result bit for bit."""
+    from repro_torch import tune
     with pytest.raises(ValueError):
         gemm(torch.zeros(2, 4), torch.zeros(4, 2),
              GemmConfig(algo="fip", impl="cuda", block=(8, 8)))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        gemm(torch.zeros(2, 4), torch.zeros(4, 2),
-             GemmConfig(algo="fip", impl="cuda", block="auto"))
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "sched.json"))
+    tune.reset_stats()
+    a, b = _t(_f32(5, 3, 4)), _t(_f32(6, 4, 6))
+    got = gemm(a, b, GemmConfig(algo="fip", impl="cuda", block="auto"))
+    want = gemm(a, b, GemmConfig(algo="fip", impl="cuda"))
+    assert torch.equal(got, want)
+    assert tune.stats == {"hits": 0, "misses": 1}

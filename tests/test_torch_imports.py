@@ -1,8 +1,10 @@
 """The port stands alone: importing every module of repro_torch (the
-observability package, the router and the fault plans included) pulls in
+observability package, the router, the fault plans, the tuner and the
+prepared artifacts included) pulls in
 neither JAX nor the reference package (nor ml_dtypes), and its entry points
 (the LM models, dense and SSM, the server, the serve launcher with its
-router, the vision models and launcher, the training loop and launcher)
+router, the vision models and launcher, the training loop and launcher,
+the tune and prepare launchers and the artifact loader)
 default to the card, raising (not falling back to the CPU) when there is
 none."""
 import os
@@ -33,7 +35,11 @@ for name in ("repro_torch.optim.adamw", "repro_torch.data.pipeline",
              "repro_torch.obs.window", "repro_torch.obs.slo",
              "repro_torch.obs.profile", "repro_torch.serve.router",
              "repro_torch.serve.faults", "repro_torch.serve.lifecycle",
-             "repro_torch.launch.obs_check", "repro_torch.launch.dash"):
+             "repro_torch.launch.obs_check", "repro_torch.launch.dash",
+             "repro_torch.tune", "repro_torch.tune.space",
+             "repro_torch.tune.cache", "repro_torch.tune.measure",
+             "repro_torch.launch.tune", "repro_torch.prepare",
+             "repro_torch.prepare.artifact", "repro_torch.launch.prepare"):
     assert name in names, name
 
 import torch
@@ -42,6 +48,9 @@ from repro_torch.kernels import compat
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.launch import vision as launch_vision
+from repro_torch.launch import prepare as launch_prepare
+from repro_torch.launch import tune as launch_tune
+from repro_torch import prepare
 from repro_torch.models.model import Model
 from repro_torch.train import loop as train_loop
 from repro_torch.serve.batcher import BatchServer
@@ -62,7 +71,11 @@ for make in (lambda: Model(cfg), lambda: Model(ssm),
              lambda: launch_train.main(["--arch", "minicpm-2b", "--smoke",
                                         "--steps", "1"]),
              lambda: launch_serve.main(["--arch", "minicpm-2b", "--smoke",
-                                        "--replicas", "2"])):
+                                        "--replicas", "2"]),
+             lambda: launch_tune.main(["--arch", "minicpm-2b", "--smoke"]),
+             lambda: launch_prepare.main(["--arch", "minicpm-2b", "--smoke",
+                                          "--out", "unused"]),
+             lambda: prepare.load("unused")):
     try:
         make()
     except RuntimeError as e:

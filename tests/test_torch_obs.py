@@ -359,10 +359,20 @@ def test_kernel_hooks_count_cpu_calls_as_dispatches(profiler):
 
 
 def test_compile_snapshot_names_the_missing_tuner():
+    """The reference's three entries, the tuner's two filled from
+    ``repro_torch.tune.stats`` and ``tune.measure.counters`` (they were
+    ``{}`` before the tuner was ported), with the reference's keys."""
+    from repro import tune as jtune
+    from repro.tune import measure as jmeasure
+    from repro_torch import tune
+    from repro_torch.tune import measure
     snap = obs_profile.compile_snapshot()
     assert set(snap) == {"derived_cache", "schedule_cache", "measure"}
-    assert set(snap["derived_cache"]) == {"computed", "hits"}
-    assert snap["schedule_cache"] == {} and snap["measure"] == {}
+    assert set(snap["derived_cache"]) == {"computed", "hits", "seeded"}
+    assert snap["schedule_cache"] == tune.stats
+    assert snap["measure"] == measure.counters
+    assert set(snap["schedule_cache"]) == set(jtune.stats)
+    assert set(snap["measure"]) == set(jmeasure.counters)
 
 
 # -- metrics layer -----------------------------------------------------------

@@ -160,10 +160,24 @@ def test_h_and_g_terms_exact(j):
     np.testing.assert_array_equal(g.numpy(), h.numpy())
 
 
-def test_block_auto_raises_on_the_lm_path():
-    """GemmConfig(block="auto") on the LM path (models.layers.dense) raises
-    NotImplementedError naming ROADMAP item 14, as the vision path does."""
-    p = {"w": torch.zeros(8, 4)}
-    with use_gemm(GemmConfig(algo="ffip", impl="cuda", block="auto")):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            L.dense(torch.zeros(2, 8), p)
+def test_block_auto_raises_on_the_lm_path(tmp_path, monkeypatch):
+    """GemmConfig(block="auto") on the LM path (models.layers.dense), float
+    and int8, resolves through the repro_torch.tune cache: on an empty
+    cache one miss a call, counted, and the static default's output bit for
+    bit (it raised NotImplementedError naming ROADMAP item 14 until the
+    tuner was ported)."""
+    from repro_torch import tune
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "sched.json"))
+    tune.reset_stats()
+    g = torch.Generator().manual_seed(0)
+    p = {"w": torch.randn(8, 4, generator=g)}
+    p["q"] = quant.prepare_quantized_dense(p["w"])
+    x = torch.randn(2, 8, generator=g)
+    for quantized in (False, True):
+        outs = []
+        for block in ("auto", None):
+            with use_gemm(GemmConfig(algo="ffip", impl="cuda", block=block,
+                                     quantized=quantized)):
+                outs.append(L.dense(x, p))
+        assert torch.equal(*outs)
+    assert tune.stats == {"hits": 0, "misses": 2}

@@ -139,14 +139,19 @@ def test_launch_serve_cli_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """mesh= and prepared= wait for their slices; registry= and tracer=
-    (the repro_torch.obs hooks) are taken."""
+    """Only mesh= waits for its slice (item 15); prepared= is taken since
+    the prepare port (item 6) and refuses a vision artifact, as do
+    registry= and tracer= (the repro_torch.obs hooks)."""
+    import types
     from repro_torch.obs import Registry, Tracer
     cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
     m = Model(cfg, device="cpu")
-    for kw in ({"mesh": object()}, {"prepared": object()}):
-        with pytest.raises(NotImplementedError):
-            BatchServer(m, batch_slots=1, max_len=8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        BatchServer(m, batch_slots=1, max_len=8, device="cpu",
+                    mesh=object())
+    with pytest.raises(ValueError, match="'lm' artifact"):
+        BatchServer(m, batch_slots=1, max_len=8, device="cpu",
+                    prepared=types.SimpleNamespace(kind="vision"))
     reg, tracer = Registry(), Tracer()
     srv = BatchServer(m, batch_slots=1, max_len=8, device="cpu",
                       registry=reg, tracer=tracer)
