@@ -11,6 +11,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 2. Hold each kernel against its plain PyTorch version at the main paths'
    shapes: the GEMMs K1-K3 at minicpm-2b's M in {4, 512} x (K, N) in
    {(2304, 2304), (2304, 5760), (5760, 2304), (2304, 122753)} and
+   minicpm-2b's local pieces at tensor-parallel size 2, (K, N) in {(2304,
+   1152), (2304, 2880), (1152, 2304), (2880, 2304)} at M 4 and 512,
    falcon-mamba-7b's M in {4, 128} x (K, N) in {(4096, 16384), (8192, 288),
    (256, 8192), (8192, 4096), (4096, 65024)}, gemma3-4b's unembed and
    zamba2-1.2b's dtp and bc_proj at decode (M 4; (2560, 262144), (2048,
@@ -143,8 +145,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    lookup missed, no carry table launched while serving, and the tokens of
    an unprepared server on the same weights; each server's first step
    (preparation and first prefill) is timed.
+8c. Tensor parallelism (phase dist) on a (1, DIST_TP) mesh, one process a
+   rank through ``launch.serve``'s rank entry (``spawn_ranks``,
+   ``serve_job``): gloo with both ranks on the one card, which shows the
+   sharded computation and its collectives, not a multi-card speed. The
+   tensor-parallel dense layers against the whole layer
+   (``repro_torch.dist.parity``, minicpm-2b's widths, M 4 and 512: int8
+   column- and row-parallel bit for bit, bf16 row-parallel within the f32
+   GEMM bar); then, DIST_MAX_NEW new tokens a request, minicpm-2b at 40
+   layers served float and int8 FFIP, read against phase serve's plain path
+   under the same bars, with the count of tokens equal to phase serve's
+   own; a planted fault (rank 1's piece of layer 0's ``ffn.down`` taken
+   from rank 0's, float FFIP) above the float bar; phase prepare's artifact
+   cut per rank, ``recomputed == 0`` and the single-device prepared
+   server's tokens; deepseek-v2-lite-16b at DIST_MOE_LAYERS of 27, int8
+   FFIP, ``moe_partition`` "expert" and "ffn", each read against the plain
+   path replaying its dispatches (``Replay``). Every rank must launch its
+   GEMM kernel and K4, and return rank 0's tokens; each rank's peak memory,
+   launches, prefill s and decode ms/step are printed.
 9. The router and ``repro_torch.obs`` (phase fleet), on the same
-   minicpm-2b model, every replica sharing its weights and its tier's one
+   minicpm-2b weights at their first IDENTITY_LAYERS layers (the run's
+   time), every replica sharing its weights and its tier's one
    ``repro_torch.prepare`` preparation (float or int8: no server derives y,
    carry tables or int8 weights), 2 slots each, the
    prompts of 4., 16 new tokens: no-fault oracles (ffip with the profiler
@@ -187,7 +208,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through the plain path: where the plain path's last loss falls below its
    first, the kernels' must too.
 12. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
-   widths and 14 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
+   widths and 8 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
    from --seed, served as in 4.
    with ffip, fip, baseline and int8 ffip (every prefill dispatch launches
    K4 at d 192 / dv 128 once per layer, decode attends through the absorbed
@@ -206,7 +227,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    published widths, bf16, random weights from --seed: gemma3-4b at 34
    layers (5 local : 1 global, windows of 1024, thetas 1e4 / 1e6, K4, K8
    and K5 at d 256), mixtral-8x22b at 12 of 56 (GQA 48 : 8 + MoE 8 experts
-   top-2, window 4096), starcoder2-3b at 30 (layernorm, gelu, a qkv bias,
+   top-2, window 4096), starcoder2-3b at 16 of 30 (layernorm, gelu, a qkv bias,
    GQA 24 : 2) and deepseek-coder-33b at 19 of 62 (GQA 56 : 8), the cuts
    being one card's memory. Each is served contiguous (gemma3 ffip,
    baseline and int8 ffip; the others ffip and int8 ffip) and, but for
@@ -265,8 +286,10 @@ import contextlib
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -320,11 +343,14 @@ def pair_ms(adds: float, mads: float, integer: bool) -> float:
 # at decode (M 4) and at a 128-token prompt (M 128); gemma3-4b's tied
 # unembed (N 262144, the widest the port serves) at decode; zamba2-1.2b's
 # narrowest projections at decode, dtp (N 64, one column a head) and
-# bc_proj (N 128, B and C)
+# bc_proj (N 128, B and C); minicpm-2b's local shapes at tensor-parallel
+# size 2 (phase dist: a rank's piece of wq / wo, up / gate and down)
 GEMM_CASES = tuple(
     (m, k, n) for ms, kns in (
         ((4, 512), ((2304, 2304), (2304, 5760), (5760, 2304),
                     (2304, 122753))),
+        ((4, 512), ((2304, 1152), (2304, 2880), (1152, 2304),
+                    (2880, 2304))),
         ((4, 128), ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
                     (4096, 65024))),
         ((4,), ((2560, 262144), (2048, 64), (2048, 128))))
@@ -499,8 +525,9 @@ PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
 FLEET_SLOTS = 2
 FLEET_PLANS = {"raise": (1, 2), "hang": (1, 2), "exhaust": (0, 3),
                "poison": (0, 24)}
-# Depth of the paged identity runs (chunk widths, gather vs contiguous): the
-# first layers of the same weights, to keep the whole run short.
+# Depth of the paged identity runs (chunk widths, gather vs contiguous) and
+# of phase fleet: the first layers of the same weights, to keep the whole
+# run short (at 40 layers phase fleet took 121.4-167.6 s, PRs 26-27).
 IDENTITY_LAYERS = 8
 # K8 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36,
 # d 64 (minicpm-2b's attention at training batch 4), bf16 and f32: S 256 is
@@ -536,12 +563,13 @@ HEADLINE_SCAN_BWD = "train B 2 S 256"
 # for the activations and AdamW's f32 slices.
 TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
 # Depth of the served runs of phases ssm and moe: falcon-mamba-7b at 40 of
-# its 64 layers, deepseek-v2-lite-16b at 14 of 27, widths kept, so that the
-# whole run, phases encdec and fleet included, stays under its 1200-s
+# its 64 layers, deepseek-v2-lite-16b at 8 of 27, widths kept, so that the
+# whole run, phases encdec, fleet and dist included, stays under its 1200-s
 # limit: at their published depths it took 837.9 s before phases encdec
-# and fleet on an H100 (PERF.md section 4).
+# and fleet on an H100 (PERF.md section 4); at 14 of 27 deepseek's phase
+# took 126.1 s, and the whole run with phase dist 1226.1 s (PR 27).
 SSM_SERVE_LAYERS = 40
-MOE_SERVE_LAYERS = 14
+MOE_SERVE_LAYERS = 8
 # phase moe: deepseek-v2-lite-16b (MLA + MoE) served at its published widths
 # (27 layers: 15.7 B parameters, 31 GB in bf16; MOE_SERVE_LAYERS of them
 # here), and trained at 10 of 27:
@@ -571,7 +599,8 @@ MOE_TRAIN_RUNS = ((MOE_ARCH, 10, 2, 256),)
 #   GiB on the H100; at 13 it peaked at 75.4 GiB of the card's 79.2, and the
 #   planted fault's run (a copy of the faulty attn.wo beside the weights)
 #   then ran out of memory.
-# - starcoder2-3b (4.16 B params) at all 30 layers.
+# - starcoder2-3b at 16 of 30 layers (the run's time; at 30, 4.16 B params,
+#   it served in 55.2 s of PR 27's run).
 # - deepseek-coder-33b at 19 of 62 layers: 0.53 B params a layer (3.5 GiB
 #   in int8 FFIP). At 18 layers the int8 run peaked at 66.3 GiB on the
 #   H100, so 19 take ~69.8 GiB and its planted fault's run ~71.6 (a copy of
@@ -581,7 +610,7 @@ FAMILY_RUNS = (
      (("ffip", False), ("baseline", False), ("ffip", True)), True, (1, 1536)),
     ("mixtral-8x22b", "mixtral", 12, 4608, (4200, 4400),
      (("ffip", False), ("ffip", True)), True, None),
-    ("starcoder2-3b", "starcoder2", 30, 256, None,
+    ("starcoder2-3b", "starcoder2", 16, 256, None,
      (("ffip", False), ("ffip", True)), True, None),
     ("deepseek-coder-33b", "deepseek-coder", 19, 256, None,
      (("ffip", False), ("ffip", True)), False, None),
@@ -613,6 +642,22 @@ TUNE_SEQ = "16,32,64,128"
 # weights, int8 codes and y deltas written and loaded), the cut for the
 # run's time and the artifact's bytes
 PREPARE_LAYERS = 8
+# phase dist: tensor parallelism on a (1, DIST_TP) mesh, one process a rank
+# (gloo with both ranks on the one card: the sharded computation and its
+# collectives, not a multi-card speed). minicpm-2b at --layers (40) served
+# float and int8 FFIP, its planted fault, phase prepare's artifact (8
+# layers) cut per rank; deepseek-v2-lite-16b at DIST_MOE_LAYERS of 27 (the
+# dense first layer and three MoE layers: the phase's time), int8 FFIP in
+# both MoE partitions; the tensor-parallel dense layers at minicpm-2b's
+# widths (DIST_LAYER_SHAPES: wq / wo, up / gate, down at M 4 and 512).
+# DIST_MAX_NEW new tokens a request: a decode step of two ranks sharing the
+# card takes 0.5-1 s (each all-reduce waits for both processes' kernels),
+# and the readings need the first two.
+DIST_TP = 2
+DIST_MAX_NEW = 8
+DIST_MOE_LAYERS = 4
+DIST_LAYER_SHAPES = tuple((m, k, n) for m in (4, 512) for k, n in (
+    (2304, 2304), (2304, 5760), (5760, 2304)))
 ENCDEC_ROWS = 4
 WHISPER_PROMPT = 32
 PIXTRAL_LAYERS = 32
@@ -2774,7 +2819,8 @@ def run_fleet(args, model, params, prompts, problems):
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         m, t = f"{tmp}/metrics.json", f"{tmp}/trace.jsonl"
-        launch.main(["--arch", "minicpm-2b", "--layers", str(args.layers),
+        launch.main(["--arch", "minicpm-2b", "--layers",
+                     str(model.cfg.n_layers),
                      "--requests", "8", "--slots", "2", "--replicas", "2",
                      "--quantized-replicas", "1", "--fault-plan", "flaky",
                      "--slo", "ttft_ms p99 < 2000", "--slo-windows", "2,8",
@@ -4277,7 +4323,7 @@ def run_tune(args, model, params, prompts, ffip_done, problems):
     return counts, entries
 
 
-def run_prepare(args, prompts, problems):
+def run_prepare(args, prompts, problems, tmp: str):
     """Phase prepare: ``launch.prepare`` on minicpm-2b at its published
     widths and PREPARE_LAYERS of its 40 layers, int8 FFIP, with the tune
     phase's schedule slice; loaded, and the prompts served through
@@ -4285,10 +4331,9 @@ def run_prepare(args, prompts, problems):
     schedule miss, no carry table built while serving, and the tokens of an
     unprepared server on the same weights. Prints the bytes written, the
     load's seconds and each server's first step (its preparation, if any,
-    and first prefill dispatch)."""
-    import shutil
-    import tempfile
-
+    and first prefill dispatch). The artifact stays in ``tmp`` for phase
+    dist; returns (the prepared run's launch counts, the artifact's path,
+    its tokens)."""
     from repro_torch import configs, prepare, tune
     from repro_torch.kernels import compat
     from repro_torch.launch import prepare as launch_prepare
@@ -4298,79 +4343,276 @@ def run_prepare(args, prompts, problems):
     t0 = time.perf_counter()
     full = configs.get_config("minicpm-2b")
     cfg = dataclasses.replace(full, n_layers=PREPARE_LAYERS)
-    tmp = tempfile.mkdtemp(prefix="prepare_")
     out = f"{tmp}/minicpm-2b.prepared"
     print(f"phase prepare: minicpm-2b at {PREPARE_LAYERS} of {full.n_layers} "
           f"layers, int8 ffip -> {out}", flush=True)
-    try:
-        t1 = time.perf_counter()
-        if launch_prepare.main(["--arch", "minicpm-2b", "--layers",
-                                str(PREPARE_LAYERS), "--quantized", "--out",
-                                out, "--seed", str(args.seed)]) != 0:
-            problems.append("prepare: the launcher failed")
-        written = sum(f.stat().st_size for f in pathlib.Path(out).iterdir())
-        print(f"  launch.prepare: {time.perf_counter() - t1:.1f} s, "
-              f"{written} bytes written", flush=True)
-        free_device()
-        t1 = time.perf_counter()
-        pm = prepare.load(out)
+    t1 = time.perf_counter()
+    if launch_prepare.main(["--arch", "minicpm-2b", "--layers",
+                            str(PREPARE_LAYERS), "--quantized", "--out",
+                            out, "--seed", str(args.seed)]) != 0:
+        problems.append("prepare: the launcher failed")
+    written = sum(f.stat().st_size for f in pathlib.Path(out).iterdir())
+    print(f"  launch.prepare: {time.perf_counter() - t1:.1f} s, "
+          f"{written} bytes written", flush=True)
+    free_device()
+    t1 = time.perf_counter()
+    pm = prepare.load(out)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t1
+    print(f"  load: {load_s:.2f} s ({len(pm.derived)} y deltas, "
+          f"{len(pm.schedule)} schedule entries, built at load "
+          f"{pm.built})", flush=True)
+    model = Model(cfg)
+    tokens, first_s = {}, {}
+    for label in ("prepared", "unprepared"):
+        tune.reset_stats()
+        compat.reset_counters()
+        base = pm.recompute_report()
+        kw = (dict(prepared=pm, gemm_block="auto")
+              if label == "prepared" else {})
+        srv = BatchServer(model, batch_slots=4, max_len=256,
+                          quantized=True, gemm_algo="ffip",
+                          gemm_impl="cuda", **kw)
+        for i, p in enumerate(prompts):
+            srv.submit(Request(rid=i, prompt=p,
+                               max_new_tokens=args.max_new))
+        params = None if label == "prepared" else model.init(args.seed)
         torch.cuda.synchronize()
-        load_s = time.perf_counter() - t1
-        print(f"  load: {load_s:.2f} s ({len(pm.derived)} y deltas, "
-              f"{len(pm.schedule)} schedule entries, built at load "
-              f"{pm.built})", flush=True)
-        model = Model(cfg)
-        tokens, first_s = {}, {}
-        for label in ("prepared", "unprepared"):
-            tune.reset_stats()
-            compat.reset_counters()
-            base = pm.recompute_report()
-            kw = (dict(prepared=pm, gemm_block="auto")
-                  if label == "prepared" else {})
-            srv = BatchServer(model, batch_slots=4, max_len=256,
-                              quantized=True, gemm_algo="ffip",
-                              gemm_impl="cuda", **kw)
-            for i, p in enumerate(prompts):
-                srv.submit(Request(rid=i, prompt=p,
-                                   max_new_tokens=args.max_new))
-            params = None if label == "prepared" else model.init(args.seed)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            srv.step(params)
-            torch.cuda.synchronize()
-            first_s[label] = time.perf_counter() - t1
-            done = srv.run_until_drained(params)
-            tokens[label] = {r.rid: list(r.out_tokens) for r in done}
-            counts = compat.launch_counts()
-            work = {k: v - base[k]
-                    for k, v in pm.recompute_report().items()}
-            print(f"  [{label}] {len(done)}/{len(prompts)} requests; first "
-                  f"step (preparation and first prefill) "
-                  f"{first_s[label]:.3f} s; offline work while serving "
-                  f"{work}; tune {dict(tune.stats)}; launches {counts}",
-                  flush=True)
-            if label == "prepared":
-                served = counts
-                if (pm.recomputed or tune.stats["misses"]
-                        or counts["ffip_carry_table"]):
-                    problems.append(f"prepare: the prepared server derived "
-                                    f"{pm.recompute_report()} or missed "
-                                    f"{tune.stats['misses']} lookups")
-            del srv, params
-            free_device()
-        same = tokens["prepared"] == tokens["unprepared"]
-        print(f"  tokens prepared vs unprepared: "
-              f"{'identical' if same else 'DIFFER'}; first step "
-              f"{first_s['prepared']:.3f} s vs {first_s['unprepared']:.3f} s",
+        t1 = time.perf_counter()
+        srv.step(params)
+        torch.cuda.synchronize()
+        first_s[label] = time.perf_counter() - t1
+        done = srv.run_until_drained(params)
+        tokens[label] = {r.rid: list(r.out_tokens) for r in done}
+        counts = compat.launch_counts()
+        work = {k: v - base[k]
+                for k, v in pm.recompute_report().items()}
+        print(f"  [{label}] {len(done)}/{len(prompts)} requests; first "
+              f"step (preparation and first prefill) "
+              f"{first_s[label]:.3f} s; offline work while serving "
+              f"{work}; tune {dict(tune.stats)}; launches {counts}",
               flush=True)
-        if not same:
-            problems.append("prepare: the prepared server's tokens differ")
-        del pm, model
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if label == "prepared":
+            served = counts
+            if (pm.recomputed or tune.stats["misses"]
+                    or counts["ffip_carry_table"]):
+                problems.append(f"prepare: the prepared server derived "
+                                f"{pm.recompute_report()} or missed "
+                                f"{tune.stats['misses']} lookups")
+        del srv, params
+        free_device()
+    same = tokens["prepared"] == tokens["unprepared"]
+    print(f"  tokens prepared vs unprepared: "
+          f"{'identical' if same else 'DIFFER'}; first step "
+          f"{first_s['prepared']:.3f} s vs {first_s['unprepared']:.3f} s",
+          flush=True)
+    if not same:
+        problems.append("prepare: the prepared server's tokens differ")
+    del pm, model
     free_device()
     print(f"phase prepare: {time.perf_counter() - t0:.1f} s", flush=True)
-    return served
+    return served, out, tokens["prepared"]
+
+
+def plant_down_shard(params, mesh):
+    """Phase dist's planted fault, through the params: on rank 1 the whole
+    weight's second half of layer 0's ``ffn.down`` rows (rank 1's piece once
+    the server cuts K in two) set to the first half (rank 0's)."""
+    if mesh.index("model") != 1:
+        return params
+    path = ("layers", "ffn", "down", "w")
+    w = params["layers"]["ffn"]["down"]["w"]
+    bad = w.clone()
+    half = w.shape[-2] // 2
+    bad[0, half:] = w[0, :half]
+    return _with_leaf(params, path, bad)
+
+
+def recorded_serve_job(mesh, device, **kw):
+    """``launch.serve.serve_job`` with every sampled id tensor and MoE
+    top-k kept (``record_samples``, ``routing``), so that ``Replay`` can
+    replay the rank's dispatches through the plain path."""
+    from repro_torch.launch.serve import serve_job
+
+    with record_samples() as samples, routing() as routes:
+        out = serve_job(mesh, device, **kw)
+    out["samples"] = [t.cpu() for t in samples]
+    out["routes"] = [t.cpu() for t in routes]
+    return out
+
+
+def _dist_line(label, recs):
+    """Print a tensor-parallel run: rank 0's stats, every rank's peak
+    memory and launches."""
+    st = recs[0]["stats"]
+    print(f"  [{label}] {len(recs[0]['tokens'])} requests, "
+          f"{sum(len(t) for t in recs[0]['tokens'].values())} tokens; "
+          f"wall {recs[0]['wall_s']:.3f} s (incl. weight preparation); "
+          f"prefill {st['prefill_s']:.3f} s ({st['prefill_tokens']} tok / "
+          f"{st['prefill_dispatches']} dispatches), decode "
+          f"{st['decode_s']:.3f} s ({st['decode_tokens']} tok / "
+          f"{st['steps']} steps, "
+          f"{1e3 * st['decode_s'] / max(1, st['steps']):.1f} ms/step)",
+          flush=True)
+    for r, rec in enumerate(recs):
+        busy = {k: v for k, v in rec["launches"].items() if v}
+        print(f"    rank {r}: peak memory {rec['peak_gib']:.2f} GiB; "
+              f"launches {busy}", flush=True)
+
+
+def run_dist(args, model, params, prompts, runs, plain, artifact: str,
+             prepared_tokens, readings: Readings, problems):
+    """Phase dist: tensor-parallel serving on a (1, DIST_TP) mesh through
+    ``launch.serve``'s rank entry (``spawn_ranks``, ``serve_job``), one
+    process a rank. The tensor-parallel dense layers against the whole
+    layer (``repro_torch.dist.parity``); minicpm-2b float and int8 FFIP
+    read against phase serve's plain path under the bars, beside the
+    count of tokens equal to phase serve's own; the planted fault
+    (``plant_down_shard``) above the float bar; phase prepare's artifact
+    cut per rank, ``recomputed == 0`` and the single-device prepared
+    server's tokens; deepseek-v2-lite-16b at DIST_MOE_LAYERS, int8 FFIP,
+    ``moe_partition`` "expert" and "ffn", each read against the plain path
+    replaying its dispatches (``Replay``), beside the count of tokens
+    equal to a single-device run at the same depth. Returns the ranks'
+    launch counts."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.dist import parity
+    from repro_torch.kernels import compat
+    from repro_torch.launch.serve import (RankError, mesh_backend, serve,
+                                          serve_job, spawn_ranks)
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    backend, devices = mesh_backend(DIST_TP, "cuda")
+    print(f"phase dist: tp {DIST_TP} on a (1, {DIST_TP}) mesh, {backend}, "
+          f"ranks on {devices} ({torch.cuda.device_count()} card(s): ranks "
+          f"sharing one card show the sharded computation and its "
+          f"collectives, not a multi-card speed)", flush=True)
+    kw = dict(batch_slots=4, max_len=256, gemm_impl="cuda", gemm_algo="ffip")
+    mc = dict(arch="minicpm-2b", layers=args.layers, seed=args.seed,
+              prompts=prompts, max_new=DIST_MAX_NEW)
+    ds_cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                                 n_layers=DIST_MOE_LAYERS)
+    ds_prompts = served_prompts(ds_cfg.vocab, args.seed)
+    ds = dict(arch=MOE_ARCH, layers=DIST_MOE_LAYERS, seed=args.seed,
+              prompts=ds_prompts, max_new=DIST_MAX_NEW)
+    labels = ["ffip", "int8-ffip", "planted fault", "prepared int8-ffip",
+              "deepseek int8-ffip expert", "deepseek int8-ffip ffn"]
+    jobs = [
+        (parity.layer_parity, dict(shapes=DIST_LAYER_SHAPES, dtype="bf16")),
+        (serve_job, dict(mc, server_kw=dict(kw, quantized=False))),
+        (serve_job, dict(mc, server_kw=dict(kw, quantized=True))),
+        (serve_job, dict(mc, server_kw=dict(kw, quantized=False),
+                         plant=plant_down_shard)),
+        (serve_job, dict(mc, layers=PREPARE_LAYERS, prepared=artifact,
+                         server_kw=dict(kw, quantized=True,
+                                        gemm_block="auto"))),
+        (recorded_serve_job, dict(ds, server_kw=dict(
+            kw, quantized=True, moe_partition="expert"))),
+        (recorded_serve_job, dict(ds, server_kw=dict(
+            kw, quantized=True, moe_partition="ffn"))),
+    ]
+    totals = {name: 0 for name in compat.launch_counts()}
+    try:
+        ranks = spawn_ranks(DIST_TP, jobs, device="cuda", timeout_s=600)
+    except RankError as e:
+        problems.append(f"dist: {e}")
+        return totals
+    ranks_s = time.perf_counter() - t0
+    print(f"  ranks: {ranks_s:.1f} s (start, weights, serving)", flush=True)
+
+    worst = {}
+    for r, rank in enumerate(ranks):
+        for label, rec in rank[0].items():
+            kind = label.split(" M=")[0]
+            worst[kind] = max(worst.get(kind, 0.0), rec["max_abs_err"])
+            if not rec["ok"]:
+                problems.append(f"dist: rank {r}: {label} off the whole "
+                                f"layer ({rec['tol']}): {rec['max_abs_err']}")
+    print(f"  layer checks ({len(ranks[0][0])} a rank, M in (4, 512), K x N "
+          f"in {[kn[1:] for kn in DIST_LAYER_SHAPES[:3]]}): worst max_abs "
+          f"{worst}", flush=True)
+    by = {label: [rank[i + 1] for rank in ranks]
+          for i, label in enumerate(labels)}
+    for label, recs in by.items():
+        _dist_line(f"tp{DIST_TP} {label}", recs)
+        for r, rec in enumerate(recs):
+            for name, n in rec["launches"].items():
+                totals[name] += n
+            if rec["tokens"] != recs[0]["tokens"]:
+                problems.append(f"dist {label}: rank {r}'s tokens differ "
+                                f"from rank 0's")
+            if not (rec["launches"]["ffip_gemm_y"]
+                    and rec["launches"]["flash_fwd"]):
+                problems.append(f"dist {label}: rank {r} launched no "
+                                f"ffip_gemm_y or flash_fwd")
+        if any(len(t) != DIST_MAX_NEW for t in recs[0]["tokens"].values()):
+            problems.append(f"dist {label}: a request missed its budget")
+
+    def done(rec):
+        return [SimpleNamespace(rid=rid, out_tokens=toks)
+                for rid, toks in sorted(rec["tokens"].items())]
+
+    own = {r["label"]: {d.rid: d.out_tokens for d in r["done"]}
+           for r in runs}
+    for label, tier, quantized in (("ffip", "float", False),
+                                   ("int8-ffip", "int8", True)):
+        rec = by[label][0]
+        same = sum(a == b for rid in own[label]
+                   for a, b in zip(rec["tokens"][rid], own[label][rid]))
+        print(f"  [tp{DIST_TP} {label}] {same} of "
+              f"{sum(map(len, rec['tokens'].values()))} tokens equal to "
+              f"phase serve's {label} run", flush=True)
+        readings.read(f"tp{DIST_TP} {label}", done(rec), plain[quantized],
+                      tier)
+    readings.read(f"tp{DIST_TP} planted fault: rank 1's piece of layer 0's "
+                  f"ffn.down taken from rank 0's, float ffip",
+                  done(by["planted fault"][0]), plain[False], "float",
+                  fault=True)
+    for r, rec in enumerate(by["prepared int8-ffip"]):
+        print(f"  [tp{DIST_TP} prepared int8-ffip] rank {r}: recomputed "
+              f"{rec['recomputed']}, built at the cut {rec['built']}, "
+              f"schedule misses {rec['tune_misses']} (a rank's local "
+              f"buckets; a miss takes the static default)", flush=True)
+        if any(rec["recomputed"].values()):
+            problems.append(f"dist prepared: rank {r} recomputed "
+                            f"{rec['recomputed']}")
+    n = min(DIST_MAX_NEW, args.max_new)
+    same = {rid: toks[:n] for rid, toks in
+            by["prepared int8-ffip"][0]["tokens"].items()} == {
+        rid: toks[:n] for rid, toks in prepared_tokens.items()}
+    print(f"  [tp{DIST_TP} prepared int8-ffip] tokens vs the single-device "
+          f"prepared server's: {'identical' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        problems.append("dist prepared: tokens differ from the single-device "
+                        "prepared server's")
+
+    ds_model = Model(ds_cfg)
+    ds_params = ds_model.init(args.seed)
+    _, single, _ = serve(ds_model, ds_params, ds_prompts,
+                         max_new=DIST_MAX_NEW, quantized=True, **kw)
+    single = {r.rid: list(r.out_tokens) for r in single}
+    for part in ("expert", "ffn"):
+        rec = by[f"deepseek int8-ffip {part}"][0]
+        same = sum(a == b for rid in single
+                   for a, b in zip(rec["tokens"][rid], single[rid]))
+        print(f"  [tp{DIST_TP} deepseek int8-ffip {part}] {same} of "
+              f"{sum(map(len, single.values()))} tokens equal to the "
+              f"single-device run at {DIST_MOE_LAYERS} layers", flush=True)
+        replay = Replay(ds_model, ds_params, ds_prompts,
+                        [t.cuda() for t in rec["samples"]],
+                        [t.cuda() for t in rec["routes"]], DIST_MAX_NEW,
+                        quantized=True, batch_slots=4, max_len=256)
+        readings.read(f"tp{DIST_TP} deepseek int8-ffip {part} "
+                      f"({DIST_MOE_LAYERS} layers)", done(rec), replay,
+                      "int8")
+        del replay
+    del ds_model, ds_params
+    print(f"phase dist: {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
 
 
 def free_device():
@@ -4517,7 +4759,9 @@ def main(argv=None) -> int:
         tier = "int8" if quantized else "float"
         readings.read(f"planted fault: {label}, {tier} ffip", done,
                       plain[quantized], tier, fault=True)
-    del faulty, plain
+    # phase dist reads its tensor-parallel runs against the same plain paths
+    served_plain = plain
+    del faulty
     print(f"phase check: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 5. paged serving through K5: the page pool, prefix sharing, copy on
@@ -4642,12 +4886,30 @@ def main(argv=None) -> int:
     tune_counts, _ = run_tune(args, model, params, prompts, runs[0]["done"],
                               problems)
     free_device()
-    prep_counts = run_prepare(args, prompts, problems)
+    art_dir = tempfile.mkdtemp(prefix="prepare_")
+    try:
+        prep_counts, artifact, prepared_tokens = run_prepare(
+            args, prompts, problems, art_dir)
+        # 8c. tensor parallelism: minicpm-2b and deepseek-v2-lite-16b
+        # served on two ranks sharing the card
+        dist_counts = run_dist(args, model, params, prompts, runs,
+                               served_plain, artifact, prepared_tokens,
+                               readings, problems)
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
+    del served_plain
+    free_device()
     for name in totals:
-        totals[name] += tune_counts[name] + prep_counts[name]
+        totals[name] += (tune_counts[name] + prep_counts[name]
+                         + dist_counts[name])
 
-    # 8. the router and repro_torch.obs over replicas of the same model
-    fleet = run_fleet(args, model, params, prompts, problems)
+    # 8. the router and repro_torch.obs over replicas of the same model, at
+    # its first IDENTITY_LAYERS layers
+    n_fleet = min(IDENTITY_LAYERS, cfg.n_layers)
+    fleet = run_fleet(args, Model(dataclasses.replace(cfg, n_layers=n_fleet)),
+                      dict(params, layers=_first_layers(params["layers"],
+                                                        n_fleet)),
+                      prompts, problems)
     for name in totals:
         totals[name] += fleet[name]
     del model, params

@@ -34,6 +34,8 @@ Impl = Literal["torch", "ref", "cuda"]
 # cache for the call's (algo, dtype, shape bucket, device), the static
 # default on a miss.
 Block = Union[None, str, Tuple[int, int, int]]
+# 16-bit floats, whose products accumulate in f32 (``keep_acc``)
+_WIDENED = (torch.bfloat16, torch.float16)
 Blocks = Tuple[int, int, int]
 
 
@@ -109,22 +111,30 @@ def _call_blocks(cfg: GemmConfig, algo: str, a: Tensor, b: Tensor) -> Blocks:
                        torch.promote_types(a.dtype, b.dtype))
 
 
-def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None) -> Tensor:
-    """C = A @ B through the configured provider. a: (..., M, K), b: (K, N)."""
+def gemm(a: Tensor, b: Tensor, cfg: Optional[GemmConfig] = None, *,
+         keep_acc: bool = False) -> Tensor:
+    """C = A @ B through the configured provider. a: (..., M, K), b: (K, N).
+    ``keep_acc``: a 16-bit float product comes back as its f32 accumulator,
+    unrounded (a row-parallel layer's partial; ``ops.matmul``)."""
     cfg = cfg or current_config()
     if cfg.algo == "baseline":
         if cfg.impl == "cuda":
             bm, bn, bk = _call_blocks(cfg, "baseline", a, b)
-            return ops.matmul(a, b, algo="baseline", bm=bm, bn=bn, bk=bk)
+            return ops.matmul(a, b, algo="baseline", bm=bm, bn=bn, bk=bk,
+                              keep_acc=keep_acc)
+        if keep_acc and a.dtype in _WIDENED:
+            return torch.matmul(a.float(), b.float())
         return torch.matmul(a, b)
 
     a, b = _pad_even_k(a, b)
     if cfg.impl == "cuda":
         bm, bn, bk = _call_blocks(cfg, cfg.algo, a, b)
-        return ops.matmul(a, b, algo=cfg.algo, bm=bm, bn=bn, bk=bk)
+        return ops.matmul(a, b, algo=cfg.algo, bm=bm, bn=bn, bk=bk,
+                          keep_acc=keep_acc)
     # 'torch' and 'ref' both run the exact algebra; the trainable wrappers
     # give it the analytic (baseline) gradient
     fn = (fip.fip_matmul_trainable if cfg.algo == "fip"
           else fip.ffip_matmul_trainable)
     out = fn(a, b, cfg.k_chunk)
-    return out.to(torch.promote_types(a.dtype, b.dtype))
+    return out if keep_acc else out.to(torch.promote_types(a.dtype,
+                                                           b.dtype))

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import fip
+from repro_torch.dist import context as dctx
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -193,14 +194,21 @@ def prepare_quantized_dense(w: Tensor, *, dtype=torch.int8,
             "colsum": torch.sum(q32, dim=-2, dtype=torch.int32)}
 
 
-def quantize_activations(x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+def quantize_activations(x: Tensor, *, row_parallel: bool = False
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
     """Per-token-row asymmetric int8 activations: ``(aq, a_scale, a_zp)``
     with the row's range widened to hold 0, as the reference quantizes
-    them inside ``quantized_dense_apply``."""
+    them inside ``quantized_dense_apply``. ``row_parallel``: ``x`` holds
+    this rank's columns of each row, and the range is the whole row's (the
+    ranks' maxima of xmax and of -xmin), so the codes are the single
+    device's."""
     qmin, qmax = _INT_INFO[torch.int8]
     x32 = x.to(torch.float32)
     xmin = torch.clamp_max(torch.amin(x32, dim=-1, keepdim=True), 0.0)
     xmax = torch.clamp_min(torch.amax(x32, dim=-1, keepdim=True), 0.0)
+    if row_parallel:
+        both = dctx.all_max(torch.cat([xmax, -xmin], dim=-1))
+        xmax, xmin = both[..., :1], -both[..., 1:]
     a_scale = torch.clamp_min(range_div(xmax - xmin, qmax - qmin),
                                 1e-12)
     a_zp = torch.clamp(torch.round(qmin - xmin / a_scale),
@@ -212,8 +220,8 @@ def quantize_activations(x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
 
 def quantized_dense_apply(x: Tensor, q: dict, *, algo: str = "ffip",
                           impl: str = "torch", k_chunk: int = 0,
-                          blocks: Tuple[int, int, int] = (0, 0, 0)
-                          ) -> Tensor:
+                          blocks: Tuple[int, int, int] = (0, 0, 0),
+                          row_parallel: bool = False) -> Tensor:
     """A dense layer through its offline-prepared int8 weights.
 
     x: (M, K) float; q: one layer's dict from :func:`prepare_quantized_dense`.
@@ -227,17 +235,34 @@ def quantized_dense_apply(x: Tensor, q: dict, *, algo: str = "ffip",
     the reference does through XLA. The int32 result is identical.
     ``blocks`` (cuda only): the kernels' (bm, bn, bk), (0, 0, 0) their
     static default.
+
+    Tensor parallelism on the ambient mesh's ``"model"`` axis. A
+    column-parallel layer (``qw`` holds this rank's N/tp columns) reads its
+    piece of the whole per-channel vectors. A ``row_parallel`` one (``x``
+    and ``qw`` hold this rank's K/tp columns and rows of a whole-K weight
+    quantized before the cut) quantizes with the whole row's range, sums
+    the ranks' int32 products and activation row sums, and then enters
+    each whole-K term once (``neg_beta``, ``colsum``, ``k a_zp zp``): the
+    result is the single device's bit for bit. K/tp must be even, so that
+    no FIP pair straddles two ranks.
     """
-    aq, a_scale, a_zp = quantize_activations(x)
     qw = q["qw"]
-    k = qw.shape[-2]
+    k, n = qw.shape[-2], qw.shape[-1]
+    if row_parallel and k % 2:
+        raise ValueError(f"a row-parallel int8 layer needs an even K a rank "
+                         f"(no FIP pair across two ranks), got K/tp = {k}")
+    aq, a_scale, a_zp = quantize_activations(x, row_parallel=row_parallel)
+    scale, zp, neg_beta, colsum = (dctx.local_slice(q[key], n) for key in
+                                   ("scale", "zp", "neg_beta", "colsum"))
+    # a row-parallel partial leaves out the whole-K beta: it enters once
+    folded = 0 if row_parallel else neg_beta
     if impl == "cuda":
         bm, bn, bk = blocks
         if algo == "baseline":
             raw = ops.matmul(aq, qw, algo="baseline", bm=bm, bn=bn, bk=bk)
         else:
             raw = ops.matmul(aq, qw, algo=algo, fold_beta=True, bm=bm, bn=bn,
-                             bk=bk) + q["neg_beta"]
+                             bk=bk) + folded
     else:
         a32 = aq.to(torch.int32)
         b32 = qw.to(torch.int32)
@@ -247,15 +272,21 @@ def quantized_dense_apply(x: Tensor, q: dict, *, algo: str = "ffip",
             # alpha is pair-swap invariant: FFIP is the Eq. 16 form on the
             # pair-swapped operands with the same offline-folded beta
             raw = fip.fip_matmul_beta_folded(
-                fip.pair_swap(a32), fip.pair_swap_rows(b32), q["neg_beta"],
+                fip.pair_swap(a32), fip.pair_swap_rows(b32), folded,
                 k_chunk=k_chunk)
         else:
-            raw = fip.fip_matmul_beta_folded(a32, b32, q["neg_beta"],
+            raw = fip.fip_matmul_beta_folded(a32, b32, folded,
                                              k_chunk=k_chunk)
-    acc = (raw - a_zp * q["colsum"]
-           - zero_point_adjuster(aq, q["zp"])
-           + k * a_zp * q["zp"])
-    return acc.to(torch.float32) * (a_scale * q["scale"])
+    rowsum = torch.sum(aq.to(torch.int32), dim=-1, keepdim=True,
+                       dtype=torch.int32)
+    if row_parallel:
+        both = dctx.all_sum(torch.cat([raw, rowsum], dim=-1))
+        raw, rowsum = both[..., :n], both[..., n:]
+        if algo != "baseline":
+            raw = raw + neg_beta
+        k = k * dctx.tp_size()
+    acc = raw - a_zp * colsum - rowsum * zp + k * a_zp * zp
+    return acc.to(torch.float32) * (a_scale * scale)
 
 
 def attach_quantized_weights(params, *, dtype=torch.int8,

@@ -1,0 +1,304 @@
+"""Name/shape-pattern sharding rules -> spec trees, and the cut of a tree
+into one rank's pieces. Counterpart of ``repro/dist/sharding.py``: the rule
+table (:func:`_match_spec`, :func:`param_specs`, :func:`data_specs`,
+:func:`cache_specs`, the divisibility guard and the ``q/`` parent rule) is
+a copy, and its specs equal the reference's leaf for leaf.
+
+  * column-parallel weights (wq/wk/wv, mlp up/gate, router, x_proj, ...):
+    input dim over "data", output dim over "model";
+  * row-parallel weights (wo, mlp down, out_proj): input dim over "model",
+    output dim over "data";
+  * MoE expert banks (w_gate/w_up/w_down, (L, E, d, f)): the expert axis
+    over "model" (``moe_partition="expert"``) or d_ff_expert over "model"
+    (``"ffn"``), d_model over "data";
+  * the embedding table (V, d): vocab over "model", d over "data";
+  * biases, norm scales, the int8 epilogue vectors and other vectors and
+    scalars: replicated.
+
+Every assignment passes a hard divisibility guard: a dim that does not
+divide its axis stays whole (None).
+
+A spec is a tuple with one entry a dim (:class:`P`): None, an axis name,
+or a tuple of axis names. The reference hands its specs to GSPMD, which
+places the pieces and inserts the collectives; the port cuts each rank's
+local pieces itself (:func:`shard_tree`) and its model code reduces their
+partial results (``repro_torch.dist.context``). Where that code needs a
+leaf whole that a spec splits, :func:`serving_specs` keeps it whole. The
+widenings, each of a leaf that every rank must read in full:
+
+  * a MoE router's weight (``router/...``): the top-k over the experts
+    reads every expert's logit;
+  * MLA's latent projections ``w_dkv`` and ``w_kr``: every local head
+    reads the whole compressed latent and the shared rope key;
+  * an attention projection whose heads do not divide the model axis
+    (``wq``, ``wo``, ``w_ukv`` when H % tp != 0; ``wk``, ``wv`` when
+    KV % tp != 0): heads split as whole heads or not at all, and a local
+    q head's kv head must be local.
+
+It never splits what a spec keeps whole. A column-parallel layer reads its
+piece of a replicated per-channel vector (bias, int8 scale, zero point,
+folded beta, colsum) as a view (``context.local_slice``); a row-parallel
+one adds it once, after the reduce.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.dist.context import MODEL
+
+PyTree = Any
+
+# Leaves that are never worth sharding (biases, norm params, scalars, and
+# the tiny per-output-channel int8 epilogue vectors from repro_torch.prepare).
+_REPLICATED_LEAVES = frozenset({"b", "bias", "scale", "step", "pos",
+                                "zp", "neg_beta", "colsum"})
+# Row-parallel projections: they consume model-sharded activations.
+_ROW_PARALLEL_PARENTS = frozenset({"wo", "down", "out_proj"})
+# Stacked per-expert weight banks from moe_init.
+_MOE_EXPERT_LEAVES = frozenset({"w_gate", "w_up", "w_down"})
+# serving_specs' widenings (module docstring)
+_WHOLE_PARENTS = frozenset({"router", "w_dkv", "w_kr"})
+_Q_HEAD_PARENTS = frozenset({"wq", "wo", "w_ukv"})
+_KV_HEAD_PARENTS = frozenset({"wk", "wv"})
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, None where the dim stays whole."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def _axis_sizes(mesh) -> Dict[str, int]:
+    """{axis_name: size}, duck-typed so shape-only mesh stand-ins work."""
+    return dict(zip(tuple(mesh.axis_names), tuple(mesh.devices.shape)))
+
+
+def _batch_axes(mesh, batch_size: Optional[int] = None):
+    """The mesh axes a batch dim is split over, degrading gracefully:
+    ("pod", "data") jointly, then the widest single axis, as the
+    reference's ladder. With no batch_size the ladder's head."""
+    names = tuple(mesh.axis_names)
+    present = tuple(a for a in ("pod", "data") if a in names)
+    if not present:
+        return None
+    sizes = _axis_sizes(mesh)
+    singles = sorted(((a,) for a in present),
+                     key=lambda c: -sizes[c[0]])   # widest axis first
+    ladder = ([present] if len(present) > 1 else []) + singles
+    if batch_size is None:
+        axes = ladder[0]
+    else:
+        axes = next((cand for cand in ladder
+                     if batch_size % _axes_size(cand, sizes) == 0), None)
+        if axes is None:
+            return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _axes_size(axes, sizes: Dict[str, int]) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, tuple):
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        return n
+    return sizes[axes]
+
+
+def _guarded(axes_per_dim, shape, sizes) -> P:
+    """Apply the divisibility guard: drop any axis that does not divide."""
+    out = []
+    for dim, axes in enumerate(axes_per_dim):
+        n = _axes_size(axes, sizes)
+        out.append(axes if (axes is not None and n > 0
+                            and shape[dim] % n == 0) else None)
+    return P(*out)
+
+
+def _owner(parts) -> str:
+    """The projection that owns a leaf: its parent, or for an offline
+    quantized leaf (``<proj>/q/<leaf>``) the projection above the ``q``."""
+    parent = parts[-2] if len(parts) > 1 else ""
+    if parent == "q" and len(parts) > 2:
+        return parts[-3]
+    return parent
+
+
+def _match_spec(path: str, shape: Tuple[int, ...], mesh,
+                moe_partition: str = "expert") -> P:
+    """Rule table for a single parameter leaf. path: "/"-joined tree path,
+    e.g. "layers/attn/wq/w"; returns a spec with len(shape) entries."""
+    if moe_partition not in ("expert", "ffn"):
+        raise ValueError(f"moe_partition must be 'expert' or 'ffn', "
+                         f"got {moe_partition!r}")
+    sizes = _axis_sizes(mesh)
+    parts = [p for p in path.split("/") if p]
+    leaf = parts[-1] if parts else ""
+    # offline-quantized leaves (qw/neg_beta/colsum under a "q" subtree)
+    # shard like the projection that owns them: wo/q/qw is row-parallel
+    parent = _owner(parts)
+    ndim = len(shape)
+    axes: list = [None] * ndim
+
+    if ndim <= 1 or leaf in _REPLICATED_LEAVES:
+        return P(*axes)
+
+    if leaf in _MOE_EXPERT_LEAVES and ndim >= 3:
+        # (..., E, d_model, d_ff) for w_gate/w_up; (..., E, d_ff, d_model)
+        # for w_down. Leading dims (layer stack) stay replicated.
+        e, d_in, d_out = ndim - 3, ndim - 2, ndim - 1
+        dm = d_in if leaf != "w_down" else d_out      # the d_model dim
+        df = d_out if leaf != "w_down" else d_in      # the d_ff_expert dim
+        if moe_partition == "expert":
+            axes[e] = MODEL
+            axes[dm] = "data"
+        else:  # "ffn": TP inside every expert
+            axes[df] = MODEL
+            axes[dm] = "data"
+    elif leaf == "table":
+        # embedding (V, d): vocab over model => tied unembed is column-parallel
+        axes[ndim - 2] = MODEL
+        axes[ndim - 1] = "data"
+    elif parent in _ROW_PARALLEL_PARENTS:
+        axes[ndim - 2] = MODEL
+        axes[ndim - 1] = "data"
+    else:
+        # generic column-parallel dense / conv / SSM weight
+        axes[ndim - 2] = "data"
+        axes[ndim - 1] = MODEL
+
+    if MODEL in axes and MODEL not in sizes:
+        axes = [None if a == MODEL else a for a in axes]
+    if "data" in axes and "data" not in sizes:
+        axes = [None if a == "data" else a for a in axes]
+    return _guarded(axes, shape, sizes)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn("a/b/c", leaf)`` over a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def param_specs(params: PyTree, mesh, moe_partition: str = "expert"
+                ) -> PyTree:
+    """Spec tree mirroring ``params`` (any leaves with a ``.shape``)."""
+    return _map_with_path(
+        lambda path, leaf: _match_spec(path, _shape(leaf), mesh,
+                                       moe_partition), params)
+
+
+def data_specs(batch: PyTree, mesh) -> PyTree:
+    """Data-parallel input specs: dim 0 over ("pod",)"data", the rest
+    replicated; scalars replicated; the guard applies."""
+    sizes = _axis_sizes(mesh)
+
+    def one(_, leaf):
+        shape = _shape(leaf)
+        if not shape:
+            return P()
+        baxes = _batch_axes(mesh, shape[0])
+        return _guarded([baxes] + [None] * (len(shape) - 1), shape, sizes)
+
+    return _map_with_path(one, batch)
+
+
+def cache_specs(cache: PyTree, mesh, *, batch: int) -> PyTree:
+    """Decode/prefill cache specs: the batch dim is data-parallel, found
+    structurally (axis 1 of an (L, B, ...) leaf, axis 2 under
+    "hybrid_groups"), with a size scan only as a fallback; K/V leaves
+    shard the kv-head dim (second-to-last) over "model" when it divides."""
+    sizes = _axis_sizes(mesh)
+
+    def one(path, leaf):
+        shape = _shape(leaf)
+        ndim = len(shape)
+        if ndim == 0:
+            return P()
+        axes: list = [None] * ndim
+        parts = path.split("/")
+        bdim = 2 if parts[0] == "hybrid_groups" else 1
+        if not (bdim < ndim and shape[bdim] == batch):
+            bdim = next((d for d in range(ndim) if shape[d] == batch),
+                        None)
+        if bdim is not None:
+            axes[bdim] = _batch_axes(mesh, batch)
+        if parts[-1] in ("k", "v") and ndim >= 4:
+            axes[ndim - 2] = MODEL if MODEL in sizes else None
+        return _guarded(axes, shape, sizes)
+
+    return _map_with_path(one, cache)
+
+
+def serving_specs(params: PyTree, mesh, cfg, moe_partition: str = "expert"
+                  ) -> PyTree:
+    """:func:`param_specs` with the executor's widenings (module
+    docstring): router and MLA latent projections whole, and attention
+    projections whole where their heads do not split into whole heads."""
+    tp = _axis_sizes(mesh).get(MODEL, 1)
+    heads_split = cfg.n_heads % tp == 0
+    kv_split = cfg.n_kv_heads % tp == 0
+
+    def widen(path, leaf):
+        spec = _match_spec(path, _shape(leaf), mesh, moe_partition)
+        owner = _owner([p for p in path.split("/") if p])
+        whole = (owner in _WHOLE_PARENTS
+                 or (owner in _Q_HEAD_PARENTS and not heads_split)
+                 or (owner in _KV_HEAD_PARENTS and not kv_split))
+        return P(*[None] * len(spec)) if whole else spec
+
+    return _map_with_path(widen, params)
+
+
+def _piece(axes, mesh) -> Tuple[int, int]:
+    """(this rank's index, number of pieces) of a dim split over ``axes``."""
+    if axes is None:
+        return 0, 1
+    names = axes if isinstance(axes, tuple) else (axes,)
+    idx, count = 0, 1
+    for a in names:
+        idx = idx * mesh.size(a) + mesh.index(a)
+        count *= mesh.size(a)
+    return idx, count
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's piece of ``t`` under ``spec``: a contiguous copy of the
+    cut, or ``t`` itself where no dim splits."""
+    out = t
+    for dim, axes in enumerate(spec):
+        idx, count = _piece(axes, mesh)
+        if count > 1:
+            n = t.shape[dim] // count
+            out = out.narrow(dim, idx * n, n)
+    return out if out is t else out.contiguous()
+
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """The rank's local pieces of every leaf (the reference's ``to_named``
+    + ``device_put``): each a contiguous tensor, or the leaf itself where
+    its spec splits nothing."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    if isinstance(tree, torch.Tensor):
+        return shard_leaf(tree, specs, mesh)
+    return tree

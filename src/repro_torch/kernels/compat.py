@@ -157,6 +157,12 @@ def build_all(names=None) -> float:
     return time.perf_counter() - t0
 
 
+def missing_builds() -> list:
+    """The kernel sources that have no up-to-date library yet."""
+    return [src.stem for src in sorted(CSRC.glob("*.cu"))
+            if not _lib_path(src).exists()]
+
+
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu``'s library (building it first if needed) and
     declare each C entry point's ``argtypes``; every entry point returns the

@@ -57,11 +57,14 @@ def choose_blocks(m: int, n: int, k: int, algo: str,
 
 
 def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,
-           bn: int = 0, bk: int = 0, fold_beta: bool = False) -> Tensor:
+           bn: int = 0, bk: int = 0, fold_beta: bool = False,
+           keep_acc: bool = False) -> Tensor:
     """C = A @ B through the kernels. a: (..., M, K), b: (K, N).
 
     Returns the promoted input dtype for floats and int32 for integer inputs
-    (the accumulator; the caller rescales). ``fold_beta`` (FIP/FFIP) leaves
+    (the accumulator; the caller rescales). ``keep_acc`` returns the f32
+    accumulator of a 16-bit float product unrounded: a row-parallel layer
+    sums the ranks' partials before it rounds once. ``fold_beta`` (FIP/FFIP) leaves
     beta for the caller to add from ``fold_beta_into_bias`` (Eq. 15).
     While its hooks are on, ``repro_torch.obs.profile`` counts every call (a
     call inside a CUDA graph capture as a trace)."""
@@ -94,6 +97,6 @@ def matmul(a: Tensor, b: Tensor, *, algo: str = "ffip", bm: int = 0,
         out = ffip_gemm(a2, b, bm=bm, bn=bn, bk=bk, fold_beta=fold_beta)
 
     out = out.reshape(*batch, m, n)
-    if not out_dtype.is_floating_point:
+    if keep_acc or not out_dtype.is_floating_point:
         return out
     return out.to(out_dtype)

@@ -13,8 +13,9 @@ scatter prefill, as ``--no-prefill-buckets`` makes every model do.
 ``--arch deepseek-v2-lite-16b`` serves MLA + MoE: prefill through the flash
 kernel at d 192 against dv 128, decode through the absorbed latent
 attention, the routers through the GEMM provider and the experts' einsums
-over the capacity buffer; one card holds the expert banks whole (the
-reference's expert/ffn partitions need a mesh: ROADMAP item 15).
+over the capacity buffer; one card holds the expert banks whole, and
+``--mesh-model`` splits them by experts (``BatchServer``'s
+``moe_partition``, "expert" or "ffn").
 ``--arch gemma3-4b`` (5 local : 1 global layers, windows of 1024, a
 per-layer rope theta; K4 and K5 at head_dim 256), ``mixtral-8x22b`` (GQA +
 MoE without shared experts, a window of 4096 on every layer),
@@ -63,6 +64,16 @@ the router's replicas included: no quantization, y derivation or carry
 table at the first prefill. ``--require-warm`` fails the run, listing the
 keys, if a schedule lookup missed or the artifact recomputed offline
 work.
+``--mesh-model N`` serves tensor-parallel on a (1, N) mesh, one process a
+rank (:func:`spawn_ranks`, :func:`rank_main`): nccl with rank r on
+``cuda:r`` when the machine has N cards, else gloo with every rank on
+``cuda:0`` (ranks sharing one card: the sharded computation and its
+collectives, not less memory a rank), and gloo on the CPU with ``--device
+cpu``. The launcher prints which. ``--compare-single-device`` serves the
+workload again on one device and requires identical tokens. A rank that
+fails, or a run past 900 s, kills the other ranks and fails the run. ``--mesh-model`` with ``--replicas`` or ``--paged`` is refused
+(ROADMAP queue 1 item 15).
+
 ``python -m repro_torch.launch.obs_check`` checks the two files:
 
   python -m repro_torch.launch.serve --arch minicpm-2b --smoke --device cpu \
@@ -75,12 +86,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
+import multiprocessing
+import pathlib
+import pickle
 import sys
+import tempfile
 import time
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.obs as obs
 from repro_torch import configs
@@ -120,6 +138,172 @@ def serve(model: Model, params, prompts, *, max_new: int, **server_kw):
         srv.submit(Request(rid=i, prompt=p, max_new_tokens=max_new))
     done = srv.run_until_drained(params)
     return srv, done, time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel ranks: one process a rank
+# ---------------------------------------------------------------------------
+
+class RankError(RuntimeError):
+    """A rank of a tensor-parallel run failed or outlived its time limit;
+    the other ranks were killed."""
+
+
+def mesh_backend(tp: int, device: str) -> Tuple[str, List[str]]:
+    """(backend, each rank's device): nccl with rank r on ``cuda:r`` when
+    there are ``tp`` cards; gloo with every rank on ``cuda:0`` on fewer
+    (NCCL refuses two ranks on one device); gloo on the CPU for ``cpu``."""
+    if device == "cpu":
+        return "gloo", ["cpu"] * tp
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: tensor-parallel ranks run on the "
+                           "card unless the caller passes device='cpu'")
+    if torch.cuda.device_count() >= tp:
+        return "nccl", [f"cuda:{r}" for r in range(tp)]
+    return "gloo", ["cuda:0"] * tp
+
+
+def rank_main(rank: int, tp: int, store: str, backend: str, device: str,
+              jobs: Sequence[Tuple[Callable, dict]], out: str,
+              timeout_s: float) -> None:
+    """One rank: join the process group through the ``file://`` store, build
+    the (1, tp) mesh, run each job ``fn(mesh, device, **kwargs)`` in order
+    and pickle the list of their results to ``out``. On the CPU a rank
+    keeps to one intra-op thread (the ranks share the host's cores). A
+    rank only loads the kernels its parent built: it never builds into the
+    shared kernel directory."""
+    from repro_torch.dist import context as dctx
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        missing = compat.missing_builds()
+        if missing:
+            raise RuntimeError(f"rank {rank}: kernels not built by the "
+                               f"parent: {missing}")
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=store, world_size=tp,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        mesh = dctx.make_mesh((1, tp), ("data", "model"))
+        results = [fn(mesh, dev, **kw) for fn, kw in jobs]
+    finally:
+        dist.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(results, f)
+
+
+def spawn_ranks(tp: int, jobs: Sequence[Tuple[Callable, dict]], *,
+                device: str = "cuda", timeout_s: float = 900.0) -> list:
+    """Run ``jobs`` on ``tp`` ranks and return each rank's list of results
+    (rank order). The ranks start by ``spawn`` (the parent may hold CUDA);
+    the jobs and their kwargs must pickle, functions by import path. On the
+    card every kernel is built here first, so that no two ranks build. The
+    parent polls: a rank that exits non-zero, or a run past ``timeout_s``,
+    kills the others and raises :class:`RankError`, so a rank that dies
+    mid-collective never leaves the others waiting."""
+    backend, devices = mesh_backend(tp, device)
+    if devices[0] != "cpu":
+        compat.build_all()
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as d:
+        store = f"file://{pathlib.Path(d) / 'store'}"
+        outs = [str(pathlib.Path(d) / f"rank{r}.pkl") for r in range(tp)]
+        procs = [ctx.Process(target=rank_main, name=f"rank{r}",
+                             args=(r, tp, store, backend, devices[r], jobs,
+                                   outs[r], timeout_s))
+                 for r in range(tp)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        failed = None
+        try:
+            while any(p.is_alive() for p in procs):
+                bad = [p for p in procs
+                       if p.exitcode is not None and p.exitcode != 0]
+                if bad:
+                    failed = (f"{bad[0].name} exited with code "
+                              f"{bad[0].exitcode}")
+                    break
+                if time.monotonic() > deadline:
+                    failed = f"the ranks ran past {timeout_s:.0f} s"
+                    break
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                p.join(timeout=30)
+        if failed is None:
+            bad = [p for p in procs if p.exitcode != 0]
+            if bad:
+                failed = f"{bad[0].name} exited with code {bad[0].exitcode}"
+        if failed is not None:
+            raise RankError(f"tensor-parallel run ({backend}, {tp} ranks) "
+                            f"failed: {failed}; the other ranks were killed")
+        results = []
+        for out in outs:
+            with open(out, "rb") as f:
+                results.append(pickle.load(f))
+    return results
+
+
+def build_config(arch: str, smoke: bool = False, layers: int = 0):
+    """``arch``'s config, its smoke widths with ``smoke``, cut to ``layers``
+    layers when given."""
+    cfg = configs.get_config(arch)
+    if smoke:
+        cfg = configs.smoke_config(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg
+
+
+def serve_job(mesh, device, *, arch: str, smoke: bool = False,
+              layers: int = 0, seed: int = 0, prompts, max_new: int,
+              server_kw: dict, prepared: str = "", plant=None,
+              metrics_json: str = "", trace_out: str = "") -> dict:
+    """A rank's part of a tensor-parallel serving run: the model from
+    ``seed`` (every rank draws the same whole weights, and the server cuts
+    its pieces), ``plant(params, mesh)`` applied when given, the prompts
+    served through ``BatchServer(mesh=)``. Returns the tokens, stats,
+    launch counts, peak device memory and, with ``prepared`` (an artifact
+    directory, loaded on this rank), its recompute report. Rank 0 alone
+    writes ``metrics_json`` and ``trace_out``."""
+    from repro_torch import tune
+
+    cfg = build_config(arch, smoke, layers)
+    model = Model(cfg, device=device)
+    params = model.init(seed)
+    if plant is not None:
+        params = plant(params, mesh)
+    pm = None
+    if prepared:
+        from repro_torch import prepare
+        pm = prepare.load(prepared, map_location=device)
+    tune.reset_stats()
+    compat.reset_counters()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    srv, done, wall = serve(model, params, prompts, max_new=max_new,
+                            mesh=mesh, prepared=pm, **server_kw)
+    if mesh.index("model") == 0 and (metrics_json or trace_out):
+        write_obs(argparse.Namespace(metrics_json=metrics_json,
+                                     trace_out=trace_out), srv.tracer)
+    return dict(
+        tokens={r.rid: list(r.out_tokens) for r in done},
+        stats=dict(srv.stats), wall_s=wall,
+        launches=compat.launch_counts(),
+        peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                  if device.type == "cuda" else 0.0),
+        recomputed=None if pm is None else pm.recompute_report(),
+        built=None if srv._local_prepared is None
+        else srv._local_prepared.built,
+        tune_misses=int(tune.stats["misses"]),
+        tune_missed=sorted(tune._warned_keys))
 
 
 def unplanned_failures(events) -> list:
@@ -352,6 +536,12 @@ def main(argv=None):
     ap.add_argument("--metrics-port", type=int, default=None, metavar="N",
                     help="serve Prometheus text on 127.0.0.1:N/metrics "
                          "while the run lasts (0 = a free port)")
+    ap.add_argument("--mesh-model", type=int, default=0, metavar="N",
+                    help="tensor-parallel serving on a (1, N) mesh, one "
+                         "process a rank (repro_torch.dist)")
+    ap.add_argument("--compare-single-device", action="store_true",
+                    help="serve the workload again on one device and "
+                         "require identical tokens (needs --mesh-model)")
     ap.add_argument("--device", default=None,
                     help="default: the card (cuda:0); 'cpu' for the plain "
                          "versions on the host")
@@ -359,6 +549,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.compare_contiguous and not args.paged:
         ap.error("--compare-contiguous requires --paged")
+    if args.compare_single_device and not args.mesh_model:
+        ap.error("--compare-single-device requires --mesh-model")
+    if args.mesh_model and (args.replicas or args.paged):
+        raise SystemExit("--mesh-model with --replicas or --paged is not "
+                         "ported yet: ROADMAP queue 1 item 15")
     if args.slo and not args.replicas:
         ap.error("--slo requires --replicas (the burn-rate degradation "
                  "controller lives in the router)")
@@ -383,7 +578,7 @@ def main(argv=None):
                                              port=args.metrics_port)
             print(f"metrics: http://{httpd.server_address[0]}:"
                   f"{httpd.server_address[1]}/metrics")
-        _run(args)
+        _run_mesh(args) if args.mesh_model else _run(args)
     finally:
         if httpd is not None:
             httpd.shutdown()
@@ -394,11 +589,7 @@ def main(argv=None):
 
 
 def _run(args) -> None:
-    cfg = configs.get_config(args.arch)
-    if args.smoke:
-        cfg = configs.smoke_config(cfg)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    cfg = build_config(args.arch, args.smoke, args.layers)
     model = Model(cfg, device=args.device)
     params = model.init(args.seed)
     lo, hi = (int(x) for x in args.prompt_len.split(","))
@@ -496,6 +687,87 @@ def _run(args) -> None:
     if problems:
         print("--require-warm: FAIL\n  " + "\n  ".join(problems),
               file=sys.stderr)
+        raise SystemExit(1)
+    print("OK")
+
+
+def _run_mesh(args) -> None:
+    """``--mesh-model N``: the workload on N ranks (:func:`serve_job`),
+    reported here from rank 0's result, each rank's peak memory and launch
+    counts beside it; then ``--compare-single-device``."""
+    cfg = build_config(args.arch, args.smoke, args.layers)
+    device = args.device or "cuda"
+    backend, devices = mesh_backend(args.mesh_model, device)
+    lo, hi = (int(x) for x in args.prompt_len.split(","))
+    prompts = make_prompts(cfg.vocab, args.requests,
+                           np.random.default_rng(args.seed), lo, hi,
+                           shared_prefix=16 if args.shared_prefix else 0)
+    server_kw = dict(batch_slots=args.slots, max_len=args.max_len,
+                     quantized=args.quantized, gemm_algo=args.gemm_algo,
+                     gemm_impl=args.gemm_impl,
+                     gemm_block=args.gemm_block_parsed,
+                     decode_chunk=args.decode_chunk,
+                     prefill_buckets=not args.no_prefill_buckets)
+    job = dict(arch=args.arch, smoke=args.smoke, layers=args.layers,
+               seed=args.seed, prompts=prompts, max_new=args.max_new,
+               server_kw=server_kw, prepared=args.prepared or "",
+               metrics_json=args.metrics_json or "",
+               trace_out=args.trace_out or "")
+    print(f"mesh (1, {args.mesh_model}): {backend} on "
+          f"{', '.join(devices)}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(args.mesh_model, [(serve_job, job)],
+                            device=device)
+    except RankError as e:
+        raise SystemExit(f"FAIL: {e}")
+    wall = time.perf_counter() - t0
+    res = [r[0] for r in ranks]
+    got = res[0]["tokens"]
+    st = res[0]["stats"]
+    total = sum(len(t) for t in got.values())
+    print(f"[tp{args.mesh_model}] {cfg.name} L={cfg.n_layers} "
+          f"d={cfg.d_model}: {len(got)}/{args.requests} requests / {total} "
+          f"tokens; {wall:.2f}s with the ranks' start")
+    print(f"  prefill {st['prefill_s']:.3f}s ({st['prefill_tokens']} tok / "
+          f"{st['prefill_dispatches']} dispatches), decode "
+          f"{st['decode_s']:.3f}s over {st['steps']} steps / "
+          f"{st['decode_dispatches']} dispatches ({st['decode_tokens']} tok)")
+    for r, rec in enumerate(res):
+        print(f"  rank {r}: kernel launches {rec['launches']}, peak device "
+              f"memory {rec['peak_gib']:.2f} GiB")
+    problems = []
+    if any(rec["tokens"] != got for rec in res[1:]):
+        problems.append("the ranks returned different tokens")
+    bad = [rid for rid, t in got.items() if len(t) != args.max_new]
+    if len(got) != args.requests or bad:
+        problems.append(f"{len(got)} done, short requests {bad}")
+    if args.compare_single_device:
+        model = Model(cfg, device=devices[0])
+        prepared = _load_prepared(args, model.device)
+        _, done, _ = serve(model, model.init(args.seed), prompts,
+                           max_new=args.max_new, prepared=prepared,
+                           **server_kw)
+        want = {r.rid: list(r.out_tokens) for r in done}
+        if want != got:
+            problems.append(f"tp{args.mesh_model} tokens differ from the "
+                            f"single device's")
+        else:
+            print(f"  compare-single-device: {total} tokens identical at "
+                  f"tp={args.mesh_model}")
+    if args.require_warm:
+        for r, rec in enumerate(res):
+            if rec["tune_misses"]:
+                problems.append(f"rank {r}: {rec['tune_misses']} schedule "
+                                f"misses: {rec['tune_missed']}")
+            if rec["recomputed"] and any(rec["recomputed"].values()):
+                problems.append(f"rank {r}: prepared artifact recomputed "
+                                f"offline work: {rec['recomputed']}")
+        if not problems:
+            print("  require-warm: 0 schedule misses"
+                  + (", prepared.recomputed == 0" if args.prepared else ""))
+    if problems:
+        print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         raise SystemExit(1)
     print("OK")
 

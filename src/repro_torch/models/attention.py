@@ -25,6 +25,7 @@ import torch
 from repro_torch import tune
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gemm import current_config
+from repro_torch.dist import context as dctx
 from repro_torch.kernels.flash_attention import flash_attention, kernel_blocks
 from repro_torch.kernels.flash_paged import flash_attention_paged
 from repro_torch.models import layers as L
@@ -200,6 +201,50 @@ def _sdpa(q: Tensor, k: Tensor, v: Tensor, keep: Optional[Tensor]) -> Tensor:
     return out.reshape(b, sq, h, hd)
 
 
+def _local_kv(t: Tensor, h: int, cfg: ModelConfig) -> Tensor:
+    """K or V (B, S, KV_local, hd) for this rank's ``h`` query heads.
+    Heads split in contiguous groups (tensor parallelism), so where the kv
+    heads split too a local q head's kv head is local, and ``t`` serves as
+    it is. Where they stay whole (KV % tp != 0) while the q heads split,
+    global q head g reads kv head g // (H / KV), as on one card: its rows
+    are selected here, one a local q head."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    if t.shape[2] * group == h:
+        return t
+    first = dctx.tp_rank() * h
+    kv = torch.div(torch.arange(first, first + h, device=t.device), group,
+                   rounding_mode="floor")
+    return t.index_select(2, kv)
+
+
+def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, keep: Tensor,
+                 cfg: ModelConfig) -> Tensor:
+    """:func:`_sdpa` over the cache for this rank's q heads. Under tensor
+    parallelism it runs at the whole head count, the other ranks' heads
+    zero-filled, and keeps this rank's: the batched GEMMs then have one
+    device's shapes. On the card the library picks a GEMM's algorithm, and
+    with it the order of its split sums, by the batch count, so B H / tp
+    batches round a head's scores in other last bits than B H do (an int8
+    server's activation codes then move by one). Decode attention is a few
+    MB a layer; the zero heads double it."""
+    b, sq, h, hd = q.shape
+    if h == cfg.n_heads:
+        return _sdpa(q, k, v, keep)
+    first = dctx.tp_rank() * h
+
+    def whole(t: Tensor, n: int) -> Tensor:
+        if t.shape[2] == n:
+            return t
+        out = t.new_zeros((*t.shape[:2], n, t.shape[3]))
+        lo = dctx.tp_rank() * t.shape[2]
+        out[:, :, lo:lo + t.shape[2]] = t
+        return out
+
+    out = _sdpa(whole(q, cfg.n_heads), whole(k, cfg.n_kv_heads),
+                whole(v, cfg.n_kv_heads), keep)
+    return out[:, :, first:first + h]
+
+
 def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
               window: int = 0, rope_theta=None, causal: bool = True,
               cache: Optional[dict] = None, cache_pos=None,
@@ -220,13 +265,15 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     b, s, _ = x.shape
     hd = cfg.hd
     theta = cfg.rope_theta if rope_theta is None else rope_theta
-    q = L.dense(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = L.dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = L.dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.dense(x, p["wq"]).reshape(b, s, -1, hd)
+    k = L.dense(x, p["wk"]).reshape(b, s, -1, hd)
+    v = L.dense(x, p["wv"]).reshape(b, s, -1, hd)
+    h = q.shape[2]                       # this rank's heads (tp: H / tp)
     q = L.apply_rope(q, positions, theta)
     k = L.apply_rope(k, positions, theta)
 
     if cache is None:
+        k, v = _local_kv(k, h, cfg), _local_kv(v, h, cfg)
         if cfg.attention_impl == "flash":
             out = _flash_sdpa(q, k, v, window, causal)
         else:
@@ -264,7 +311,8 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
         # self-attention; k/v land at the prompt's offset
         k_cache = _cache_write(cache["k"], k, cache_pos, cache_write_mask)
         v_cache = _cache_write(cache["v"], v, cache_pos, cache_write_mask)
-        out = _flash_sdpa(q, k, v, window, causal)
+        out = _flash_sdpa(q, _local_kv(k, h, cfg), _local_kv(v, h, cfg),
+                          window, causal)
         new_cache = {"k": k_cache, "v": v_cache}
     else:
         k_cache = _cache_write(cache["k"], k, cache_pos, cache_write_mask)
@@ -274,9 +322,10 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
         valid = k_pos[None, :] < _cache_end(cache_pos, s, x.device)
         q_pos = positions if positions.dim() == 2 else positions[None, :]
         keep = _mask(q_pos, k_pos[None, :], window, causal) & valid[:, None, :]
-        out = _sdpa(q, k_cache, v_cache, keep)
+        out = _cached_sdpa(q, k_cache, v_cache, keep, cfg)
         new_cache = {"k": k_cache, "v": v_cache}
-    return L.dense(out.reshape(b, s, cfg.n_heads * hd), p["wo"]), new_cache
+    return (L.dense(out.reshape(b, s, h * hd), p["wo"],
+                    row_parallel=h != cfg.n_heads), new_cache)
 
 
 # --- MLA (DeepSeek-V2) ------------------------------------------------------
@@ -302,7 +351,7 @@ def _mla_kv(p, c_kv: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
     """The latent decompressed into per-head (k_nope, v)."""
     m = cfg.mla
     b, s, _ = c_kv.shape
-    kv = L.dense(c_kv, p["w_ukv"]).reshape(b, s, cfg.n_heads,
+    kv = L.dense(c_kv, p["w_ukv"]).reshape(b, s, -1,
                                            m.nope_head_dim + m.v_head_dim)
     return kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
 
@@ -326,9 +375,10 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     cache); the paged write, then K5 or the absorbed gather."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     denom = (m.nope_head_dim + m.rope_head_dim) ** 0.5   # scores / denom
-    q = L.dense(x, p["wq"]).reshape(b, s, h, m.nope_head_dim + m.rope_head_dim)
+    q = L.dense(x, p["wq"]).reshape(b, s, -1, m.nope_head_dim + m.rope_head_dim)
+    h = q.shape[2]                       # this rank's heads (tp: H / tp)
+    row = h != cfg.n_heads               # wo holds this rank's head rows
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = L.rmsnorm(L.dense(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
@@ -352,8 +402,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
             q_full = torch.cat([q_nope, q_rope], dim=-1)
             k_full = torch.cat([k_nope, kr], dim=-1)
             out = _flash_sdpa(q_full, k_full, v, 0, True)
-            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
-                    new_cache)
+            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"],
+                            row_parallel=row), new_cache)
         pos2 = positions if positions.dim() == 2 else positions[None, :]
         f32 = torch.float32
         scores = (torch.einsum("bqhd,bshd->bhqs", q_nope.to(f32),
@@ -364,8 +414,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
         scores = torch.where(keep[:, None, :, :], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         out = torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
-        return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
-                new_cache)
+        return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"],
+                        row_parallel=row), new_cache)
 
     # the absorbed decode: W_uk folded into the query, W_uv into the
     # context, so attention runs in the rank-r latent space against the
@@ -392,8 +442,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
                 scale=1.0 / denom)
             ctx = ctx.permute(0, 2, 1, 3)                    # (B, s, H, r)
             out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
-            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]),
-                    new_cache)
+            return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"],
+                            row_parallel=row), new_cache)
         if paged_impl != "gather":
             raise ValueError(f"paged_impl must be 'gather' or 'flash', got "
                              f"{paged_impl!r}")
@@ -419,7 +469,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     probs = torch.softmax(scores, dim=-1)
     ctx = torch.einsum("bhqs,bsr->bqhr", probs.to(c_cache.dtype), c_cache)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)          # absorbed values
-    return L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"]), new_cache
+    return (L.dense(out.reshape(b, s, h * m.v_head_dim), p["wo"],
+                    row_parallel=row), new_cache)
 
 
 # --- Cross-attention (whisper decoder) ---------------------------------------

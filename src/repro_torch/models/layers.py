@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import quant
 from repro_torch.core.gemm import current_config, gemm, gemm_blocks
+from repro_torch.dist import context as dctx
 
 Tensor = torch.Tensor
 
@@ -30,10 +31,16 @@ def dense_init(gen, d_in: int, d_out: int, dtype, *, device,
     return p
 
 
-def dense(x: Tensor, p: dict) -> Tensor:
+def dense(x: Tensor, p: dict, *, row_parallel: bool = False) -> Tensor:
     """x: (..., d_in) @ w: (d_in, d_out) through the GEMM provider. In
     quantized mode a layer with an offline-prepared ``"q"`` entry runs the
-    int8 (F)FIP GEMM with per-token activation quantization."""
+    int8 (F)FIP GEMM with per-token activation quantization.
+
+    Tensor parallelism on the ambient mesh: a column-parallel layer (``w``
+    holds this rank's output columns) needs no collective, and reads its
+    piece of a whole bias. ``row_parallel``: ``x`` and ``w`` hold this
+    rank's piece of the contraction; the ranks' f32 partials are summed,
+    rounded once, and the bias is added once, after the sum."""
     *lead, d_in = x.shape
     cfg = current_config()
     if cfg.quantized and "q" in p:
@@ -44,12 +51,16 @@ def dense(x: Tensor, p: dict) -> Tensor:
                   if cfg.impl == "cuda" else (0, 0, 0))
         out = quant.quantized_dense_apply(
             x.reshape(-1, d_in), p["q"], algo=algo, impl=cfg.impl,
-            k_chunk=cfg.k_chunk, blocks=blocks).to(x.dtype)
+            k_chunk=cfg.k_chunk, blocks=blocks,
+            row_parallel=row_parallel).to(x.dtype)
+    elif row_parallel:
+        out = dctx.all_sum(gemm(x.reshape(-1, d_in), p["w"],
+                                keep_acc=True)).to(x.dtype)
     else:
         out = gemm(x.reshape(-1, d_in), p["w"])
     out = out.reshape(*lead, -1)
     if "b" in p:
-        out = out + p["b"]
+        out = out + dctx.local_slice(p["b"], out.shape[-1])
     return out
 
 
@@ -82,12 +93,24 @@ def embed_init(gen, vocab: int, d: int, dtype, *, device) -> dict:
     return {"table": (_normal(gen, (vocab, d), device) * 0.02).to(dtype)}
 
 
-def embed(tokens: Tensor, p: dict) -> Tensor:
-    return p["table"][tokens]
+def embed(tokens: Tensor, p: dict, vocab: int = 0) -> Tensor:
+    """Rows of the table. Vocab-parallel where this rank holds a piece of a
+    ``vocab``-row table (tensor parallelism): the lookup of the ids in its
+    rows, zeros for the others, summed over the ranks (exact: one nonzero
+    term a row)."""
+    table = p["table"]
+    rows = table.shape[0]
+    if not vocab or rows == vocab:
+        return table[tokens]
+    local = tokens - dctx.tp_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    out = table[torch.where(mine, local, 0)]
+    return dctx.all_sum(torch.where(mine[..., None], out, 0))
 
 
 def unembed(x: Tensor, p: dict) -> Tensor:
-    """Logits via the tied table: (..., d) @ (d, vocab)."""
+    """Logits via the tied table: (..., d) @ (d, vocab); a vocab-parallel
+    table gives this rank's columns (``context.all_gather`` joins them)."""
     *lead, d = x.shape
     out = gemm(x.reshape(-1, d), p["table"].T)
     return out.reshape(*lead, -1)
@@ -108,10 +131,13 @@ def mlp_init(gen, d: int, d_ff: int, dtype, *, device, lead=()) -> dict:
     }
 
 
-def mlp(x: Tensor, p: dict, act: str = "silu") -> Tensor:
-    """Gated MLP (SwiGLU-style)."""
-    return dense(act_fn(act)(dense(x, p["gate"])) * dense(x, p["up"]),
-                 p["down"])
+def mlp(x: Tensor, p: dict, act: str = "silu", d_ff: int = 0) -> Tensor:
+    """Gated MLP (SwiGLU-style). Under tensor parallelism up and gate are
+    column-parallel and down row-parallel, where this rank holds a piece
+    of the ``d_ff`` hidden width."""
+    h = act_fn(act)(dense(x, p["gate"])) * dense(x, p["up"])
+    return dense(h, p["down"],
+                 row_parallel=bool(d_ff) and h.shape[-1] != d_ff)
 
 
 def rope_freqs(hd: int, theta: float, device=None) -> Tensor:

@@ -7,9 +7,18 @@ the reference computes them with XLA einsums outside any Pallas kernel.
 Dispatch is the position-in-expert scatter: (token, choice) assignments in
 token order take consecutive slots of their expert's buffer up to its
 capacity, later ones are dropped. The aux load-balancing loss is the
-switch-transformer form. The reference's ``partition`` modes ("expert" and
-"ffn") shard the expert banks over a mesh: single-card serving and training
-run the banks whole (mesh paths are ROADMAP queue 1 item 15).
+switch-transformer form.
+
+Tensor parallelism over the ambient mesh's "model" axis, in both of the
+reference's partitions (``repro_torch.dist.sharding``), read from the
+local bank shapes. The router stays whole, so every rank routes alike.
+"expert": a rank holds E/tp whole experts and runs their einsums; its
+rows of the (E, C, d) output buffer go into a zero-filled buffer that the
+ranks sum (exact: one nonzero term an element), and the combine then
+gathers and weights exactly as on one card. "ffn": a rank holds every
+expert's d_ff_expert/tp piece, and the f32 partials of ``w_down`` are
+summed as a row-parallel layer's. The shared experts are an MLP, column-
+then row-parallel.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dctx
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
@@ -66,6 +76,27 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return int(tokens * m.top_k * m.capacity_factor / m.n_experts) + 1
 
 
+def _experts(buf: Tensor, p: dict, n_experts: int, d_ff: int) -> Tensor:
+    """The experts' gated MLPs over the capacity buffer (E, C, d), in the
+    partition this rank's bank shapes show."""
+    w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
+    e_local = w_gate.shape[-3]
+    if e_local != n_experts:                           # "expert"
+        e0 = dctx.tp_rank() * e_local
+        buf = buf[e0:e0 + e_local]
+    h = (F.silu(torch.einsum("ecd,edf->ecf", buf, w_gate))
+         * torch.einsum("ecd,edf->ecf", buf, w_up))
+    if e_local != n_experts:
+        full = torch.zeros((n_experts, *buf.shape[1:]), dtype=buf.dtype,
+                           device=buf.device)
+        full[e0:e0 + e_local] = torch.einsum("ecf,efd->ecd", h, w_down)
+        return dctx.all_sum(full)
+    if w_gate.shape[-1] != d_ff:                       # "ffn"
+        part = torch.einsum("ecf,efd->ecd", h.float(), w_down.float())
+        return dctx.all_sum(part).to(buf.dtype)
+    return torch.einsum("ecf,efd->ecd", h, w_down)
+
+
 def moe_apply(p: dict, x: Tensor, *, cfg: ModelConfig
               ) -> Tuple[Tensor, Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss () f32)."""
@@ -95,16 +126,15 @@ def moe_apply(p: dict, x: Tensor, *, cfg: ModelConfig
                         torch.where(keep[:, None], x_rep, 0),
                         accumulate=True)
 
-    h = (F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]))
-         * torch.einsum("ecd,edf->ecf", buf, p["w_up"]))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])        # (E, C, d)
+    out_buf = _experts(buf, p, m.n_experts, m.d_ff_expert)        # (E, C, d)
 
     gathered = torch.where(keep[:, None], out_buf[flat_e, slot], 0)
     weighted = gathered * gate_vals.reshape(-1)[:, None].to(x.dtype)
     out = torch.sum(weighted.reshape(t, m.top_k, d), dim=1)
 
     if m.n_shared:
-        out = out + L.mlp(xt, p["shared"], cfg.act)
+        out = out + L.mlp(xt, p["shared"], cfg.act,
+                          d_ff=m.d_ff_expert * m.n_shared)
 
     # switch-style aux loss: E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)                                 # (E,)

@@ -18,6 +18,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dctx
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -112,7 +113,7 @@ def block_apply(p: dict, x: Tensor, *, cfg: ModelConfig, kind: str,
     if kind.endswith("moe"):
         f, aux = MOE.moe_apply(p["ffn"], h2, cfg=cfg)
     else:
-        f = L.mlp(h2, p["ffn"], cfg.act)
+        f = L.mlp(h2, p["ffn"], cfg.act, d_ff=cfg.d_ff)
     return x + f, new_cache, aux
 
 
@@ -342,7 +343,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
     set before the token embeddings (train and prefill; decode passes
     none); positions count it, and its rows are stripped from the returned
     hidden states."""
-    x = L.embed(tokens, params["embed"])
+    x = L.embed(tokens, params["embed"], cfg.vocab)
     b, s = tokens.shape[:2]
     dev = tokens.device
     n_prefix = 0
@@ -406,15 +407,37 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
     return x[:, n_prefix:], aux_total, caches
 
 
-def logits_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
+def _local_logits(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
+    """This rank's vocab columns of the logits (all of them on one card)."""
     if cfg.tie_embeddings:
         return L.unembed(hidden, params["embed"])
     return L.dense(hidden, params["unembed"])
 
 
+def logits_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
+    """The logits over the whole vocab; a vocab-parallel unembedding's
+    columns gathered from the ranks (tensor parallelism)."""
+    out = _local_logits(params, hidden, cfg)
+    return out if out.shape[-1] == cfg.vocab else dctx.all_gather(out, -1)
+
+
 def sample_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
-    """Greedy sampling on the device: only int32 ids leave it."""
-    return torch.argmax(logits_fn(params, hidden, cfg), dim=-1).to(torch.int32)
+    """Greedy sampling on the device: only int32 ids leave it. With a
+    vocab-parallel unembedding each rank offers its columns' max and
+    argmax, and the winner is the largest value, the lowest rank among
+    equals: the rank holding the lower ids, so the global argmax keeps
+    ``torch.argmax``'s rule (the lowest index among equal maxima)."""
+    logits = _local_logits(params, hidden, cfg)
+    n = logits.shape[-1]
+    if n == cfg.vocab:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    idx = torch.argmax(logits, dim=-1, keepdim=True)
+    vals = dctx.all_gather(torch.gather(logits, -1, idx).to(torch.float32),
+                           -1)
+    ids = dctx.all_gather(idx + dctx.tp_rank() * n, -1)
+    return torch.gather(ids, -1, torch.argmax(vals, dim=-1,
+                                              keepdim=True))[..., 0].to(
+        torch.int32)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

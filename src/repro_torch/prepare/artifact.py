@@ -171,6 +171,21 @@ def _leaf_at(tree: Any, path: str) -> Optional[Any]:
     return node
 
 
+def _spec_at(specs: Any, path: str):
+    """The spec of the leaf at ``path`` in a spec tree; ``"table.T"`` is
+    the table's spec transposed."""
+    node = specs
+    for seg in path.split("/"):
+        if isinstance(node, dict) and seg in node:
+            node = node[seg]
+        elif isinstance(node, dict) and seg == "table.T" and "table" in node:
+            t = node["table"]
+            return type(t)(*reversed(t))
+        else:
+            return None
+    return node
+
+
 def _ffip_operands(node: Any, quantized: bool, path: Tuple[str, ...] = ()
                    ) -> Iterator[Tuple[str, torch.Tensor]]:
     """("a/b/w", w) for every dense weight the server hands the FFIP
@@ -282,6 +297,35 @@ class PreparedModel:
                 self.carry[path] = [carry_table(v) for v in _views(y)]
                 n += len(self.carry[path])
         return n
+
+    def shard(self, specs, mesh) -> "PreparedModel":
+        """This rank's cut of the artifact for tensor parallelism: its
+        pieces of the params under ``specs`` (``dist.sharding``), and of
+        each y delta under its weight's spec. Eq. 9's y runs along N, so a
+        column piece of the whole y starts with the delta from the column
+        before the cut: its first column is set to the weight's own (the
+        int8 codes' or the float weight's), which makes it the piece's own
+        y. The carry tables are built for the local y on the card (counted
+        in ``built``, never in ``recomputed``); nothing is quantized or
+        derived again."""
+        from repro_torch.dist import sharding
+
+        params = sharding.shard_tree(self.params, specs, mesh)
+        derived = {}
+        for path, y in self.derived.items():
+            spec = _spec_at(specs, path)
+            w = _leaf_at(params, path)
+            if spec is None or not isinstance(w, torch.Tensor):
+                continue
+            local = sharding.shard_leaf(y, spec, mesh)
+            if local.shape[-1] != y.shape[-1]:    # a copy: N was cut
+                local[..., 0] = w[..., 0].to(local.dtype)
+            derived[path] = local
+        pm = dataclasses.replace(self, params=params, derived=derived,
+                                 carry={}, built={})
+        pm.built = {"y": 0, "carry": pm.build_carry()}
+        pm.baseline = counters_snapshot()
+        return pm
 
     # -- persistence -------------------------------------------------------
     def save(self, directory, *, overwrite: bool = True) -> Path:

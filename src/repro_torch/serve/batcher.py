@@ -61,8 +61,22 @@ serves its params, and the server seeds its own memo from the artifact's y
 deltas and carry tables: the first prefill derives nothing. A router's
 replicas of one tier share one artifact.
 
-A mesh comes with a later slice; asking for one raises
-``NotImplementedError``.
+**Tensor parallelism** (``mesh=``, a connected
+``repro_torch.dist.Mesh``, one process a rank): the reference's
+``BatchServer(mesh=)`` on its ``"model"`` axis. Params and the cache are
+cut through the ``repro_torch.dist`` rule engine once for each distinct
+tree (column- and row-parallel projections, whole heads, KV heads where
+they divide, the expert banks by ``moe_partition``, "expert" or "ffn"),
+and every dispatch runs under the ambient mesh, so the model code reduces
+its partial results over the ranks; the kernels run on each rank's local
+shard. Every rank must run the same schedule: it submits the same requests
+in the same order, and no decision here reads a clock or another value
+that differs between ranks. The int8 layers give the single device's bits;
+what a partition sums in f32 in another order (a float row-parallel
+layer, the "ffn" experts' partials) rounds differently.
+``paged=True`` with ``mesh=`` raises ``NotImplementedError``, as the
+reference's does, and so do the SSM, hybrid and encoder-decoder stacks
+(their sharded paths are ROADMAP queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -77,6 +91,8 @@ import torch
 import repro_torch.obs as obs
 from repro_torch.core.gemm import GemmConfig, use_gemm
 from repro_torch.core.quant import attach_quantized_weights
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding
 from repro_torch.kernels import compat, ffip_gemm
 from repro_torch.kernels.compat import resolve_device
 from repro_torch.models import transformer as T
@@ -182,8 +198,9 @@ class _Slot:
 
 
 class BatchServer:
-    """Single-device continuous batcher over the contiguous slot cache or,
-    with ``paged=True``, a shared page pool."""
+    """Continuous batcher over the contiguous slot cache or, with
+    ``paged=True``, a shared page pool; with ``mesh=``, one rank of a
+    tensor-parallel server."""
 
     def __init__(self, model: Model, *, batch_slots: int, max_len: int,
                  greedy: bool = True, quantized: bool = False,
@@ -195,14 +212,28 @@ class BatchServer:
                  prefill_chunk: Optional[int] = None,
                  paged_attention: str = "gather",
                  prefix_sharing: bool = True, mesh=None,
-                 moe_partition: Optional[str] = None, prepared=None,
+                 moe_partition: str = "expert", prepared=None,
                  clock: Optional[Callable[[], float]] = None,
                  registry=None, tracer=None, trace_capacity: int = 4096,
                  obs_window_s: float = 30.0):
+        if moe_partition not in ("expert", "ffn"):
+            raise ValueError(f"moe_partition must be 'expert' or 'ffn', "
+                             f"got {moe_partition!r}")
         if mesh is not None:
-            raise NotImplementedError(
-                "BatchServer(mesh=...) is not ported yet (single-device "
-                "serving only): ROADMAP queue 1 item 15 (distribution)")
+            if paged:
+                raise NotImplementedError(
+                    "paged=True with mesh= is not supported yet (the page "
+                    "pool is host-managed per device); use the contiguous "
+                    "cache for tensor-parallel serving")
+            if (model.cfg.family in ("ssm", "hybrid")
+                    or model.cfg.encoder is not None):
+                raise NotImplementedError(
+                    f"tensor-parallel serving of the {model.cfg.family} "
+                    f"family (the sharded scan, the encoder) is ROADMAP "
+                    f"queue 1 item 15")
+            if mesh.size(dctx.MODEL) > 1 and not mesh.connected:
+                raise ValueError(f"{mesh} is shape-only: tensor-parallel "
+                                 f"serving needs a process group")
         if prepared is not None:
             if prepared.kind != "lm":
                 raise ValueError(f"BatchServer needs an 'lm' artifact, got "
@@ -212,11 +243,6 @@ class BatchServer:
                     "quantized=True but the prepared artifact carries no "
                     "int8 weights: re-run `python -m "
                     "repro_torch.launch.prepare --quantized`")
-        if moe_partition is not None:
-            raise NotImplementedError(
-                "BatchServer(moe_partition=...) shards the expert banks over "
-                "a mesh (the reference's 'expert' and 'ffn' modes): ROADMAP "
-                "queue 1 item 15 (distribution); one card runs them whole")
         if not greedy:
             raise NotImplementedError("only greedy decoding is implemented")
         if decode_chunk < 1:
@@ -226,6 +252,8 @@ class BatchServer:
             raise ValueError(f"model lives on {model.device}, server on "
                              f"{self.device}")
         self.model = model
+        self.mesh = mesh
+        self.moe_partition = moe_partition
         self.b = batch_slots
         self.max_len = max_len
         self.decode_chunk = decode_chunk
@@ -287,7 +315,7 @@ class BatchServer:
             self.cache = model.init_paged_cache(self.num_pages, page_size)
             self._bucketed = False
         else:
-            self.cache = model.init_cache(batch_slots, max_len)
+            self.cache = self._new_cache(batch_slots)
             self._bucketed = prefill_buckets and _cache_supports_buckets(
                 model, batch_slots, max_len)
             self._batch_axes = _cache_batch_axes(model, batch_slots, max_len)
@@ -319,6 +347,7 @@ class BatchServer:
         self._derived = compat.DerivedCache()
         self._prepared_params = None
         self._prepared_src = None
+        self._local_prepared = None     # a mesh's cut of ``prepared``
         self.stats: Dict[str, Any] = self._fresh_stats()
 
     @staticmethod
@@ -419,8 +448,20 @@ class BatchServer:
             self.tracer.end(span, **attrs)
 
     # -- GEMM scope and run-ready params ------------------------------------
+    def _new_cache(self, batch: int) -> dict:
+        """A zero contiguous cache of ``batch`` rows; under a mesh this
+        rank's piece of it (``dist.sharding.cache_specs``)."""
+        cache = self.model.init_cache(batch, self.max_len)
+        if self.mesh is None:
+            return cache
+        return sharding.shard_tree(
+            cache, sharding.cache_specs(cache, self.mesh, batch=batch),
+            self.mesh)
+
     def _gemm_scope(self):
         stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(dctx.mesh_context(self.mesh))
         if self._gemm_cfg is not None:
             stack.enter_context(use_gemm(self._gemm_cfg))
         stack.enter_context(compat.use_derived(self._derived))
@@ -430,31 +471,44 @@ class BatchServer:
     def _params_for(self, params):
         """The run-ready tree. With a ``prepared`` artifact: its params, its
         y deltas and carry tables seeded into the server's memo once
-        (``params`` is not read). Else, built once per distinct params
-        object: int8 ``q`` entries attached when quantized, and for the
-        FFIP kernels the y-deltas (and their carry tables) of every weight
-        the forward will hand them, computed now into the server's memo (it
-        keys on storage, so the per-layer views the forward slices later
-        hit it)."""
+        (``params`` is not read); under a mesh, this rank's cut of the
+        artifact. Else, built once per distinct params object: int8 ``q``
+        entries attached when quantized (the whole weights quantized, then
+        cut), under a mesh this rank's pieces, and for the FFIP kernels the
+        y-deltas (and their carry tables) of every weight the forward will
+        hand them, computed now into the server's memo (it keys on
+        storage, so the per-layer views the forward slices later hit
+        it)."""
         if self.prepared is not None:
             if self._prepared_src is not self.prepared:
                 self._derived.clear()
-                self.prepared.seed_into(self._derived)
-                self._prepared_params = self.prepared.params
+                pm = self.prepared
+                if self.mesh is not None:
+                    pm = self._local_prepared = pm.shard(
+                        self._specs(pm.params), self.mesh)
+                pm.seed_into(self._derived)
+                self._prepared_params = pm.params
                 self._prepared_src = self.prepared
             return self._prepared_params
-        if self._gemm_cfg is None:
+        if self._gemm_cfg is None and self.mesh is None:
             return params
         if self._prepared_src is not params:
             self._derived.clear()
             with self._gemm_scope():
                 p = (attach_quantized_weights(params) if self.quantized
                      else params)
+                if self.mesh is not None:
+                    p = sharding.shard_tree(p, self._specs(p), self.mesh)
                 cfg = self._gemm_cfg
-                if cfg.algo == "ffip" and cfg.impl == "cuda":
+                if cfg is not None and cfg.algo == "ffip" and \
+                        cfg.impl == "cuda":
                     self._warm_y(p)
             self._prepared_params, self._prepared_src = p, params
         return self._prepared_params
+
+    def _specs(self, params):
+        return sharding.serving_specs(params, self.mesh, self.model.cfg,
+                                      self.moe_partition)
 
     def _warm_y(self, p) -> None:
         for w in _ffip_weights(p, self.quantized):
@@ -721,8 +775,8 @@ class BatchServer:
                                  tokens=len(req.prompt))
         t0 = self._clock()
         with self._gemm_scope():
-            one, logits = self.model.prefill(
-                params, tokens, self.model.init_cache(1, self.max_len))
+            one, logits = self.model.prefill(params, tokens,
+                                             self._new_cache(1))
             _scatter_slot(self.cache, one, self._batch_axes, slot_i)
             first = torch.argmax(logits[0]).to(torch.int32)
         first_h = int(first)

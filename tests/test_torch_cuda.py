@@ -27,7 +27,10 @@ version's adds in its order). Batch invariance is bit for bit
 (``torch.equal``): a row's sums must not depend on the rows beside it.
 ``repro_torch.obs.profile`` counts a GEMM inside a CUDA graph capture as a
 trace, not a dispatch, and one cell of the router's fault matrix ends
-token-identical to its no-fault oracle on the card.
+token-identical to its no-fault oracle on the card. The GEMM cases include
+minicpm-2b's local shapes at tensor-parallel size 2, and the
+tensor-parallel int8 layers equal the whole layer bit for bit on two
+ranks sharing the card.
 """
 import numpy as np
 import pytest
@@ -92,10 +95,14 @@ def _compare(got, want, dtype, k):
 # (K 100 or 1030, N 200, 257 or 1001; int8 N not a multiple of 16) take the
 # cp.async loader with plain loads: (1, 130, 257), (17, 100, 200) and
 # (130, 1030, 1001).
+# minicpm-2b's local shapes at tp 2 (a rank's piece of wq/wo, up/gate and
+# down): K 1152 and 2880, N 1152 and 2880.
 SHAPES = [(4, 2304, 2304), (4, 5760, 2304), (100, 60, 36), (1, 130, 257),
           (64, 2304, 5760), (4, 8192, 288), (128, 256, 8192),
           (17, 100, 200), (130, 1030, 1001), (130, 520, 16400),
-          (1, 1032, 4104), (130, 1024, 1000)]
+          (1, 1032, 4104), (130, 1024, 1000)] + [
+    (m, k, n) for m in (4, 512) for k, n in ((2304, 1152), (2304, 2880),
+                                             (1152, 2304), (2880, 2304))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -145,7 +152,8 @@ def test_pair_kernels_every_geometry_ragged(dev, m, k, n, blocks, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 @pytest.mark.parametrize("k,n", [(16, 288), (9, 257), (6, 31), (130, 32),
                                  (2304, 5760), (1, 5760), (7, 33),
-                                 (9, 4097), (2304, 33)])
+                                 (9, 4097), (2304, 33), (2304, 1152),
+                                 (2304, 2880)])
 def test_carry_table_kernel_equals_plain(dev, k, n, dtype):
     """K3's carry table derived on the card equals the plain derivation bit
     for bit (the same adds in the same order; f32 and int32), ragged N and
@@ -1232,3 +1240,23 @@ def test_prepared_server_derives_nothing_on_the_card(dev, tmp_path):
             == {r.rid: r.out_tokens for r in want})
     assert pm.recomputed == 0, pm.recompute_report()
     assert counts["ffip_carry_table"] == 0 and counts["ffip_gemm_y"] > 0
+
+
+def test_tp_layers_equal_the_whole_layer_on_two_ranks(dev):
+    """The tensor-parallel dense layers at minicpm-2b's widths on two ranks
+    sharing the card (gloo on cuda:0 where there is one card): int8
+    column- and row-parallel bit for bit, bf16 row-parallel within the f32
+    GEMM bar, baseline, fip and ffip through the kernels
+    (repro_torch.dist.parity)."""
+    from repro_torch.dist import parity
+    from repro_torch.launch import serve as launch_serve
+
+    shapes = [(m, k, n) for m in (4, 512) for k, n in (
+        (2304, 2304), (2304, 5760), (5760, 2304))]
+    ranks = launch_serve.spawn_ranks(
+        2, [(parity.layer_parity, dict(shapes=shapes, dtype="bf16"))],
+        device="cuda", timeout_s=600)
+    for (result,) in ranks:
+        assert len(result) == len(shapes) * 3 * 3
+        bad = {k: v for k, v in result.items() if not v["ok"]}
+        assert not bad, bad

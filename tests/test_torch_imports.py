@@ -1,10 +1,11 @@
 """The port stands alone: importing every module of repro_torch (the
 observability package, the router, the fault plans, the tuner and the
-prepared artifacts included) pulls in
+prepared artifacts and the distribution package included) pulls in
 neither JAX nor the reference package (nor ml_dtypes), and its entry points
 (the LM models, dense and SSM, the server, the serve launcher with its
 router, the vision models and launcher, the training loop and launcher,
-the tune and prepare launchers and the artifact loader)
+the tune and prepare launchers and the artifact loader, the
+tensor-parallel launcher)
 default to the card, raising (not falling back to the CPU) when there is
 none."""
 import os
@@ -39,7 +40,10 @@ for name in ("repro_torch.optim.adamw", "repro_torch.data.pipeline",
              "repro_torch.tune", "repro_torch.tune.space",
              "repro_torch.tune.cache", "repro_torch.tune.measure",
              "repro_torch.launch.tune", "repro_torch.prepare",
-             "repro_torch.prepare.artifact", "repro_torch.launch.prepare"):
+             "repro_torch.prepare.artifact", "repro_torch.launch.prepare",
+             "repro_torch.dist", "repro_torch.dist.context",
+             "repro_torch.dist.sharding", "repro_torch.dist.parity",
+             "repro_torch.launch.mesh"):
     assert name in names, name
 
 import torch
@@ -72,6 +76,8 @@ for make in (lambda: Model(cfg), lambda: Model(ssm),
                                         "--steps", "1"]),
              lambda: launch_serve.main(["--arch", "minicpm-2b", "--smoke",
                                         "--replicas", "2"]),
+             lambda: launch_serve.main(["--arch", "minicpm-2b", "--smoke",
+                                        "--mesh-model", "2"]),
              lambda: launch_tune.main(["--arch", "minicpm-2b", "--smoke"]),
              lambda: launch_prepare.main(["--arch", "minicpm-2b", "--smoke",
                                           "--out", "unused"]),

@@ -139,16 +139,18 @@ def test_launch_serve_cli_on_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """Only mesh= waits for its slice (item 15); prepared= is taken since
-    the prepare port (item 6) and refuses a vision artifact, as do
-    registry= and tracer= (the repro_torch.obs hooks)."""
+    """mesh= is taken since the distribution port (item 15), but not with
+    paged=True, as the reference refuses it; prepared= is taken since the
+    prepare port (item 6) and refuses a vision artifact, as do registry=
+    and tracer= (the repro_torch.obs hooks)."""
     import types
+    from repro_torch.dist import make_host_mesh
     from repro_torch.obs import Registry, Tracer
     cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
     m = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        BatchServer(m, batch_slots=1, max_len=8, device="cpu",
-                    mesh=object())
+    with pytest.raises(NotImplementedError, match="paged"):
+        BatchServer(m, batch_slots=1, max_len=16, device="cpu",
+                    mesh=make_host_mesh(), paged=True, page_size=8)
     with pytest.raises(ValueError, match="'lm' artifact"):
         BatchServer(m, batch_slots=1, max_len=8, device="cpu",
                     prepared=types.SimpleNamespace(kind="vision"))

@@ -14,7 +14,8 @@ reference's weights carried across by repro_torch.bridge).
   port's contiguous server and to the reference's paged server, with the
   same page counters.
 * The launchers take ``--arch deepseek-v2-lite-16b``; ``moe_partition``
-  raises naming the distribution item.
+  is validated ("expert" or "ffn"; it partitions the banks over a mesh,
+  tests/test_torch_dist_serve.py).
 
 The port's GEMMs run through ``gemm_impl="cuda"`` (the kernels' plain
 versions on the CPU) wherever the reference runs FFIP or int8.
@@ -180,6 +181,9 @@ def test_launchers_take_deepseek(capsys):
         with pytest.raises(SystemExit, match="item 15|dense head"):
             launch_train.main(argv + ["--device", "cpu"])
     _, _, tm, _ = _setup("flash")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="moe_partition"):
         BatchServer(tm, batch_slots=2, max_len=MAX_LEN, device="cpu",
-                    moe_partition="expert")
+                    moe_partition="bogus")
+    for part in ("expert", "ffn"):
+        assert BatchServer(tm, batch_slots=2, max_len=MAX_LEN, device="cpu",
+                           moe_partition=part).moe_partition == part
