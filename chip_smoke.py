@@ -344,7 +344,12 @@ def pair_ms(adds: float, mads: float, integer: bool) -> float:
 # unembed (N 262144, the widest the port serves) at decode; zamba2-1.2b's
 # narrowest projections at decode, dtp (N 64, one column a head) and
 # bc_proj (N 128, B and C); minicpm-2b's local shapes at tensor-parallel
-# size 2 (phase dist: a rank's piece of wq / wo, up / gate and down)
+# size 2 (phase dist: a rank's piece of wq / wo, up / gate and down); and
+# the SSM pieces at tp 2 (phase dist, the sharded scan): falcon-mamba-7b's
+# in_proj (x | z halves) and out_proj pieces at decode and a 128-token
+# prompt, its x_proj (row-parallel, K 4096) and dt_proj (N 4096) pieces at
+# decode; zamba2-1.2b's z_proj / x_proj_in / out_proj (2048 x 2048), dtp (N
+# 32) and the shared block's wq (N 1024) and wo (K 1024) pieces at decode
 GEMM_CASES = tuple(
     (m, k, n) for ms, kns in (
         ((4, 512), ((2304, 2304), (2304, 5760), (5760, 2304),
@@ -353,7 +358,10 @@ GEMM_CASES = tuple(
                     (2880, 2304))),
         ((4, 128), ((4096, 16384), (8192, 288), (256, 8192), (8192, 4096),
                     (4096, 65024))),
-        ((4,), ((2560, 262144), (2048, 64), (2048, 128))))
+        ((4,), ((2560, 262144), (2048, 64), (2048, 128))),
+        ((4, 128), ((4096, 8192), (4096, 4096))),
+        ((4,), ((4096, 288), (256, 4096), (2048, 2048), (2048, 32),
+                (2048, 1024), (1024, 2048))))
     for m in ms for k, n in kns)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # K4 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36
@@ -371,7 +379,9 @@ HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # window 4096 past S. whisper-small's encoder: BH = 4 x 12, non-causal at
 # its 1500 frames (11 x 128 + 92: the last key block ragged with no causal
 # mask above its padded keys); pixtral-12b's prefill: 256 patches + a
-# 128-token prompt, GQA 32 : 8 repeated to BH = 4 x 32, d 128.
+# 128-token prompt, GQA 32 : 8 repeated to BH = 4 x 32, d 128. zamba2-1.2b's
+# shared block at tp 2: a rank's 16 of its 32 heads of 64, one prompt a
+# scatter prefill (BH = 1 x 16).
 BF16_F32 = ("bf16", "f32")
 MLA_D, MLA_DV = 192, 128
 GEMMA_D = 256
@@ -393,7 +403,8 @@ FLASH_CASES = (
     ("mixtral S 128", 4 * 48, 128, 128, 128, 4096, True, ("bf16",)),
     ("starcoder2 S 128", 4 * 24, 128, 128, 128, 0, True, ("bf16",)),
     ("whisper encoder S 1500", 4 * 12, 1500, 64, 64, 0, False, ("bf16",)),
-    ("pixtral S 384", 4 * 32, 384, 128, 128, 0, True, ("bf16",)))
+    ("pixtral S 384", 4 * 32, 384, 128, 128, 0, True, ("bf16",)),
+    ("zamba2 tp2 S 128", 1 * 16, 128, 64, 64, 0, True, ("bf16",)))
 HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
@@ -420,7 +431,8 @@ BARS_SD = {"float": FLOAT_BAR_SD, "int8": INT8_BAR_SD}
 # K6 checks: (label, B, S, di, N, chunk, dtype, h0 scale), falcon-mamba-7b's
 # prefill (the scatter prefill runs one prompt at a time) and the edges;
 # check_scan adds every length phase ssm serves (full 32-step tiles and a
-# ragged last one)
+# ragged last one); "tp2 prefill S 128" is a rank's half of d_inner at
+# tensor-parallel size 2 (phase dist, the sharded scan)
 SCAN_CASES = (
     ("prefill S 16", 1, 16, 8192, 16, 128, "bf16", 0.0),
     ("prefill S 64", 1, 64, 8192, 16, 128, "bf16", 0.0),
@@ -428,6 +440,7 @@ SCAN_CASES = (
     ("two chunks", 2, 256, 8192, 16, 128, "bf16", 0.1),
     ("f32", 1, 128, 8192, 16, 128, "f32", 0.1),
     ("nonzero h0", 1, 128, 8192, 16, 128, "bf16", 0.1),
+    ("tp2 prefill S 128", 1, 128, 4096, 16, 128, "bf16", 0.0),
 )
 HEADLINE_SCAN = "prefill S 128"
 REPLACES = {
@@ -644,20 +657,35 @@ TUNE_SEQ = "16,32,64,128"
 PREPARE_LAYERS = 8
 # phase dist: tensor parallelism on a (1, DIST_TP) mesh, one process a rank
 # (gloo with both ranks on the one card: the sharded computation and its
-# collectives, not a multi-card speed). minicpm-2b at --layers (40) served
-# float and int8 FFIP, its planted fault, phase prepare's artifact (8
+# collectives, not a multi-card speed). minicpm-2b at DIST_LAYERS of 40
+# served float and int8 FFIP, its planted fault, phase prepare's artifact (8
 # layers) cut per rank; deepseek-v2-lite-16b at DIST_MOE_LAYERS of 27 (the
 # dense first layer and three MoE layers: the phase's time), int8 FFIP in
 # both MoE partitions; the tensor-parallel dense layers at minicpm-2b's
 # widths (DIST_LAYER_SHAPES: wq / wo, up / gate, down at M 4 and 512).
 # DIST_MAX_NEW new tokens a request: a decode step of two ranks sharing the
 # card takes 0.5-1 s (each all-reduce waits for both processes' kernels),
-# and the readings need the first two.
+# and the readings need the first two. minicpm-2b is cut to 8 layers for
+# the run's time, which the sharded scan below needs (at all 40 the phase
+# took 82.8-85.5 s on the H100, PERF.md section 6).
 DIST_TP = 2
 DIST_MAX_NEW = 8
+DIST_LAYERS = 8
 DIST_MOE_LAYERS = 4
 DIST_LAYER_SHAPES = tuple((m, k, n) for m in (4, 512) for k, n in (
     (2304, 2304), (2304, 5760), (5760, 2304)))
+# phase dist, the sharded scan (run inside phase hybrid, whose zamba2 runs
+# and plain paths it reads against): falcon-mamba-7b at its published widths
+# and DIST_SSM_LAYERS of 64 layers (the run's time), zamba2-1.2b at all 38,
+# each served float and int8 FFIP at tp 2, falcon's planted fault (in_proj
+# cut contiguously over x | z, the layout bug the halves cut prevents); the
+# mixers at both archs' full widths against the whole mixer (B x S of
+# DIST_MIXER_CASES: a 4-slot decode step and the longest served prefill),
+# and K6 on a rank's half of falcon's d_inner against the whole K6's columns
+# (DIST_SCAN_CASES).
+DIST_SSM_LAYERS = 8
+DIST_MIXER_CASES = ((4, 1), (1, 128))
+DIST_SCAN_CASES = ((1, 128), (2, 256))
 ENCDEC_ROWS = 4
 WHISPER_PROMPT = 32
 PIXTRAL_LAYERS = 32
@@ -4145,8 +4173,13 @@ def run_hybrid(args, readings: Readings, problems):
         with int8_products_by_f64():
             readings.read(f"zamba2 planted fault: {label}, {tier} ffip",
                           done, plain[quantized], tier, fault=True)
-    del faulty, plain
+    del faulty
     print(f"phase hybrid check: {time.perf_counter() - t1:.1f} s", flush=True)
+    # the sharded scan reads its zamba2 runs against these runs and paths
+    tp_counts = run_dist_ssm(args, readings, problems, dict(
+        model=model, prompts=prompts, runs=runs, plain=plain))
+    del plain
+    free_device()
 
     # per token: 5 Mamba2 projections a layer, 4 in each group's shared
     # block, the tied unembed
@@ -4162,7 +4195,7 @@ def run_hybrid(args, readings: Readings, problems):
     train_recs, _ = run_train(args, problems, runs=(
         (HYBRID_ARCH, cfg.n_layers, *HYBRID_TRAIN),), witness=False)
     print(f"phase hybrid: {time.perf_counter() - t0:.1f} s", flush=True)
-    return runs, train_recs
+    return runs, train_recs, tp_counts
 
 
 def run_faults(dev, problems):
@@ -4428,6 +4461,34 @@ def plant_down_shard(params, mesh):
     return _with_leaf(params, path, bad)
 
 
+def plant_in_proj_contiguous(params, mesh):
+    """Phase dist's planted fault for the sharded scan, through the params:
+    every Mamba1 layer's ``in_proj`` arranged so that the server's x | z
+    cut hands each rank the contiguous piece of the concatenated width, the
+    layout bug that cut prevents (at tp 2: rank 0 all of x, rank 1 all of
+    z)."""
+    tp, r = mesh.size("model"), mesh.index("model")
+    w = params["layers"]["ssm"]["in_proj"]["w"]
+    di = w.shape[-1] // 2
+    n = di // tp
+    bad = w.clone()
+    bad[..., r * n:(r + 1) * n] = w[..., 2 * r * n:2 * r * n + n]
+    bad[..., di + r * n:di + (r + 1) * n] = w[..., 2 * r * n + n:
+                                              2 * (r + 1) * n]
+    return _with_leaf(params, ("layers", "ssm", "in_proj", "w"), bad)
+
+
+def contiguous_in_proj(specs):
+    """The same layout bug planted in the mixer check's cut: every
+    ``in_proj`` leaf's x | z halves spec replaced by a contiguous cut of the
+    concatenated width."""
+    from repro_torch.dist.sharding import Blocked, P
+
+    if isinstance(specs, dict):
+        return {k: contiguous_in_proj(v) for k, v in specs.items()}
+    return P(*specs) if isinstance(specs, Blocked) else specs
+
+
 def recorded_serve_job(mesh, device, **kw):
     """``launch.serve.serve_job`` with every sampled id tensor and MoE
     top-k kept (``record_samples``, ``routing``), so that ``Replay`` can
@@ -4460,14 +4521,15 @@ def _dist_line(label, recs):
               f"launches {busy}", flush=True)
 
 
-def run_dist(args, model, params, prompts, runs, plain, artifact: str,
-             prepared_tokens, readings: Readings, problems):
+def run_dist(args, prompts, artifact: str, prepared_tokens,
+             readings: Readings, problems):
     """Phase dist: tensor-parallel serving on a (1, DIST_TP) mesh through
     ``launch.serve``'s rank entry (``spawn_ranks``, ``serve_job``), one
     process a rank. The tensor-parallel dense layers against the whole
-    layer (``repro_torch.dist.parity``); minicpm-2b float and int8 FFIP
-    read against phase serve's plain path under the bars, beside the
-    count of tokens equal to phase serve's own; the planted fault
+    layer (``repro_torch.dist.parity``); minicpm-2b at DIST_LAYERS, float
+    and int8 FFIP, read against the plain path at that depth under the
+    bars, beside the count of tokens equal to a single-device run at that
+    depth; the planted fault
     (``plant_down_shard``) above the float bar; phase prepare's artifact
     cut per rank, ``recomputed == 0`` and the single-device prepared
     server's tokens; deepseek-v2-lite-16b at DIST_MOE_LAYERS, int8 FFIP,
@@ -4491,7 +4553,7 @@ def run_dist(args, model, params, prompts, runs, plain, artifact: str,
           f"sharing one card show the sharded computation and its "
           f"collectives, not a multi-card speed)", flush=True)
     kw = dict(batch_slots=4, max_len=256, gemm_impl="cuda", gemm_algo="ffip")
-    mc = dict(arch="minicpm-2b", layers=args.layers, seed=args.seed,
+    mc = dict(arch="minicpm-2b", layers=DIST_LAYERS, seed=args.seed,
               prompts=prompts, max_new=DIST_MAX_NEW)
     ds_cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
                                  n_layers=DIST_MOE_LAYERS)
@@ -4555,22 +4617,28 @@ def run_dist(args, model, params, prompts, runs, plain, artifact: str,
         return [SimpleNamespace(rid=rid, out_tokens=toks)
                 for rid, toks in sorted(rec["tokens"].items())]
 
-    own = {r["label"]: {d.rid: d.out_tokens for d in r["done"]}
-           for r in runs}
+    mc_model = Model(dataclasses.replace(configs.get_config("minicpm-2b"),
+                                         n_layers=DIST_LAYERS))
+    mc_params = mc_model.init(args.seed)
+    plain = {q: PlainPath(mc_model, mc_params, prompts, q)
+             for q in (False, True)}
     for label, tier, quantized in (("ffip", "float", False),
                                    ("int8-ffip", "int8", True)):
         rec = by[label][0]
-        same = sum(a == b for rid in own[label]
-                   for a, b in zip(rec["tokens"][rid], own[label][rid]))
+        _, single, _ = serve(mc_model, mc_params, prompts,
+                             max_new=DIST_MAX_NEW, quantized=quantized, **kw)
+        same = sum(a == b for r in single
+                   for a, b in zip(rec["tokens"][r.rid], r.out_tokens))
         print(f"  [tp{DIST_TP} {label}] {same} of "
               f"{sum(map(len, rec['tokens'].values()))} tokens equal to "
-              f"phase serve's {label} run", flush=True)
-        readings.read(f"tp{DIST_TP} {label}", done(rec), plain[quantized],
-                      tier)
+              f"the single-device run at {DIST_LAYERS} layers", flush=True)
+        readings.read(f"tp{DIST_TP} {label} ({DIST_LAYERS} layers)",
+                      done(rec), plain[quantized], tier)
     readings.read(f"tp{DIST_TP} planted fault: rank 1's piece of layer 0's "
                   f"ffn.down taken from rank 0's, float ffip",
                   done(by["planted fault"][0]), plain[False], "float",
                   fault=True)
+    del mc_model, mc_params, plain
     for r, rec in enumerate(by["prepared int8-ffip"]):
         print(f"  [tp{DIST_TP} prepared int8-ffip] rank {r}: recomputed "
               f"{rec['recomputed']}, built at the cut {rec['built']}, "
@@ -4612,6 +4680,168 @@ def run_dist(args, model, params, prompts, runs, plain, artifact: str,
         del replay
     del ds_model, ds_params
     print(f"phase dist: {time.perf_counter() - t0:.1f} s", flush=True)
+    return totals
+
+
+def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
+    """Phase dist, the sharded scan, on a (1, DIST_TP) mesh (``spawn_ranks``,
+    ``serve_job``): K6 on a rank's half of falcon-mamba-7b's d_inner against
+    the whole K6's columns and the Mamba1 and Mamba2 mixers at full widths
+    against the whole mixer (``repro_torch.dist.parity``), each mixer's
+    output deviation read in sd of the whole mixer's output beside the
+    token readings; falcon-mamba-7b at DIST_SSM_LAYERS and zamba2-1.2b at
+    all 38 layers, float and int8 FFIP, each read against the plain path
+    under the bars beside the count of tokens equal to a single card
+    (falcon: a single-device run at the same depth, read against its own
+    plain paths; zamba2: phase hybrid's runs and plain paths, ``zamba``).
+    The planted fault, falcon's in_proj cut contiguously over x | z: read
+    in the mixer check (gated: above each tier's bar) and in a served
+    float run (its tokens, printed ungated: at 8 random layers a falcon
+    token follows its prompt's last embedding, which the mixers barely
+    move). Returns the ranks' launch counts."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.dist import parity
+    from repro_torch.kernels import compat
+    from repro_torch.launch.serve import (RankError, serve, serve_job,
+                                          spawn_ranks)
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    f_cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"),
+                                n_layers=DIST_SSM_LAYERS)
+    f_di = f_cfg.ssm.expand * f_cfg.d_model
+    z_cfg = zamba["model"].cfg
+    n_groups = z_cfg.n_layers // z_cfg.hybrid_attn_period
+    print(f"phase dist, the sharded scan: tp {DIST_TP}, falcon-mamba-7b "
+          f"d_inner {f_di} ({f_di // DIST_TP} a rank) at "
+          f"{DIST_SSM_LAYERS} of 64 layers, zamba2-1.2b "
+          f"{z_cfg.ssm.expand * z_cfg.d_model // z_cfg.ssm.head_dim} heads "
+          f"of {z_cfg.ssm.head_dim} and its shared block's {z_cfg.n_heads} "
+          f"attention heads ({DIST_TP} ranks: half each) at "
+          f"{z_cfg.n_layers} layers", flush=True)
+    kw = dict(batch_slots=4, max_len=256, gemm_impl="cuda", gemm_algo="ffip")
+    f_prompts = served_prompts(f_cfg.vocab, args.seed)
+    fc = dict(arch="falcon-mamba-7b", layers=DIST_SSM_LAYERS, seed=args.seed,
+              prompts=f_prompts, max_new=DIST_MAX_NEW)
+    zc = dict(arch=HYBRID_ARCH, seed=args.seed, prompts=zamba["prompts"],
+              max_new=DIST_MAX_NEW)
+    checks = [(parity.scan_columns, dict(di=f_di, n=f_cfg.ssm.d_state,
+                                         cases=DIST_SCAN_CASES)),
+              (parity.mixer_parity, dict(arch="falcon-mamba-7b",
+                                         cases=DIST_MIXER_CASES)),
+              (parity.mixer_parity, dict(arch=HYBRID_ARCH,
+                                         cases=DIST_MIXER_CASES)),
+              (parity.mixer_parity, dict(arch="falcon-mamba-7b",
+                                         cases=DIST_MIXER_CASES[-1:],
+                                         plant=contiguous_in_proj))]
+    labels = ["falcon ffip", "falcon int8-ffip", "falcon planted fault",
+              "zamba2 ffip", "zamba2 int8-ffip"]
+    jobs = checks + [
+        (serve_job, dict(fc, server_kw=dict(kw, quantized=False))),
+        (serve_job, dict(fc, server_kw=dict(kw, quantized=True))),
+        (serve_job, dict(fc, server_kw=dict(kw, quantized=False),
+                         plant=plant_in_proj_contiguous)),
+        (serve_job, dict(zc, server_kw=dict(kw, quantized=False))),
+        (serve_job, dict(zc, server_kw=dict(kw, quantized=True))),
+    ]
+    totals = {name: 0 for name in compat.launch_counts()}
+    try:
+        ranks = spawn_ranks(DIST_TP, jobs, device="cuda", timeout_s=600)
+    except RankError as e:
+        problems.append(f"dist ssm: {e}")
+        return totals
+    print(f"  ranks: {time.perf_counter() - t0:.1f} s (start, weights, "
+          f"checks, serving)", flush=True)
+
+    for r, rank in enumerate(ranks):
+        for i, res in enumerate(rank[:len(checks)]):
+            planted = i == len(checks) - 1
+            for label, rec in res.items():
+                print(f"  rank {r}: {'planted fault, in_proj cut '
+                                     'contiguously: ' if planted else ''}"
+                      f"{label}: {'ok' if rec['ok'] else 'off'} max_abs "
+                      f"{rec['max_abs_err']:.4g} ({rec['tol']})"
+                      + (f", {rec['sd']:.4g} sd of the whole mixer's output"
+                         if "sd" in rec else ""), flush=True)
+                # the planted fault is gated by its reading in sd below: the
+                # f32 GEMM bar's atol at K = d_inner is wider than the spread
+                # of a mixer's output
+                if not (planted or rec["ok"]):
+                    problems.append(f"dist ssm: rank {r}: {label} off the "
+                                    f"whole ({rec['tol']}): "
+                                    f"{rec['max_abs_err']}")
+                if "sd" in rec:
+                    tier = "int8" if " int8 " in label else "float"
+                    (readings.faults if planted else readings.sound)[tier][
+                        f"rank {r} {label}{' planted' if planted else ''}"
+                        f" (mixer output)"] = rec["sd"]
+    by = {label: [rank[len(checks) + i] for rank in ranks]
+          for i, label in enumerate(labels)}
+    for label, recs in by.items():
+        _dist_line(f"tp{DIST_TP} {label}", recs)
+        falcon = label.startswith("falcon")
+        want = ({"selective_scan": DIST_SSM_LAYERS * len(f_prompts),
+                 "flash_fwd": 0} if falcon else
+                {"selective_scan": 0,
+                 "flash_fwd": n_groups * len(zamba["prompts"])})
+        for r, rec in enumerate(recs):
+            for name, n in rec["launches"].items():
+                totals[name] += n
+            if rec["tokens"] != recs[0]["tokens"]:
+                problems.append(f"dist {label}: rank {r}'s tokens differ "
+                                f"from rank 0's")
+            got = {k: rec["launches"][k] for k in want}
+            if got != want or not rec["launches"]["ffip_gemm_y"]:
+                problems.append(f"dist {label}: rank {r} launched "
+                                f"{rec['launches']}, want {want} and "
+                                f"ffip_gemm_y")
+        if any(len(t) != DIST_MAX_NEW for t in recs[0]["tokens"].values()):
+            problems.append(f"dist {label}: a request missed its budget")
+
+    def done(rec):
+        return [SimpleNamespace(rid=rid, out_tokens=toks)
+                for rid, toks in sorted(rec["tokens"].items())]
+
+    def count_same(rec, single, what):
+        same = sum(a == b for rid in single
+                   for a, b in zip(rec["tokens"][rid], single[rid]))
+        print(f"  [tp{DIST_TP} {what}] {same} of "
+              f"{sum(map(len, rec['tokens'].values()))} tokens equal to "
+              f"the single card's", flush=True)
+
+    model = Model(f_cfg)
+    params = model.init(args.seed)
+    plain = {q: PlainPath(model, params, f_prompts, q)
+             for q in (False, True)}
+    for label, tier, quantized in (("ffip", "float", False),
+                                   ("int8-ffip", "int8", True)):
+        rec = by[f"falcon {label}"][0]
+        _, single, _ = serve(model, params, f_prompts, max_new=DIST_MAX_NEW,
+                             quantized=quantized, **kw)
+        count_same(rec, {r.rid: list(r.out_tokens) for r in single},
+                   f"falcon {label}, {DIST_SSM_LAYERS} layers")
+        readings.read(f"tp{DIST_TP} falcon {label} ({DIST_SSM_LAYERS} "
+                      f"layers)", done(rec), plain[quantized], tier)
+    readings.read(f"tp{DIST_TP} falcon planted fault: in_proj cut "
+                  f"contiguously over x | z, float ffip, {DIST_SSM_LAYERS} "
+                  f"layers (tokens; ungated)",
+                  done(by["falcon planted fault"][0]), plain[False],
+                  "float", fault=True, gated=False)
+    del model, params, plain
+    own = {r["label"]: {d.rid: list(d.out_tokens) for d in r["done"]}
+           for r in zamba["runs"]}
+    for label, tier, quantized in (("ffip", "float", False),
+                                   ("int8-ffip", "int8", True)):
+        rec = by[f"zamba2 {label}"][0]
+        count_same(rec, own[f"zamba2 {label}"],
+                   f"zamba2 {label}, phase hybrid's run")
+        with int8_products_by_f64():
+            readings.read(f"tp{DIST_TP} zamba2 {label}", done(rec),
+                          zamba["plain"][quantized], tier)
+    print(f"phase dist, the sharded scan: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return totals
 
 
@@ -4759,8 +4989,6 @@ def main(argv=None) -> int:
         tier = "int8" if quantized else "float"
         readings.read(f"planted fault: {label}, {tier} ffip", done,
                       plain[quantized], tier, fault=True)
-    # phase dist reads its tensor-parallel runs against the same plain paths
-    served_plain = plain
     del faulty
     print(f"phase check: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4892,12 +5120,10 @@ def main(argv=None) -> int:
             args, prompts, problems, art_dir)
         # 8c. tensor parallelism: minicpm-2b and deepseek-v2-lite-16b
         # served on two ranks sharing the card
-        dist_counts = run_dist(args, model, params, prompts, runs,
-                               served_plain, artifact, prepared_tokens,
+        dist_counts = run_dist(args, prompts, artifact, prepared_tokens,
                                readings, problems)
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
-    del served_plain
     free_device()
     for name in totals:
         totals[name] += (tune_counts[name] + prep_counts[name]
@@ -4919,8 +5145,8 @@ def main(argv=None) -> int:
 
     # 8. the Mamba1 path: falcon-mamba-7b through K6 and K1-K3
     ssm_runs = run_ssm(args, readings, problems)
-    totals["selective_scan"] = sum(r["counts"]["selective_scan"]
-                                   for r in ssm_runs)
+    totals["selective_scan"] += sum(r["counts"]["selective_scan"]
+                                    for r in ssm_runs)
     for name in ("baseline_gemm", "fip_gemm", "ffip_gemm_y",
                  "ffip_carry_table"):
         totals[name] += sum(r["counts"][name] for r in ssm_runs)
@@ -4963,10 +5189,13 @@ def main(argv=None) -> int:
 
     # 14. the Mamba2 + shared attention hybrid zamba2-1.2b served through
     # K1-K4 and trained through K4 + K8
-    hybrid_runs, hybrid_train = run_hybrid(args, readings, problems)
+    # ... and, inside it, phase dist's sharded scan: falcon-mamba-7b and
+    # zamba2-1.2b served on two ranks sharing the card
+    hybrid_runs, hybrid_train, tp_counts = run_hybrid(args, readings,
+                                                      problems)
     for name in totals:
-        totals[name] += sum(r["counts"].get(name, 0)
-                            for r in hybrid_runs + hybrid_train)
+        totals[name] += tp_counts[name] + sum(
+            r["counts"].get(name, 0) for r in hybrid_runs + hybrid_train)
     free_device()
     readings.gate()
     if problems:

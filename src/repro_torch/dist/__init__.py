@@ -11,4 +11,5 @@ this rank's pieces (``shard_tree``, the reference's ``to_named``).
 from repro_torch.dist.context import (  # noqa: F401
     Mesh, get_mesh, make_host_mesh, make_mesh, mesh_context)
 from repro_torch.dist.sharding import (  # noqa: F401
-    P, cache_specs, data_specs, param_specs, serving_specs, shard_tree)
+    Blocked, P, cache_specs, data_specs, param_specs, serving_cache_specs,
+    serving_specs, shard_tree)

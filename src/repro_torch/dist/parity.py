@@ -13,6 +13,21 @@ rank and returns what it found.
 * float, row-parallel: the ranks' f32 partials summed and rounded once,
   within the reference's f32 GEMM bar of the whole layer (rtol 1e-4, atol
   1e-3 max(1, K / 64)): the same products summed in another order.
+
+The SSM mixers (:func:`mixer_parity`), one layer at an arch's widths cut by
+``serving_specs`` / ``serving_cache_specs``, against the whole mixer on the
+same input and streaming state, at a decode step (B rows, S 1: the plain
+f32 scan) and a prefill (B 1, S rows: K6):
+
+* int8 Mamba1: ``in_proj`` column-parallel (x | z halves), ``x_proj`` and
+  ``out_proj`` row-parallel with int32 sums, K6 and the conv per channel:
+  the output and this rank's piece of the new state equal the whole
+  mixer's bit for bit;
+* float Mamba1 and Mamba2 (float and int8; Mamba2's gated norm sums its
+  squares over the ranks): within the f32 GEMM bar at K = d_inner.
+
+:func:`scan_columns`: K6 on this rank's channels against the whole K6's
+columns, bit for bit (every output channel reads its own channel alone).
 """
 from __future__ import annotations
 
@@ -20,12 +35,17 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch import configs
 from repro_torch.core import quant
 from repro_torch.core.gemm import GemmConfig, use_gemm
 from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P, shard_leaf
 from repro_torch.kernels import compat
+from repro_torch.kernels import selective_scan as ssk
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models import transformer as T
 
 Tensor = torch.Tensor
 ALGOS = ("baseline", "fip", "ffip")
@@ -84,4 +104,130 @@ def layer_parity(mesh, device, *, shapes: Sequence[tuple],
                 ok=bool((err <= atol + 1e-4 * whole.double().abs()).all()),
                 tol=f"rtol 1e-4 atol {atol:g}",
                 max_abs_err=float(err.max()))
+    return out
+
+
+def _f32_bar(got: Tensor, want: Tensor, k: int) -> dict:
+    atol = 1e-3 * max(1, k // 64)
+    err = (got.double() - want.double()).abs()
+    return dict(ok=bool((err <= atol + 1e-4 * want.double().abs()).all()),
+                tol=f"rtol 1e-4 atol {atol:g}", max_abs_err=float(err.max()))
+
+
+def _exact(got: Tensor, want: Tensor) -> dict:
+    return dict(ok=torch.equal(got, want), tol="bit for bit",
+                max_abs_err=float((got.double() - want.double()).abs().max()))
+
+
+def _mixer(p: dict, x: Tensor, cache: dict, cfg, quantized: bool,
+           prefill: bool):
+    apply = S.mamba1_apply if cfg.ssm.version == 1 else S.mamba2_apply
+    kw = dict(prefill=prefill) if cfg.ssm.version == 1 else {}
+    with use_gemm(GemmConfig(algo="ffip", impl="cuda",
+                             quantized=quantized)), torch.no_grad(), \
+            compat.use_derived(compat.DerivedCache()):
+        out, _ = apply(p, x, cfg=cfg, cache=cache, **kw)
+    return out
+
+
+def _cut_cache(cache: dict, mesh, cfg, batch: int) -> dict:
+    """This rank's piece of one layer's streaming state, cut as the server
+    cuts the stacked cache (``serving_cache_specs``)."""
+    stacked = {"layers": {k: v[None] for k, v in cache.items()}}
+    specs = sharding.serving_cache_specs(stacked, mesh, cfg, batch=batch)
+    return {k: v[0] for k, v in sharding.shard_tree(
+        stacked, specs, mesh)["layers"].items()}
+
+
+def mixer_parity(mesh, device, *, arch: str, cases: Sequence[tuple],
+                 smoke: bool = False, seed: int = 0, plant=None
+                 ) -> Dict[str, dict]:
+    """One Mamba mixer of ``arch`` (its published widths, or its smoke
+    widths with ``smoke``) in the config's dtype, float and int8
+    FFIP, on this rank's pieces against the whole mixer, for each (B, S) of
+    ``cases`` (S 1: a decode step; S > 1: a prefill through K6) from a
+    random streaming state. Returns {label: {"ok", "max_abs_err", "tol"}}:
+    the int8 Mamba1 mixer bit for bit, the others within the f32 GEMM bar
+    at K = d_inner; each label's check covers the output and this rank's
+    piece of the new state, and ``"sd"`` reads the output's largest
+    deviation in standard deviations of the whole mixer's output.
+    ``plant(specs)``, when given, rewrites the serving specs before the
+    cut: a planted fault the checks must see."""
+    cfg = configs.get_config(arch)
+    if smoke:
+        cfg = configs.smoke_config(cfg)
+    s_cfg = cfg.ssm
+    di = s_cfg.expand * cfg.d_model
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = S.mamba1_init if s_cfg.version == 1 else S.mamba2_init
+    whole = {"ssm": init(gen, cfg, cfg.dtype, device=device)}
+    out: Dict[str, dict] = {}
+    for quantized in (False, True):
+        params = (quant.attach_quantized_weights(whole) if quantized
+                  else whole)
+        specs = sharding.serving_specs(params, mesh, cfg)
+        local = sharding.shard_tree(
+            params, specs if plant is None else plant(specs), mesh)
+        exact = quantized and s_cfg.version == 1
+        tier = "int8" if quantized else str(cfg.dtype).split(".")[-1]
+        for b, s in cases:
+            state = {k: torch.randn(v.shape[1:], generator=gen,
+                                    device=device).to(v.dtype)
+                     for k, v in T._ssm_cache(cfg, 1, b, cfg.dtype,
+                                              device).items()}
+            x = (torch.randn((b, s, cfg.d_model), generator=gen,
+                             device=device) / 2).to(cfg.dtype)
+            cache = {k: v.clone() for k, v in state.items()}
+            mine = _cut_cache(state, mesh, cfg, b)
+            want = _mixer(params["ssm"], x, cache, cfg, quantized, s > 1)
+            with dctx.mesh_context(mesh):
+                got = _mixer(local["ssm"], x, mine, cfg, quantized, s > 1)
+            cut = _cut_cache(cache, mesh, cfg, b)
+            res = [_exact(g, w) if exact else _f32_bar(g, w, di)
+                   for g, w in [(got, want)] + [(mine[k], cut[k])
+                                                for k in cut]]
+            out[f"{arch} {tier} ffip mixer B={b} S={s}"] = dict(
+                ok=all(r["ok"] for r in res), tol=res[0]["tol"],
+                max_abs_err=max(r["max_abs_err"] for r in res),
+                sd=float((got.double() - want.double()).abs().max()
+                         / want.double().std()))
+    return out
+
+
+def scan_columns(mesh, device, *, di: int, cases: Sequence[tuple],
+                 n: int = 16, dtype: str = "bf16", chunk: int = 128,
+                 seed: int = 0) -> Dict[str, dict]:
+    """K6 on this rank's ``di / tp`` channels against the whole K6's
+    columns of y, h_final and h_starts, for each (B, S) of ``cases``, bit
+    for bit. Inputs as the served prefill feeds them (dt positive, A
+    negative). No collective runs: the check needs only this rank's
+    index."""
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    tp = mesh.size(dctx.MODEL)
+    lo = mesh.index(dctx.MODEL) * (di // tp)
+    cols = slice(lo, lo + di // tp)
+    out: Dict[str, dict] = {}
+    for b, s in cases:
+        g = torch.Generator(device=device).manual_seed(seed + s)
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=device)
+
+        x, c = rnd(b, s, di).to(dt), rnd(b, s, n).to(dt)
+        bm = rnd(b, s, n).to(dt)
+        dtv = (torch.nn.functional.softplus(rnd(b, s, di)) / 4).to(dt)
+        a = -torch.exp(rnd(di, n) / 4)
+        h0 = rnd(b, di, n) / 4
+        ck = min(chunk, s)
+        with torch.no_grad():
+            y, h, starts = ssk.selective_scan(x, dtv, bm, c, a, h0,
+                                              chunk=ck)
+            yl, hl, startsl = ssk.selective_scan(
+                x[..., cols].contiguous(), dtv[..., cols].contiguous(), bm,
+                c, a[cols].contiguous(), h0[:, cols].contiguous(), chunk=ck)
+        res = [_exact(yl, y[..., cols]), _exact(hl, h[:, cols]),
+               _exact(startsl, starts[:, :, cols])]
+        out[f"K6 di {di} -> {di // tp} B={b} S={s} {dtype}"] = dict(
+            ok=all(r["ok"] for r in res), tol="bit for bit",
+            max_abs_err=max(r["max_abs_err"] for r in res))
     return out

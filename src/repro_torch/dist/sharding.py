@@ -35,10 +35,34 @@ widenings, each of a leaf that every rank must read in full:
     KV % tp != 0): heads split as whole heads or not at all, and a local
     q head's kv head must be local.
 
-It never splits what a spec keeps whole. A column-parallel layer reads its
-piece of a replicated per-channel vector (bias, int8 scale, zero point,
-folded beta, colsum) as a view (``context.local_slice``); a row-parallel
-one adds it once, after the reduce.
+The SSM cuts, each of a leaf that the reference's spec keeps whole or
+cuts in another order than the port's ranks read it (GSPMD may re-shard
+anywhere; the port's model code reduces what each rank holds). They apply
+where d_inner (Mamba1) or the heads (Mamba2, with one B / C group) divide
+the model axis, and otherwise every SSM leaf stays whole:
+
+  * Mamba1 ``in_proj`` (d, 2 di) and its per-channel int8 vectors: each of
+    the x and z halves split (:class:`Blocked`), not the concatenated
+    width, whose contiguous cut would give one rank all of x;
+  * Mamba1 ``x_proj`` (di, R + 2N): row-parallel on the local d_inner it
+    consumes (the reference's spec is column-parallel);
+  * Mamba1 ``A_log`` (di, N): cut by rows (the generic rule splits N);
+  * Mamba2 ``bc_proj`` and ``conv_bc`` (width 2 N at G = 1): whole, since
+    every head reads the whole of B and C (a cut would give B to one rank
+    and C to the other).
+
+The rest of the mixers keep the reference's specs: ``conv_w`` / ``conv_x``,
+``dt_proj``, ``z_proj``, ``x_proj_in`` and ``dtp`` column-parallel on
+d_inner or whole heads, ``out_proj`` row-parallel; ``D``, ``dt_bias``,
+``A_log`` (Mamba2) and the gated norm's scale are read as local slices.
+:func:`serving_cache_specs` cuts the streaming state the same way: the
+conv inputs and the scan state on the local d_inner or heads.
+
+Apart from these, nothing is split that a spec keeps whole. A
+column-parallel layer reads its piece of a replicated per-channel vector
+(bias, int8 scale, zero point, folded beta, colsum) as a view
+(``context.local_slice``); a row-parallel one adds it once, after the
+reduce.
 """
 from __future__ import annotations
 
@@ -72,6 +96,21 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
+
+
+class Blocked(P):
+    """A spec whose ``"model"``-split dim holds ``blocks`` equal blocks side
+    by side (Mamba1's ``in_proj``: x | z): a rank's piece is its piece of
+    every block, in block order."""
+
+    def __new__(cls, *axes, blocks: int = 2):
+        spec = super().__new__(cls, *axes)
+        spec.blocks = blocks
+        return spec
+
+    def __repr__(self) -> str:
+        return (f"Blocked({', '.join(map(repr, self))}, "
+                f"blocks={self.blocks})")
 
 
 def _axis_sizes(mesh) -> Dict[str, int]:
@@ -219,51 +258,110 @@ def data_specs(batch: PyTree, mesh) -> PyTree:
     return _map_with_path(one, batch)
 
 
+def _cache_spec(path: str, shape, mesh, batch: int) -> P:
+    sizes = _axis_sizes(mesh)
+    ndim = len(shape)
+    if ndim == 0:
+        return P()
+    axes: list = [None] * ndim
+    parts = path.split("/")
+    bdim = 2 if parts[0] == "hybrid_groups" else 1
+    if not (bdim < ndim and shape[bdim] == batch):
+        bdim = next((d for d in range(ndim) if shape[d] == batch), None)
+    if bdim is not None:
+        axes[bdim] = _batch_axes(mesh, batch)
+    if parts[-1] in ("k", "v") and ndim >= 4:
+        axes[ndim - 2] = MODEL if MODEL in sizes else None
+    return _guarded(axes, shape, sizes)
+
+
 def cache_specs(cache: PyTree, mesh, *, batch: int) -> PyTree:
     """Decode/prefill cache specs: the batch dim is data-parallel, found
     structurally (axis 1 of an (L, B, ...) leaf, axis 2 under
     "hybrid_groups"), with a size scan only as a fallback; K/V leaves
     shard the kv-head dim (second-to-last) over "model" when it divides."""
-    sizes = _axis_sizes(mesh)
-
-    def one(path, leaf):
-        shape = _shape(leaf)
-        ndim = len(shape)
-        if ndim == 0:
-            return P()
-        axes: list = [None] * ndim
-        parts = path.split("/")
-        bdim = 2 if parts[0] == "hybrid_groups" else 1
-        if not (bdim < ndim and shape[bdim] == batch):
-            bdim = next((d for d in range(ndim) if shape[d] == batch),
-                        None)
-        if bdim is not None:
-            axes[bdim] = _batch_axes(mesh, batch)
-        if parts[-1] in ("k", "v") and ndim >= 4:
-            axes[ndim - 2] = MODEL if MODEL in sizes else None
-        return _guarded(axes, shape, sizes)
-
-    return _map_with_path(one, cache)
+    return _map_with_path(
+        lambda path, leaf: _cache_spec(path, _shape(leaf), mesh, batch),
+        cache)
 
 
 def serving_specs(params: PyTree, mesh, cfg, moe_partition: str = "expert"
                   ) -> PyTree:
-    """:func:`param_specs` with the executor's widenings (module
-    docstring): router and MLA latent projections whole, and attention
-    projections whole where their heads do not split into whole heads."""
+    """:func:`param_specs` with the executor's widenings and the SSM cuts
+    (module docstring): router and MLA latent projections whole, attention
+    projections whole where their heads do not split into whole heads, and
+    the Mamba mixers cut as their ranks read them."""
     tp = _axis_sizes(mesh).get(MODEL, 1)
     heads_split = cfg.n_heads % tp == 0
     kv_split = cfg.n_kv_heads % tp == 0
 
     def widen(path, leaf):
-        spec = _match_spec(path, _shape(leaf), mesh, moe_partition)
-        owner = _owner([p for p in path.split("/") if p])
+        shape = _shape(leaf)
+        spec = _match_spec(path, shape, mesh, moe_partition)
+        parts = [p for p in path.split("/") if p]
+        if "ssm" in parts:
+            return _ssm_spec(parts, shape, spec, cfg, tp)
+        owner = _owner(parts)
         whole = (owner in _WHOLE_PARENTS
                  or (owner in _Q_HEAD_PARENTS and not heads_split)
                  or (owner in _KV_HEAD_PARENTS and not kv_split))
         return P(*[None] * len(spec)) if whole else spec
 
     return _map_with_path(widen, params)
+
+
+def _ssm_splits(cfg, tp: int) -> bool:
+    """Whether the Mamba mixers split over ``tp`` ranks: d_inner (Mamba1)
+    or the heads (Mamba2, one B / C group, which every head reads) into
+    equal pieces. Otherwise they stay whole."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    if s.version == 1:
+        return di % tp == 0
+    return s.n_groups == 1 and (di // s.head_dim) % tp == 0
+
+
+def _ssm_spec(parts, shape, spec, cfg, tp: int) -> P:
+    """A Mamba mixer leaf's serving spec (module docstring, the SSM cuts)."""
+    ndim = len(shape)
+    whole = P(*[None] * ndim)
+    if tp == 1 or not _ssm_splits(cfg, tp):
+        return whole
+    owner = _owner(parts)
+    leaf = parts[-1]
+    if cfg.ssm.version == 1:
+        if owner == "in_proj":       # x | z: each half split
+            return Blocked(*spec[:-1], MODEL, blocks=2)
+        if owner == "x_proj" and leaf in ("w", "qw"):
+            return P(*[None] * (ndim - 2), MODEL, None)
+        if leaf == "A_log":
+            return P(*[None] * (ndim - 2), MODEL, None)
+        return spec
+    if owner == "bc_proj" or leaf == "conv_bc":
+        return whole
+    return spec
+
+
+def serving_cache_specs(cache: PyTree, mesh, cfg, *, batch: int) -> PyTree:
+    """:func:`cache_specs` with the SSM cuts: the streaming state of every
+    Mamba layer on this rank's d_inner or heads, as its mixer reads it
+    (Mamba1 ``conv`` (..., W-1, di) and ``ssm`` (..., di, N); Mamba2
+    ``conv`` (..., W-1, di) and ``ssm`` (..., H, P, N), its ``conv_bc``
+    whole); the attention K/V as :func:`cache_specs` cuts them."""
+    tp = _axis_sizes(mesh).get(MODEL, 1)
+    cut = cfg.ssm is not None and tp > 1 and _ssm_splits(cfg, tp)
+    state_dim = -2 if cfg.ssm is not None and cfg.ssm.version == 1 else -3
+
+    def one(path, leaf):
+        spec = _cache_spec(path, _shape(leaf), mesh, batch)
+        name = path.split("/")[-1]
+        if not cut or name not in ("conv", "ssm"):
+            return spec
+        axes = list(spec)
+        axes[-1 if name == "conv" else state_dim] = MODEL
+        return P(*axes)
+
+    return _map_with_path(one, cache)
 
 
 def _piece(axes, mesh) -> Tuple[int, int]:
@@ -280,13 +378,20 @@ def _piece(axes, mesh) -> Tuple[int, int]:
 
 def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's piece of ``t`` under ``spec``: a contiguous copy of the
-    cut, or ``t`` itself where no dim splits."""
+    cut, or ``t`` itself where no dim splits. A :class:`Blocked` spec cuts
+    each block of its ``"model"`` dim and joins the pieces."""
     out = t
     for dim, axes in enumerate(spec):
         idx, count = _piece(axes, mesh)
-        if count > 1:
-            n = t.shape[dim] // count
-            out = out.narrow(dim, idx * n, n)
+        if count == 1:
+            continue
+        names = axes if isinstance(axes, tuple) else (axes,)
+        blocks = getattr(spec, "blocks", 1) if MODEL in names else 1
+        size = t.shape[dim] // blocks
+        n = size // count
+        out = torch.cat([out.narrow(dim, j * size + idx * n, n)
+                         for j in range(blocks)], dim) if blocks > 1 \
+            else out.narrow(dim, idx * n, n)
     return out if out is t else out.contiguous()
 
 

@@ -69,7 +69,10 @@ rank (:func:`spawn_ranks`, :func:`rank_main`): nccl with rank r on
 ``cuda:r`` when the machine has N cards, else gloo with every rank on
 ``cuda:0`` (ranks sharing one card: the sharded computation and its
 collectives, not less memory a rank), and gloo on the CPU with ``--device
-cpu``. The launcher prints which. ``--compare-single-device`` serves the
+cpu``. The launcher prints which. ``falcon-mamba-7b`` and ``zamba2-1.2b``
+serve on a mesh too: each rank holds its piece of every Mamba mixer's
+d_inner (or heads) and of its streaming state, and runs K6 on its own
+channels. ``--compare-single-device`` serves the
 workload again on one device and requires identical tokens. A rank that
 fails, or a run past 900 s, kills the other ranks and fails the run. ``--mesh-model`` with ``--replicas`` or ``--paged`` is refused
 (ROADMAP queue 1 item 15).

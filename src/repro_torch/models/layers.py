@@ -68,11 +68,20 @@ def rmsnorm_init(d: int, dtype, *, device, lead=()) -> dict:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
 
 
-def rmsnorm(x: Tensor, p: dict, eps: float = 1e-5) -> Tensor:
+def rmsnorm(x: Tensor, p: dict, eps: float = 1e-5, whole: int = 0
+            ) -> Tensor:
+    """RMS norm over the last dim. ``whole``: the normalised width when
+    ``x`` holds this rank's piece of it (tensor parallelism): the ranks'
+    sums of squares are summed and divided by ``whole``, and the rank reads
+    its piece of the scale. Otherwise the mean is taken here."""
     x32 = x.to(torch.float32)
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if whole and x.shape[-1] != whole:
+        var = dctx.all_sum(torch.sum(x32 * x32, dim=-1, keepdim=True)) / whole
+    else:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * p["scale"].to(torch.float32)).to(x.dtype)
+    scale = dctx.local_slice(p["scale"], x.shape[-1])
+    return (out * scale.to(torch.float32)).to(x.dtype)
 
 
 def layernorm_init(d: int, dtype, *, device, lead=()) -> dict:

@@ -11,6 +11,16 @@ reference, einsums outside any kernel as there (the reference computes them
 outside any Pallas kernel too); its projections run through the GEMM
 provider. The cache ``{"conv": (B, W-1, di), "conv_bc": (B, W-1, 2 G N),
 "ssm": (B, H, P, N) f32}`` is updated in place.
+
+Tensor parallelism on the ambient mesh (``repro_torch.dist``): a mixer's
+leaves and cache hold this rank's piece of d_inner (Mamba1) or of the heads
+(Mamba2), cut by ``dist.sharding.serving_specs`` and
+``serving_cache_specs``, as the reference's shard_map over the scan cuts
+d_inner over "model". Everything along d_inner is per channel (the conv,
+K6, the SSD of a head), so a rank runs it on its piece; the layers that
+contract d_inner (Mamba1's ``x_proj``, ``out_proj``) are row-parallel and
+Mamba2's gated norm sums its squares over the ranks. Without a mesh, or
+with the leaves whole, the single device's arithmetic runs unchanged.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dctx
 from repro_torch.kernels import selective_scan as ssk
 from repro_torch.models import layers as L
 
@@ -106,35 +117,43 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     """One Mamba1 mixer. ``cache`` = {"conv": (B, W-1, di), "ssm": (B, di,
     N)} for streaming decode, written in place. S > 1 runs K6 (prefill keeps
     h for the cache; a forward that is not a prefill keeps the cache's h, as
-    the reference's trainable branch does); S = 1 the plain f32 scan."""
+    the reference's trainable branch does); S = 1 the plain f32 scan. Under
+    tensor parallelism ``in_proj`` gives this rank's x and z pieces, di
+    local channels each, and ``x_proj`` and ``out_proj`` reduce over the
+    ranks."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     di = s_cfg.expand * d
     dt_rank = s_cfg.dt_rank or -(-d // 16)
     xz = L.dense(x, p["in_proj"])
-    xs, z = torch.split(xz, di, dim=-1)
+    di_local = xz.shape[-1] // 2
+    split = di_local != di
+    xs, z = torch.split(xz, di_local, dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xs = F.silu(xs)
-    proj = L.dense(xs, p["x_proj"])
+    proj = L.dense(xs, p["x_proj"], row_parallel=split)
     dt, bmat, cmat = torch.split(proj, [dt_rank, s_cfg.d_state,
                                         s_cfg.d_state], dim=-1)
     dt = softplus(L.dense(dt, p["dt_proj"]))
     A = -torch.exp(p["A_log"].to(torch.float32))
+    D = dctx.local_slice(p["D"], di_local)
     h0 = (cache["ssm"].to(torch.float32) if cache is not None
-          else torch.zeros((b, di, s_cfg.d_state), dtype=torch.float32,
+          else torch.zeros((b, di_local, s_cfg.d_state), dtype=torch.float32,
                            device=x.device))
     f32 = torch.float32
     if s > 1:
-        y, h = _selective_scan_fused(xs, dt, bmat, cmat, A, h0, s_cfg.chunk,
-                                     trainable=not prefill)
-        y = y.to(f32) + xs.to(f32) * p["D"].to(f32)
+        y, h = _selective_scan_fused(
+            xs, dt, bmat, cmat, A, h0, s_cfg.chunk, trainable=not prefill,
+            mesh=dctx.get_mesh() if split else None)
+        y = y.to(f32) + xs.to(f32) * D.to(f32)
         if h is None:
             h = h0
     else:
         y, h = _mamba1_scan(xs.to(f32), dt.to(f32), bmat.to(f32),
-                            cmat.to(f32), A, p["D"].to(f32), h0, s_cfg.chunk)
-    out = L.dense(y.to(x.dtype) * F.silu(z), p["out_proj"])
+                            cmat.to(f32), A, D.to(f32), h0, s_cfg.chunk)
+    out = L.dense(y.to(x.dtype) * F.silu(z), p["out_proj"],
+                  row_parallel=split)
     if cache is None:
         return out, None
     cache["conv"].copy_(new_conv)
@@ -147,12 +166,15 @@ def _selective_scan_fused(xs, dt, bmat, cmat, A, h0, chunk, *,
     """The fused scan over the whole batch. ``trainable=True`` runs the K6 +
     K9 pair (:func:`selective_scan_trainable`, exact gradients from a
     chunk-checkpointed recompute) and returns (y, None); otherwise K6 alone,
-    (y, h_final) for the streaming cache. The reference shards this call
-    over a mesh; the port runs on one card."""
-    if mesh is not None:
+    (y, h_final) for the streaming cache. ``mesh``: the mesh whose
+    ``"model"`` ranks each hold a piece of d_inner. The reference
+    shard_maps this call over it; here each rank's process runs K6 on its
+    own channels (every output channel depends on its own channel alone).
+    Training on a mesh is not ported."""
+    if mesh is not None and trainable:
         raise NotImplementedError(
-            "a sharded selective scan is not ported yet: ROADMAP queue 1 "
-            "item 15 (distribution)")
+            "the selective scan's training pair on a mesh is not ported "
+            "yet: ROADMAP queue 1 item 15d (training on a mesh)")
     ck, bd = min(chunk, 128), min(512, xs.shape[-1])
     # B and C are column slices of x_proj's output; the kernels take them
     # contiguous, as they do every operand
@@ -264,18 +286,22 @@ def mamba2_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
                  ) -> Tuple[Tensor, Optional[dict]]:
     """One Mamba2 mixer. ``cache`` = {"conv": (B, W-1, di), "conv_bc": (B,
     W-1, 2 G N), "ssm": (B, H, P, N)} for streaming decode, written in
-    place."""
+    place. Under tensor parallelism ``z_proj``, ``x_proj_in`` and ``dtp``
+    give this rank's whole heads, B and C stay whole (one group, which
+    every head reads), the gated norm's mean runs over the whole d_inner
+    and ``out_proj`` reduces over the ranks."""
     s_cfg = cfg.ssm
     b, s, d = x.shape
     di = s_cfg.expand * d
     hdim = s_cfg.head_dim
-    n_heads = di // hdim
     g, n = s_cfg.n_groups, s_cfg.d_state
     f32 = torch.float32
     z = L.dense(x, p["z_proj"])
     xin = L.dense(x, p["x_proj_in"])
     bc = L.dense(x, p["bc_proj"])
     dt = L.dense(x, p["dtp"])
+    di_local = xin.shape[-1]
+    h_local = di_local // hdim
     xs, new_conv_x = _causal_conv(xin, p["conv_x"],
                                   cache["conv"] if cache is not None else None)
     bc, new_conv_bc = _causal_conv(
@@ -283,17 +309,21 @@ def mamba2_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     xs = F.silu(xs)
     bc = F.silu(bc)
     bmat, cmat = torch.split(bc, [g * n, g * n], dim=-1)
-    dt = softplus(dt.to(f32) + p["dt_bias"].to(f32))
-    log_a = -torch.exp(p["A_log"].to(f32)) * dt                 # (B,S,H)
-    xh = xs.reshape(b, s, n_heads, hdim)                        # model dtype
+    dt = softplus(dt.to(f32)
+                  + dctx.local_slice(p["dt_bias"], h_local).to(f32))
+    log_a = (-torch.exp(dctx.local_slice(p["A_log"], h_local).to(f32))
+             * dt)                                              # (B,S,H)
+    xh = xs.reshape(b, s, h_local, hdim)                        # model dtype
     h0 = (cache["ssm"].to(f32) if cache is not None
-          else torch.zeros((b, n_heads, hdim, n), dtype=f32,
+          else torch.zeros((b, h_local, hdim, n), dtype=f32,
                            device=x.device))
     y, h = _ssd_chunked(xh, dt, log_a, bmat.reshape(b, s, g, n),
                         cmat.reshape(b, s, g, n), h0, s_cfg.chunk)
-    y = y + (xh * p["D"][None, None, :, None].to(xh.dtype)).to(y.dtype)
-    y = y.reshape(b, s, di).to(x.dtype) * F.silu(z)
-    out = L.dense(L.rmsnorm(y, p["norm"], cfg.norm_eps), p["out_proj"])
+    D = dctx.local_slice(p["D"], h_local)
+    y = y + (xh * D[None, None, :, None].to(xh.dtype)).to(y.dtype)
+    y = y.reshape(b, s, di_local).to(x.dtype) * F.silu(z)
+    out = L.dense(L.rmsnorm(y, p["norm"], cfg.norm_eps, whole=di),
+                  p["out_proj"], row_parallel=di_local != di)
     if cache is None:
         return out, None
     cache["conv"].copy_(new_conv_x)

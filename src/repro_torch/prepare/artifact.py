@@ -305,7 +305,10 @@ class PreparedModel:
         column piece of the whole y starts with the delta from the column
         before the cut: its first column is set to the weight's own (the
         int8 codes' or the float weight's), which makes it the piece's own
-        y. The carry tables are built for the local y on the card (counted
+        y; a :class:`~repro_torch.dist.sharding.Blocked` piece (Mamba1's
+        ``in_proj``, x | z) also sets the first column of each later block
+        to the piece's own delta there, Eq. 9 across the join. The carry
+        tables are built for the local y on the card (counted
         in ``built``, never in ``recomputed``); nothing is quantized or
         derived again."""
         from repro_torch.dist import sharding
@@ -318,8 +321,13 @@ class PreparedModel:
             if spec is None or not isinstance(w, torch.Tensor):
                 continue
             local = sharding.shard_leaf(y, spec, mesh)
-            if local.shape[-1] != y.shape[-1]:    # a copy: N was cut
+            n = local.shape[-1]
+            if n != y.shape[-1]:                  # a copy: N was cut
                 local[..., 0] = w[..., 0].to(local.dtype)
+                step = n // getattr(spec, "blocks", 1)
+                for j in range(step, n, step):
+                    local[..., j] = (w[..., j].to(local.dtype)
+                                     - w[..., j - 1].to(local.dtype))
             derived[path] = local
         pm = dataclasses.replace(self, params=params, derived=derived,
                                  carry={}, built={})

@@ -74,9 +74,12 @@ in the same order, and no decision here reads a clock or another value
 that differs between ranks. The int8 layers give the single device's bits;
 what a partition sums in f32 in another order (a float row-parallel
 layer, the "ffn" experts' partials) rounds differently.
-``paged=True`` with ``mesh=`` raises ``NotImplementedError``, as the
-reference's does, and so do the SSM, hybrid and encoder-decoder stacks
-(their sharded paths are ROADMAP queue 1 item 15).
+The SSM and hybrid stacks serve on a mesh too: each rank holds its piece
+of every Mamba mixer's d_inner (or heads) and of its streaming state, runs
+K6 (Mamba1 prefill) on its own channels, and takes the scatter prefill in
+the same order as every other rank. ``paged=True`` with ``mesh=`` raises
+``NotImplementedError``, as the reference's does, and so does an
+encoder-decoder stack (ROADMAP queue 1 item 15c).
 """
 from __future__ import annotations
 
@@ -225,12 +228,10 @@ class BatchServer:
                     "paged=True with mesh= is not supported yet (the page "
                     "pool is host-managed per device); use the contiguous "
                     "cache for tensor-parallel serving")
-            if (model.cfg.family in ("ssm", "hybrid")
-                    or model.cfg.encoder is not None):
+            if model.cfg.encoder is not None:
                 raise NotImplementedError(
                     f"tensor-parallel serving of the {model.cfg.family} "
-                    f"family (the sharded scan, the encoder) is ROADMAP "
-                    f"queue 1 item 15")
+                    f"family (its encoder) is ROADMAP queue 1 item 15c")
             if mesh.size(dctx.MODEL) > 1 and not mesh.connected:
                 raise ValueError(f"{mesh} is shape-only: tensor-parallel "
                                  f"serving needs a process group")
@@ -450,12 +451,14 @@ class BatchServer:
     # -- GEMM scope and run-ready params ------------------------------------
     def _new_cache(self, batch: int) -> dict:
         """A zero contiguous cache of ``batch`` rows; under a mesh this
-        rank's piece of it (``dist.sharding.cache_specs``)."""
+        rank's piece of it (``dist.sharding.serving_cache_specs``: the K/V
+        heads, the SSM states' local d_inner or heads)."""
         cache = self.model.init_cache(batch, self.max_len)
         if self.mesh is None:
             return cache
         return sharding.shard_tree(
-            cache, sharding.cache_specs(cache, self.mesh, batch=batch),
+            cache, sharding.serving_cache_specs(cache, self.mesh,
+                                                self.model.cfg, batch=batch),
             self.mesh)
 
     def _gemm_scope(self):

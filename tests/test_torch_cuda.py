@@ -30,7 +30,8 @@ trace, not a dispatch, and one cell of the router's fault matrix ends
 token-identical to its no-fault oracle on the card. The GEMM cases include
 minicpm-2b's local shapes at tensor-parallel size 2, and the
 tensor-parallel int8 layers equal the whole layer bit for bit on two
-ranks sharing the card.
+ranks sharing the card; K6 on one rank's half of d_inner equals the whole
+K6's columns bit for bit.
 """
 import numpy as np
 import pytest
@@ -1260,3 +1261,21 @@ def test_tp_layers_equal_the_whole_layer_on_two_ranks(dev):
         assert len(result) == len(shapes) * 3 * 3
         bad = {k: v for k, v in result.items() if not v["ok"]}
         assert not bad, bad
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_scan_on_a_rank_columns_equals_the_whole_scan(dev, rank):
+    """K6 on one rank's half of falcon-mamba-7b's d_inner (8192 -> 4096 at
+    tensor-parallel size 2) equals the whole K6's columns of y, h_final and
+    h_starts bit for bit: every channel's recurrence reads its own channel
+    alone (repro_torch.dist.parity.scan_columns, which needs only the
+    rank's index)."""
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import parity
+
+    mesh = dctx.Mesh((1, 2), ("data", "model"), rank=rank)
+    result = parity.scan_columns(mesh, dev, di=8192, n=16,
+                                 cases=[(1, 128), (2, 256), (1, 64)])
+    assert len(result) == 3
+    for label, rec in result.items():
+        assert rec["ok"] and rec["max_abs_err"] == 0.0, (label, rec)

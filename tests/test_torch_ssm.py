@@ -222,8 +222,9 @@ def test_mamba1_without_cache_and_not_prefill():
     _close(out, jout, 1e-4)
     _close(out2, jout, 1e-4)
     assert not one["ssm"].any() and one["conv"].any()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        S._selective_scan_fused(*[None] * 6, 8, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 15d"):
+        S._selective_scan_fused(*[None] * 6, 8, trainable=True,
+                                mesh=object())
 
 
 # --- the model -------------------------------------------------------------

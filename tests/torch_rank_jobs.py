@@ -30,6 +30,43 @@ def serve_tokens(mesh, device, *, cfg, params, prompts, max_new, server_kw,
                 recomputed=None if pm is None else pm.recomputed)
 
 
+def serve_ssm_tokens(mesh, device, *, cfg, params, prompts, max_new,
+                     server_kw, prepared=""):
+    """:func:`serve_tokens` for the SSM and hybrid stacks: the tokens, the
+    local shapes of every Mamba mixer leaf and streaming-state leaf (the
+    proof that the rank served its pieces) and, with an artifact
+    directory, its recompute report."""
+    from repro_torch import prepare
+
+    pm = prepare.load(prepared, map_location=device) if prepared else None
+    srv, done, _ = launch_serve.serve(Model(cfg, device=device), params,
+                                      prompts, max_new=max_new, mesh=mesh,
+                                      prepared=pm, **server_kw)
+    group = "layers" if cfg.family == "ssm" else "hybrid_groups"
+
+    def shapes(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in shapes(sub, f"{prefix}{key}/").items()}
+        return {prefix[:-1]: tuple(tree.shape)}
+
+    return dict(tokens={r.rid: list(r.out_tokens) for r in done},
+                shapes=shapes(srv._prepared_params[group]["ssm"]),
+                cache=shapes(srv.cache[group]),
+                recomputed=None if pm is None else pm.recomputed)
+
+
+def contiguous_in_proj(specs):
+    """A planted fault for ``parity.mixer_parity(plant=)``: Mamba1's in_proj
+    cut contiguously over its concatenated x | z width (one rank all of x)
+    instead of by each half."""
+    from repro_torch.dist.sharding import Blocked, P
+
+    if isinstance(specs, dict):
+        return {k: contiguous_in_proj(v) for k, v in specs.items()}
+    return P(*specs) if isinstance(specs, Blocked) else specs
+
+
 def die_on_rank_1(mesh, device):
     """Rank 1 raises; rank 0 waits in a collective that rank 1 never
     joins."""
