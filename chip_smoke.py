@@ -91,6 +91,20 @@ Phases, in order; any failure exits non-zero and prints no result line:
    baseline and once int8 (quantized, ffip). Launch counts are zeroed just
    before each run and read just after. Every request must complete with its
    exact budget.
+4a. The reports (phase reports): the meta-device cost model
+   (``repro_torch.launch.costs``, ``launch.dryrun``) against the card, on
+   minicpm-2b at that depth. One bucketed prefill dispatch (4 x 128) and
+   one decode step at 4 slots, FFIP float and int8, as the server runs
+   them (``dryrun.served_steps``): the launches the trace predicts must be
+   the launches counted on the card; each dispatch's CUDA-event time
+   against the trace's bound gives its roofline share, which must not pass
+   REPORT_SHARE_MAX; the bytes the params, the int8 entries and the cache
+   ask the allocator for must be the trace's (the allocator's blocks and
+   the trace's peak of live storage printed beside the card's). Then
+   ``launch.dryrun`` over minicpm-2b's four shapes on the 16x16 mesh,
+   timed. Phase dist and its sharded scan hold each rank's collectives in
+   one decode step (minicpm-2b and falcon-mamba-7b at 8 layers, float and
+   int8 FFIP) to one rank's meta trace on a shape-only mesh.
 5. Check the tokens against the plain path (torch.matmul / the plain int8
    algebra, plain attention, one prompt at a time): each served first token
    against a plain prefill of its prompt, each second token against a plain
@@ -299,43 +313,19 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# NVIDIA H100 SXM peaks (data sheet, dense) that bound each call: device
-# memory, bf16 and int8 tensor cores, and the f32 CUDA cores: 128 FMA lanes
-# per SM on 132 SMs at the 1.98 GHz boost clock. exp runs on the
-# special-function units: 16 results per SM per clock (CUDA programming
-# guide, arithmetic throughput, compute capability 9.0), at the same clock.
-HBM_BYTES_S = 3.35e12
-BOOST_CLOCK_HZ = 1.98e9
-PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12,
-              "cuda_core": 2 * 128 * 132 * BOOST_CLOCK_HZ}
-SFU_EXP_S = 16 * 132 * BOOST_CLOCK_HZ
-# FIP/FFIP's pre-add has no tensor-core mapping, and a pair costs each output
-# 2 adds and 1 multiply-add, each an instruction of its own: they are bound
-# by issue slots, not by FMA flops. A scheduler issues one warp instruction
-# a clock: 128 lanes a SM a clock, the rate of f32 adds and FMAs (same guide
-# and table). int32 adds (IADD3, ALU pipe) and multiply-adds (IMAD, FMA
-# pipe) run at 64 each, on separate pipes, and ptxas also issues adds as
-# IMAD.IADD on the FMA pipe: together they reach the issue limit, with the
-# multiply-adds alone held to 64.
-ISSUE_RATE_S = 128 * 132 * BOOST_CLOCK_HZ
-IMAD_RATE_S = 64 * 132 * BOOST_CLOCK_HZ
-
-
-def pair_counts(m: int, n: int, k: int, fold_beta: bool):
-    """(adds, multiply-adds) of an (M, K) x (K, N) FIP/FFIP product: 2 adds
-    + 1 multiply-add per pair and output, one multiply-add per pair for
-    each row's alpha and (unless folded) each column's beta."""
-    beta = 0 if fold_beta else n * k / 2
-    return m * n * k, m * n * k / 2 + m * k / 2 + beta
+# The H100's peaks and the per-kernel cost model behind every bound this
+# script prints live in the package (repro_torch.launch.costs): a kernel's
+# bound is its kernel_cost's (bytes at HBM_BYTES_S against its operations'
+# time), the same counts the meta-device reports charge.
+# pair_counts stays importable from here (tools/pair_probe.py).
+from repro_torch.launch.costs import (BOOST_CLOCK_HZ,  # noqa: E402,F401
+                                      kernel_cost, pair_counts,
+                                      pair_seconds)
 
 
 def pair_ms(adds: float, mads: float, integer: bool) -> float:
-    """Least time of the pair arithmetic: every instruction at the issue
-    limit; for int32 also the multiply-adds at the IMAD pipe's rate."""
-    t = (adds + mads) / ISSUE_RATE_S
-    if integer:
-        t = max(t, mads / IMAD_RATE_S)
-    return t * 1e3
+    """Least ms of the pair arithmetic (``costs.pair_seconds``)."""
+    return pair_seconds(adds, mads, integer) * 1e3
 
 # GEMM checks, (M, K, N): minicpm-2b's projections and tied logits at decode
 # (M 4) and prefill (M 512); falcon-mamba-7b's in_proj, x_proj (N 288, not a
@@ -813,23 +803,13 @@ def _allclose(got, want, rtol, atol) -> bool:
 
 
 def gemm_bound(name: str, m: int, k: int, n: int, dtype: str):
-    """(bound_ms, bound_by) of one GEMM call: each input read once (A, then
-    B or, for FFIP, its f32/int32 deltas y and their carry table), the
-    f32/int32 output written once; baseline at the tensor-core peak of its
-    type, FIP/FFIP in issue slots (:func:`pair_counts`, :func:`pair_ms`;
-    int8 beta folded)."""
-    elt = 2 if dtype == "bf16" else 1
-    b_bytes = k * n * elt
-    if name == "ffip_gemm_y":
-        b_bytes = k * n * 4 + k * -(-n // 32) * 4
-    nbytes = m * k * elt + b_bytes + m * n * 4
-    if name == "baseline_gemm":
-        t_ops = 2.0 * m * n * k / PEAK_OPS_S[dtype] * 1e3
-    else:
-        t_ops = pair_ms(*pair_counts(m, n, k, fold_beta=dtype == "int8"),
-                        integer=dtype == "int8")
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of one GEMM call: ``costs.kernel_cost`` (each
+    input read once: A, then B or, for FFIP, its f32/int32 deltas y and
+    their carry table; the f32/int32 output written once; baseline at the
+    tensor-core peak of its type, FIP/FFIP in issue slots; int8 beta
+    folded)."""
+    return kernel_cost(name, m=m, k=k, n=n, dtype=dtype,
+                       fold_beta=dtype == "int8").bound_ms()
 
 
 def ptxas_lines(source: str, key: str):
@@ -866,8 +846,7 @@ def check_carry(y: torch.Tensor, carry: torch.Tensor, dtype: str,
     library yardstick is torch.cumsum over the rows (the table is its every
     32nd column, shifted by one group). ``first_ms``: the memoizing first
     derivation on the host clock."""
-    from repro_torch.kernels.ffip_gemm import (GROUP, carry_table,
-                                               carry_table_plain)
+    from repro_torch.kernels.ffip_gemm import carry_table, carry_table_plain
 
     k, n = y.shape
     want, plain_ms = timed(lambda: carry_table_plain(y))
@@ -878,10 +857,8 @@ def check_carry(y: torch.Tensor, carry: torch.Tensor, dtype: str,
     call_ms = time_ms(fn, reps_for(one), warm=False)
     ms = graph_ms(fn, reps_for(one))
     lib_ms = yardstick_ms(lambda: torch.cumsum(y, 1), replay=True)
-    t_bytes = (y.numel() + carry.numel()) * 4 / HBM_BYTES_S * 1e3
-    t_ops = k * max(0, n - GROUP) / ISSUE_RATE_S * 1e3  # one add an element
-    bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                          else (t_ops, "operations"))
+    bound_ms, bound_by = kernel_cost("ffip_carry_table", k=k,
+                                     n=n).bound_ms()
     print(f"  ffip_carry_table y ({k}, {n}) {y.dtype} -> "
           f"{tuple(carry.shape)} (y {y.numel() * 4 / 2 ** 30:.3f} GiB, "
           f"table {carry.numel() * 4 / 2 ** 30:.3f} GiB) "
@@ -1096,13 +1073,9 @@ def check_flash(dev):
             call_ms = time_ms(kern, 20)
             ms = graph_ms(kern)
             lib_ms = yardstick_ms(lib, replay=True)
-            peak = PEAK_OPS_S["bf16" if dtype == torch.bfloat16
-                              else "cuda_core"]
-            t_ops = 2.0 * (d + dv) * bh * pairs / peak * 1e3
-            t_bytes = ((2 * bh * s * (d + dv) * q.element_size() + bh * s * 4)
-                       / HBM_BYTES_S * 1e3)
-            bound_ms, bound_by = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                  else (t_ops, "operations"))
+            bound_ms, bound_by = kernel_cost(
+                "flash_fwd", bh=bh, sq=s, sk=s, d=d, dv=dv, dtype=dname,
+                window=window, causal=causal).bound_ms()
             rec = dict(kernel="flash_fwd", case=label, bh=bh, s=s, d=d,
                        dv=dv, window=window, causal=causal, dtype=dname,
                        ok=ok, max_abs_err=max(o_err, lse_err), ms=ms,
@@ -1157,27 +1130,19 @@ def check_flash_refusal(dev) -> list:
 
 
 def paged_bound(q, k_pool, v_pool, page_table, lengths, q_start, window):
-    """(bound_ms, bound_by) of one K5 call on this call's data: bytes are the
-    valid K/V rows (each read once), q, o, the table and the two length
-    vectors; operations are 2 (d + dv) per kept (q, k) pair and head (the QK
-    and PV products), at the peak for the input type (bf16 tensor cores, or
-    the f32 CUDA cores)."""
+    """(bound_ms, bound_by) of one K5 call on this call's data
+    (``costs.kernel_cost``): bytes are the valid K/V rows (each read once),
+    q, o, the table and the two length vectors; operations are 2 (d + dv)
+    per kept (q, k) pair and head (the QK and PV products), at the peak for
+    the input type (bf16 tensor cores, or the f32 CUDA cores)."""
     b, h, sq, d = q.shape
     _, ps, kv, _ = k_pool.shape
-    dv = v_pool.shape[-1]
-    elt = q.element_size()
-    rows = torch.clamp(lengths.cpu(), max=page_table.shape[1] * ps)
-    q_pos = q_start.cpu()[:, None, None] + torch.arange(sq)[None, :, None]
-    k_pos = torch.arange(int(rows.max()))[None, None, :]
-    kept = (k_pos < rows[:, None, None]) & (q_pos >= k_pos)
-    if window > 0:
-        kept &= (q_pos - k_pos) < window
-    nbytes = (int(rows.sum()) * kv * (d + dv) * elt + b * h * sq * (d + dv)
-              * elt + page_table.numel() * 4 + 2 * b * 4)
-    ops = 2.0 * (d + dv) * h * int(kept.sum())
-    peak = PEAK_OPS_S["bf16" if q.dtype == torch.bfloat16 else "cuda_core"]
-    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return kernel_cost(
+        "flash_paged", b=b, h=h, sq=sq, d=d, dv=v_pool.shape[-1], kv=kv,
+        ps=ps, max_pages=page_table.shape[1],
+        dtype="bf16" if q.dtype == torch.bfloat16 else "f32", window=window,
+        causal=True, lengths=lengths.cpu().numpy(),
+        q_start=q_start.cpu().numpy()).bound_ms()
 
 
 def check_paged(dev):
@@ -1304,23 +1269,16 @@ def paged_padded(rec: dict, args, want, scale, d: int) -> dict:
 
 def conv_bound(algo: str, dtype: str, xp: torch.Tensor, stack: torch.Tensor,
                m: int, k: int, fold_beta: bool):
-    """(bound_ms, bound_by) of one K7 call: the padded input read once, the
-    weights (FFIP: their f32/int32 deltas) and the f32/int32 output once.
-    Baseline: 2 M N K operations (over all groups) at the f32 CUDA-core peak
-    (no TF32), or the int8 tensor-core peak for int8. FIP/FFIP: issue slots
-    (:func:`pair_counts` per group, :func:`pair_ms`)."""
+    """(bound_ms, bound_by) of one K7 call (``costs.kernel_cost``): the
+    padded input read once, the weights (FFIP: their f32/int32 deltas) and
+    the f32/int32 output once. Baseline: 2 M N K operations (over all
+    groups) at the f32 CUDA-core peak (no TF32), or the int8 tensor-core
+    peak for int8. FIP/FFIP: issue slots (:func:`pair_counts` per group,
+    :func:`pair_ms`)."""
     g, _, ng = stack.shape
-    w_elt = 4 if algo == "ffip" else stack.element_size()
-    nbytes = (xp.numel() * xp.element_size() + stack[:, :k].numel() * w_elt
-              + m * g * ng * 4)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    if algo == "baseline":
-        peak = PEAK_OPS_S["int8" if dtype == "int8" else "cuda_core"]
-        t_ops = 2.0 * m * g * ng * k / peak * 1e3
-    else:
-        adds, mads = pair_counts(m, ng, k + k % 2, fold_beta)
-        t_ops = pair_ms(g * adds, g * mads, integer=dtype == "int8")
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return kernel_cost("conv_gemm", algo=algo, dtype=dtype,
+                       x_numel=xp.numel(), groups=g, ng=ng, m=m, k=k,
+                       fold_beta=fold_beta).bound_ms()
 
 
 def check_convs(dev):
@@ -1419,16 +1377,14 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
 
 
 def scan_bound(bt: int, s: int, di: int, n: int, chunk: int, elt: int):
-    """(bound_ms, bound_by) of one K6 call: x, dt, B, C read once and y
-    written once in the input type; A, h0, h_final and the h_starts
-    checkpoints in f32; against the S di N exponentials at SFU_EXP_S (the
-    recurrence's other five f32 operations per state and step take a third
-    of that time at the CUDA-core peak)."""
-    nbytes = ((3 * bt * s * di + 2 * bt * s * n) * elt
-              + (di * n + 2 * bt * di * n + bt * (s // chunk) * di * n) * 4)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = bt * s * di * n / SFU_EXP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of one K6 call (``costs.kernel_cost``): x, dt,
+    B, C read once and y written once in the input type; A, h0, h_final and
+    the h_starts checkpoints in f32; against the S di N exponentials at
+    SFU_EXP_S (the recurrence's other five f32 operations per state and
+    step take a third of that time at the CUDA-core peak)."""
+    return kernel_cost("selective_scan", bt=bt, s=s, di=di, n=n,
+                       chunk=chunk, dtype={2: "bf16", 4: "f32"}[elt]
+                       ).bound_ms()
 
 
 # K6's instructions, counted from its loops (csrc/selective_scan.cu), per
@@ -1558,19 +1514,14 @@ def check_scan(dev, served_lengths):
     return records
 
 
-def flash_bwd_bound(bh: int, s: int, d: int, pairs: int, elt: int,
-                    dv: int = 0):
-    """(bound_ms, bound_by) of one K8 call: q and k (width d), v, o and do
-    (width dv) read once in their type and lse in f32; dq, dk (width d) and
-    dv written once in f32; against 6 d + 4 dv flops per kept (q, k) pair
-    (s, dk, dq at width d; dp, dv at width dv: a multiply and an add each)
-    at the bf16 tensor-core peak."""
-    dv = dv or d
-    nbytes = (bh * s * (2 * d + 3 * dv) * elt + bh * s * (2 * d + dv) * 4
-              + bh * s * 4)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = (6.0 * d + 4.0 * dv) * pairs * bh / PEAK_OPS_S["bf16"] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def flash_bwd_bound(bh: int, s: int, d: int, window: int, causal: bool,
+                    dtype: str, dv: int = 0):
+    """(bound_ms, bound_by) of one K8 call (``costs.kernel_cost``): q and k
+    (width d), v, o and do (width dv) read once in their type and lse in
+    f32; dq, dk (width d) and dv written once in f32; against 6 d + 4 dv
+    flops per kept (q, k) pair at the bf16 tensor-core peak."""
+    return kernel_cost("flash_bwd", bh=bh, sq=s, sk=s, d=d, dv=dv or d,
+                       dtype=dtype, window=window, causal=causal).bound_ms()
 
 
 def check_flash_bwd(dev):
@@ -1631,8 +1582,8 @@ def check_flash_bwd(dev):
                 bias = bias.expand(1, bh, s, s)
             lib_op, lib_ms, lib_err = sdpa_backward(
                 q, k, v, do, bias, causal and window <= 0, want[0])
-            bound_ms, bound_by = flash_bwd_bound(bh, s, d, pairs,
-                                                 q.element_size(), dv)
+            bound_ms, bound_by = flash_bwd_bound(bh, s, d, window, causal,
+                                                 dname, dv)
             rec = dict(kernel="flash_bwd", case=label, bh=bh, s=s, d=d,
                        dv=dv, window=window, causal=causal, dtype=dname,
                        ok=ok, max_abs_err=max(errs), bf16_ulps=ulps, ms=ms,
@@ -1703,17 +1654,14 @@ def sdpa_backward(q, k, v, do, bias, is_causal: bool, plain_dq):
 
 
 def scan_bwd_bound(bt: int, s: int, di: int, n: int, chunk: int):
-    """(bound_ms, bound_by) of one K9 call, all f32: x, dt, dy, B, C, A and
-    h_starts read once; dx, ddt, the summed dB, dC and dA written once;
-    against the S di N exponentials the function needs at SFU_EXP_S: one
-    exp(dt A) per (t, d, n) serves both the recomputed h_t and the adjoint's
-    dh_{t-1} (K9 itself takes each twice: its passes 1 and 2)."""
-    nbytes = 4 * (3 * bt * s * di + 2 * bt * s * n + di * n
-                  + bt * (s // chunk) * di * n
-                  + 2 * bt * s * di + 2 * bt * s * n + di * n)
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = 1.0 * bt * s * di * n / SFU_EXP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by) of one K9 call, all f32 (``costs.kernel_cost``):
+    x, dt, dy, B, C, A and h_starts read once; dx, ddt, the summed dB, dC
+    and dA written once; against the S di N exponentials the function needs
+    at SFU_EXP_S: one exp(dt A) per (t, d, n) serves both the recomputed h_t
+    and the adjoint's dh_{t-1} (K9 itself takes each twice: its passes 1
+    and 2)."""
+    return kernel_cost("selective_scan_bwd", bt=bt, s=s, di=di, n=n,
+                       chunk=chunk).bound_ms()
 
 
 # K9's instructions per (t, d, n), counted from its source loops: each
@@ -4502,6 +4450,63 @@ def recorded_serve_job(mesh, device, **kw):
     return out
 
 
+def collective_job(mesh, device, *, arch: str, layers: int, seed: int,
+                   quantized: bool):
+    """A rank's collectives in one decode step at 4 slots, as a server on
+    the mesh runs it (``dryrun.served_steps``, after a warm-up step):
+    ``(kind, bytes, group size)`` each, as ``dist.context`` issues them."""
+    from repro_torch import configs
+    from repro_torch.dist import context as dctx
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    model = Model(cfg, device=device)
+    steps, _ = dryrun.served_steps(model, model.init(seed),
+                                   quantized=quantized, mesh=mesh)
+    steps["decode"]()
+    with dctx.record_collectives() as records:
+        steps["decode"]()
+    return records
+
+
+def collective_jobs(arch: str, layers: int, seed: int) -> list:
+    return [(collective_job, dict(arch=arch, layers=layers, seed=seed,
+                                  quantized=q)) for q in (False, True)]
+
+
+def check_collectives(ranks, first: int, arch: str, layers: int, seed: int,
+                      problems):
+    """Each rank's counted collectives of :func:`collective_jobs` (from job
+    ``first`` of each rank's results) against one rank's meta-device
+    trace on a shape-only (1, DIST_TP) mesh."""
+    from repro_torch import configs
+    from repro_torch.dist import context as dctx
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+    meta = Model(cfg, device="meta")
+    mparams = meta.init(seed)
+    mesh = dctx.make_mesh((1, DIST_TP), ("data", dctx.MODEL))
+    for i, quantized in enumerate((False, True)):
+        steps, state = dryrun.served_steps(meta, mparams,
+                                           quantized=quantized, mesh=mesh)
+        want = dryrun.predict_dispatch(steps["decode"], state).collectives
+        tier = "int8-ffip" if quantized else "ffip"
+        for r, rank in enumerate(ranks):
+            got = rank[first + i]
+            same = got == want
+            print(f"  [tp{DIST_TP} {arch} {layers} layers {tier} decode "
+                  f"step] collectives predicted {len(want)} "
+                  f"({sum(b for _, b, _ in want):.0f} B), rank {r} counted "
+                  f"{len(got)} ({sum(b for _, b, _ in got):.0f} B): "
+                  f"{'equal' if same else 'DIFFER'}", flush=True)
+            if not same:
+                problems.append(f"dist {arch} {tier}: rank {r} issued "
+                                f"{got}, the trace predicts {want}")
+
+
 def _dist_line(label, recs):
     """Print a tensor-parallel run: rank 0's stats, every rank's peak
     memory and launches."""
@@ -4575,7 +4580,7 @@ def run_dist(args, prompts, artifact: str, prepared_tokens,
             kw, quantized=True, moe_partition="expert"))),
         (recorded_serve_job, dict(ds, server_kw=dict(
             kw, quantized=True, moe_partition="ffn"))),
-    ]
+    ] + collective_jobs("minicpm-2b", DIST_LAYERS, args.seed)
     totals = {name: 0 for name in compat.launch_counts()}
     try:
         ranks = spawn_ranks(DIST_TP, jobs, device="cuda", timeout_s=600)
@@ -4584,6 +4589,8 @@ def run_dist(args, prompts, artifact: str, prepared_tokens,
         return totals
     ranks_s = time.perf_counter() - t0
     print(f"  ranks: {ranks_s:.1f} s (start, weights, serving)", flush=True)
+    check_collectives(ranks, 1 + len(labels), "minicpm-2b", DIST_LAYERS,
+                      args.seed, problems)
 
     worst = {}
     for r, rank in enumerate(ranks):
@@ -4745,7 +4752,7 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
                          plant=plant_in_proj_contiguous)),
         (serve_job, dict(zc, server_kw=dict(kw, quantized=False))),
         (serve_job, dict(zc, server_kw=dict(kw, quantized=True))),
-    ]
+    ] + collective_jobs("falcon-mamba-7b", DIST_SSM_LAYERS, args.seed)
     totals = {name: 0 for name in compat.launch_counts()}
     try:
         ranks = spawn_ranks(DIST_TP, jobs, device="cuda", timeout_s=600)
@@ -4754,6 +4761,8 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
         return totals
     print(f"  ranks: {time.perf_counter() - t0:.1f} s (start, weights, "
           f"checks, serving)", flush=True)
+    check_collectives(ranks, len(checks) + len(labels), "falcon-mamba-7b",
+                      DIST_SSM_LAYERS, args.seed, problems)
 
     for r, rank in enumerate(ranks):
         for i, res in enumerate(rank[:len(checks)]):
@@ -4843,6 +4852,149 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
     print(f"phase dist, the sharded scan: {time.perf_counter() - t0:.1f} s",
           flush=True)
     return totals
+
+
+# phase reports: the prompt length of its bucketed prefill dispatch (4
+# slots), the runs each dispatch is timed over, and the largest roofline
+# share a dispatch may read (above it the cost model overcounts)
+REPORT_PROMPT = 128
+REPORT_REPS = 3
+REPORT_SHARE_MAX = 1.05
+
+
+def _launched(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def run_reports(args, model, params, problems):
+    """Phase reports: the meta-device cost model (``launch.costs``,
+    ``launch.dryrun``) held against the card. For one bucketed prefill
+    dispatch (4 x REPORT_PROMPT) and one decode step at 4 slots, FFIP float
+    and int8, as ``BatchServer`` runs them (``dryrun.served_steps``): the
+    kernels the trace predicts must be the kernels the card launches, each
+    as often; each dispatch's time by CUDA events against the trace's
+    bound, a roofline share above REPORT_SHARE_MAX failing the phase; the
+    bytes the trace predicts for the params, the int8 entries and the
+    cache must be what the allocator holds for them, and the trace's peak
+    of live storage is printed beside the card's. Then ``dryrun`` over
+    minicpm-2b's four shapes on the 16x16 mesh, timed."""
+    from repro_torch.core.quant import attach_quantized_weights
+    from repro_torch.kernels import compat
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    print(f"phase reports: {cfg.name} at {cfg.n_layers} layers, meta-device "
+          f"traces against the card", flush=True)
+    meta = Model(cfg, device="meta")
+    mparams = meta.init(args.seed)
+
+    def allocated(make):
+        """(result, bytes its tensors asked the allocator for, bytes the
+        allocator's blocks hold for them): deltas of
+        ``memory_stats()["requested_bytes.all.current"]`` and of
+        ``memory_allocated()``."""
+        torch.cuda.synchronize()
+        req0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        held0 = torch.cuda.memory_allocated()
+        out = make()
+        torch.cuda.synchronize()
+        return (out, torch.cuda.memory_stats()[
+            "requested_bytes.all.current"] - req0,
+            torch.cuda.memory_allocated() - held0)
+
+    def check_bytes(label, make, mtree):
+        # the requested bytes must be the trace's to the byte; the blocks
+        # held are rounded to 512 B, and a large block whose remainder is
+        # at most 1 MiB is not split: that slack is printed, not predicted
+        made, req, held = allocated(make)
+        want = dryrun.storage_bytes(mtree)
+        print(f"  {label}: predicted {want} B, requested {req} B: "
+              f"{'equal' if want == req else 'DIFFER'}; allocator blocks "
+              f"{held} B (predicted in 512-B granules "
+              f"{dryrun.storage_bytes(mtree, 512)} B)", flush=True)
+        if want != req:
+            problems.append(f"reports: {label} predicted {want} B, "
+                            f"requested {req} B")
+        del made
+
+    check_bytes("params", lambda: model.init(args.seed), mparams)
+    for quantized in (False, True):
+        tier = "int8-ffip" if quantized else "ffip"
+        steps, state = dryrun.served_steps(model, params,
+                                           quantized=quantized)
+        msteps, mstate = dryrun.served_steps(meta, mparams,
+                                             quantized=quantized)
+        check_bytes(f"[{tier}] cache", lambda: model.init_cache(4, 256),
+                    mstate[1])
+        if quantized:
+            check_bytes(f"[{tier}] int8 entries", lambda: q_entries(
+                attach_quantized_weights(params), "q"),
+                q_entries(mstate[0], "q"))
+        for name in ("prefill", "decode"):
+            mode = dryrun.predict_dispatch(msteps[name], mstate)
+            steps[name]()                        # warm: y, carry tables
+            torch.cuda.synchronize()
+            compat.reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            steps[name]()
+            torch.cuda.synchronize()
+            counted = _launched(compat.launch_counts())
+            peak = torch.cuda.max_memory_allocated()
+            predicted = _launched(mode.launches)
+            ms = time_ms(steps[name], REPORT_REPS)
+            bound_ms, bound_by = mode.total.bound_ms()
+            share = bound_ms / ms
+            same = predicted == counted
+            print(f"  [{tier} {name}] launches predicted {predicted}, "
+                  f"counted {counted}: {'equal' if same else 'DIFFER'}; "
+                  f"{ms:.3f} ms (CUDA events, mean of {REPORT_REPS}) "
+                  f"against the trace's bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {mode.total.bytes:.4g} B, "
+                  f"{mode.total.flops:.4g} FLOPs): roofline share "
+                  f"{share:.4f}; peak live storage predicted "
+                  f"{mode.peak_live_bytes / 2 ** 30:.3f} GiB, card "
+                  f"max_memory_allocated {peak / 2 ** 30:.3f} GiB (all "
+                  f"the card holds; a split-K workspace is bounded by "
+                  f"compat.WORKSPACE_BYTES = "
+                  f"{compat.WORKSPACE_BYTES / 2 ** 20:.0f} MiB)", flush=True)
+            if not same:
+                problems.append(f"reports {tier} {name}: launches predicted "
+                                f"{predicted}, counted {counted}")
+            if share > REPORT_SHARE_MAX:
+                problems.append(f"reports {tier} {name}: roofline share "
+                                f"{share:.4f} above {REPORT_SHARE_MAX}: the "
+                                f"cost model overcounts")
+        del steps, state
+        free_device()
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    try:
+        t1 = time.perf_counter()
+        rc = dryrun.main(["--arch", cfg.name, "--out", out])
+        sweep_s = time.perf_counter() - t1
+        rows = [json.loads(f.read_text())
+                for f in sorted(pathlib.Path(out).glob("*.json"))]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    status = [r["status"] for r in rows]
+    print(f"  dryrun --arch {cfg.name} (16x16, full depth, meta): "
+          f"{status.count('ok')} ok, {status.count('skipped')} skipped, "
+          f"{status.count('failed')} failed in {sweep_s:.1f} s", flush=True)
+    if rc or status.count("ok") != 3:
+        problems.append(f"reports: dryrun over {cfg.name}'s shapes gave "
+                        f"{status}")
+    print(f"phase reports: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def q_entries(tree, key: str) -> list:
+    """Every subtree under ``key`` (the int8 ``q`` entries) of a params
+    tree."""
+    if not isinstance(tree, dict):
+        return []
+    return [v for k, v in tree.items() if k == key] + [
+        x for k, v in tree.items() if k != key
+        for x in q_entries(v, key)]
 
 
 def free_device():
@@ -4950,6 +5102,10 @@ def main(argv=None) -> int:
                  for r in runs if not r["budget_ok"]]
     problems += fault_problems
     print(f"phase serve: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 3b. the reports: meta-device traces against the card's launches,
+    # times and bytes
+    run_reports(args, model, params, problems)
 
     # 4. first and second tokens against the plain path, and the bars'
     # witnesses: an int8 run without the flash kernel (held to

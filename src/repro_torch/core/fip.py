@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 Tensor = torch.Tensor
 
@@ -233,3 +234,41 @@ def fip_matmul_trainable(a: Tensor, b: Tensor, k_chunk: int = 0) -> Tensor:
 
 def ffip_matmul_trainable(a: Tensor, b: Tensor, k_chunk: int = 0) -> Tensor:
     return _TrainableMatmul.apply(a, b, k_chunk, ffip_matmul)
+
+
+# ---------------------------------------------------------------------------
+# Arithmetic-complexity counter (Eqs. 5/6 live in core.analytical; this is
+# the instrumented *measured* count the tests hold to them)
+# ---------------------------------------------------------------------------
+
+class _MultiplyCounter(TorchDispatchMode):
+    """Counts scalar multiplies of the aten ops it sees: ``mul`` by output
+    elements, ``mm`` / ``bmm`` by (batch x) M N K."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name == "mul":
+            # skip integer index arithmetic (iota * stride from slicing)
+            if not (out.dim() < 2 and not out.is_floating_point()):
+                self.total += out.numel()
+        elif name == "mm":
+            (m, k), n = args[0].shape, args[1].shape[1]
+            self.total += m * n * k
+        elif name == "bmm":
+            bt, m, k = args[0].shape
+            self.total += bt * m * args[1].shape[2] * k
+        return out
+
+
+def count_multiplies(fn, *args) -> int:
+    """Scalar multiplies in ``fn(*args)`` (a matmul counts M N K), counted
+    op by op as it runs: the counterpart of the reference's
+    ``count_multiplies_in_jaxpr``. Meta arguments cost nothing to run."""
+    with _MultiplyCounter() as counter:
+        fn(*args)
+    return counter.total

@@ -22,6 +22,12 @@ are reduced in f32 (a sum of bf16 partials rounded once, as a single
 device rounds its f32 accumulator once).
 
 Nesting is supported (a stack): the innermost context wins.
+
+:func:`record_collectives` records each collective a rank issues (kind,
+bytes, group size). In a costing trace (``repro_torch.launch.costs``) a
+shape-only mesh reduces meta tensors without a process group: the result
+has the right shape and the record is one rank's prediction. Outside a
+trace a shape-only mesh raises, as it always did.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ from typing import Dict, Iterator, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import compat
 
 Tensor = torch.Tensor
 
@@ -149,23 +157,45 @@ def local_slice(t: Tensor, n_local: int, dim: int = -1) -> Tensor:
     return t.narrow(dim, tp_rank() * n_local, n_local)
 
 
-def _reducing_mesh():
+_recorders: list = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[list]:
+    """Record every collective issued in the block as ``(kind, bytes,
+    group size)`` in the list it yields: what a connected rank sends, or,
+    in a costing trace on a shape-only mesh, what one rank would send
+    (``repro_torch.launch.roofline.collective_stats`` reads them)."""
+    records: list = []
+    _recorders.append(records)
+    try:
+        yield records
+    finally:
+        _recorders.remove(records)
+
+
+def _reducing_mesh(t: Tensor):
     mesh = get_mesh()
     if mesh is None or mesh.size(MODEL) == 1:
         return None
-    if not mesh.connected:
+    if not mesh.connected and not (t.device.type == "meta"
+                                   and compat.in_trace()):
         raise RuntimeError(f"{mesh} is shape-only: no process group to "
                            f"reduce over")
     return mesh
 
 
 def _all_reduce(t: Tensor, op) -> Tensor:
-    mesh = _reducing_mesh()
+    mesh = _reducing_mesh(t)
     if mesh is None:
         return t
     wide = t.dtype in (torch.bfloat16, torch.float16)
     buf = t.to(torch.float32) if wide else t.contiguous()
-    dist.all_reduce(buf, op=op, group=mesh.group)
+    for records in _recorders:
+        records.append(("all-reduce", float(buf.numel() * buf.element_size()),
+                        mesh.size(MODEL)))
+    if mesh.connected:
+        dist.all_reduce(buf, op=op, group=mesh.group)
     return buf.to(t.dtype) if wide else buf
 
 
@@ -183,7 +213,7 @@ def all_max(t: Tensor) -> Tensor:
 def all_gather(t: Tensor, dim: int) -> Tensor:
     """The ranks' pieces of ``t`` concatenated along ``dim`` in rank order:
     a zero-filled buffer holding this rank's piece, summed."""
-    mesh = _reducing_mesh()
+    mesh = _reducing_mesh(t)
     if mesh is None:
         return t
     dim = dim % t.dim()

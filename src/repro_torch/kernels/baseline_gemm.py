@@ -136,7 +136,7 @@ def baseline_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
     int32. The blocks name the compiled geometry: f32 :func:`kernel_tm`'s,
     bf16 and int8 :func:`tc_blocks`'. CPU tensors take
     :func:`baseline_gemm_plain`; CUDA tensors launch the kernel (or
-    raise)."""
+    raise); meta tensors charge a costing trace (``compat.on_meta``)."""
     if a.device.type == "cpu":
         return baseline_gemm_plain(a, b, bm=bm, bn=bn, bk=bk)
     m, k = a.shape
@@ -149,6 +149,10 @@ def baseline_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
             else tc_geom(bm, bn, bk, a.dtype))
     acc = acc_dtype_of(a.dtype)
     out = torch.empty((m, n), dtype=acc, device=a.device)
+    if a.device.type == "meta":
+        compat.on_meta(counter, m=m, k=k, n=n,
+                       dtype=compat.DTYPE_NAMES[a.dtype])
+        return out
     lib = compat.load("baseline_gemm", {"baseline_gemm_launch": _SIG})
     err = lib.baseline_gemm_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,

@@ -42,7 +42,9 @@ WORKSPACE_BYTES = 512 * 1024 * 1024
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card (``cuda:0``); with no card that raises rather
-    than quietly running on the CPU. Tests pass ``"cpu"`` explicitly."""
+    than quietly running on the CPU. Tests pass ``"cpu"`` explicitly, and
+    the reports ``"meta"`` (shapes only: ``repro_torch.launch.costs``);
+    neither is ever chosen for the caller."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -192,6 +194,10 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.int8: "int8",
+               torch.float32: "f32"}
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """A kernel takes contiguous tensors on one CUDA device."""
     dev = tensors[0].device
@@ -201,6 +207,40 @@ def require_cuda(*tensors: torch.Tensor) -> None:
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# Costing traces (repro_torch.launch.costs.CostMode): a kernel wrapper that
+# meets meta tensors charges the innermost one instead of launching
+# ---------------------------------------------------------------------------
+
+_traces: list = []
+
+
+def push_trace(trace) -> None:
+    _traces.append(trace)
+
+
+def pop_trace(trace) -> None:
+    _traces.remove(trace)
+
+
+def in_trace() -> bool:
+    """Whether a costing trace is active."""
+    return bool(_traces)
+
+
+def on_meta(counter: LaunchCounter, **shape) -> None:
+    """A kernel wrapper's meta path, taken after the operand checks it runs
+    for CUDA tensors: inside a costing trace, charge the kernel's cost at
+    ``shape`` and count one predicted launch under ``counter``'s name; a
+    meta tensor outside a trace raises (there is nothing to launch and no
+    plain version to run)."""
+    if not _traces:
+        raise RuntimeError(
+            f"{counter.name}: meta tensors outside a costing trace "
+            f"(repro_torch.launch.costs.CostMode): no kernel to launch")
+    _traces[-1].kernel(counter.name, **shape)
 
 
 def refuse_grad(what: str, *tensors: torch.Tensor, hint: str = "") -> None:
@@ -249,8 +289,12 @@ class DerivedCache:
 
     @staticmethod
     def _key(tag: str, t: torch.Tensor):
-        return (tag, t.data_ptr(), tuple(t.shape), tuple(t.stride()),
-                t.dtype, str(t.device))
+        # a meta tensor has no address (every base reads 0): its base's
+        # identity and its offset stand in for one
+        ptr = ((id(t._base if t._base is not None else t), t.storage_offset())
+               if t.device.type == "meta" else t.data_ptr())
+        return (tag, ptr, tuple(t.shape), tuple(t.stride()), t.dtype,
+                str(t.device))
 
     def get(self, tag: str, t: torch.Tensor, fn: Callable):
         key = self._key(tag, t)

@@ -235,6 +235,11 @@ def _fused_cuda(x: Tensor, bg: Tensor, carry, geom: ConvGeom, *,
                       device=x.device)
     ws = (torch.empty((splits, m, ldo), dtype=acc, device=x.device)
           if split_cta else out)
+    if x.device.type == "meta":
+        compat.on_meta(counter, algo=algo, dtype=compat.DTYPE_NAMES[x.dtype],
+                       x_numel=x.numel(), groups=geom.groups, ng=ng, m=m,
+                       k=geom.k, fold_beta=bool(fold_beta))
+        return out
     lib = compat.load("conv_gemm", {"conv_gemm_launch": _SIG})
     err = lib.conv_gemm_launch(
         x.data_ptr(), bg.data_ptr(),
@@ -258,7 +263,8 @@ def fused_conv_raw(x: Tensor, bg: Tensor, *, kh: int, kw: int,
     bg: (G, Ks, Ng) per-group weight stack on the flattened (kh, kw, cin_g)
     axis (Ks may be the evenized K). Returns (B, OH, OW, Cout) in the
     accumulation dtype (int32 for ints, float32 for floats). CPU tensors
-    take :func:`fused_conv_plain`; CUDA tensors launch K7 (or raise)."""
+    take :func:`fused_conv_plain`; CUDA tensors launch K7 (or raise); meta
+    tensors charge a costing trace."""
     compat.refuse_grad("conv_gemm", x, bg)
     if algo not in _ALGO_CODES:
         raise ValueError(algo)

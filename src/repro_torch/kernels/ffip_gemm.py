@@ -26,7 +26,7 @@ from repro_torch.core import fip
 from repro_torch.kernels import compat
 from repro_torch.kernels.baseline_gemm import (_DTYPE_CODES, acc_dtype_of,
                                                pad_to_blocks)
-from repro_torch.kernels.fip_gemm import fip_tile, launch_pair
+from repro_torch.kernels.fip_gemm import fip_tile, launch_pair, meta_pair
 
 Tensor = torch.Tensor
 
@@ -78,7 +78,8 @@ def carry_table(y: Tensor) -> Tensor:
     (a sequential f32 / int32 accumulation). int32 tables are exact:
     ``C[k, t] == cumsum(y)[k, 32 t - 1]``. CPU tensors take
     :func:`carry_table_plain`; CUDA tensors launch ``carry_table_launch``
-    (``csrc/ffip_gemm.cu``: the same adds in the same order) or raise."""
+    (``csrc/ffip_gemm.cu``: the same adds in the same order) or raise;
+    meta tensors charge a costing trace."""
     if y.device.type == "cpu":
         return carry_table_plain(y)
     if y.dim() != 2 or y.dtype not in (torch.float32, torch.int32):
@@ -87,6 +88,9 @@ def carry_table(y: Tensor) -> Tensor:
     compat.require_cuda(y)
     k, n = y.shape
     out = torch.empty((k, -(-n // GROUP)), dtype=y.dtype, device=y.device)
+    if y.device.type == "meta":
+        compat.on_meta(carry_counter, k=k, n=n)
+        return out
     lib = compat.load("ffip_gemm", _SIGS)
     compat.check(lib.carry_table_launch(
         y.data_ptr(), out.data_ptr(), k, n, int(y.dtype == torch.int32),
@@ -148,7 +152,8 @@ def ffip_gemm_y(a: Tensor, y: Tensor, *, bm: int = 64, bn: int = 64,
     """FFIP GEMM from precomputed deltas. a: (M, K) f32/bf16 with y (K, N)
     f32, or int8 a with int32 y -> (M, N) f32 or int32. CPU tensors take
     :func:`ffip_gemm_y_plain`; CUDA tensors launch the kernel (or raise),
-    with y's memoized carry table (:func:`carry_for`)."""
+    with y's memoized carry table (:func:`carry_for`); meta tensors charge
+    a costing trace."""
     if a.device.type == "cpu":
         return ffip_gemm_y_plain(a, y, bm=bm, bn=bn, bk=bk,
                                  fold_beta=fold_beta)
@@ -159,6 +164,9 @@ def ffip_gemm_y(a: Tensor, y: Tensor, *, bm: int = 64, bn: int = 64,
                          f"{y.shape} {y.dtype}")
     compat.require_cuda(a, y)
     carry = carry_for(y)
+    if a.device.type == "meta":
+        return meta_pair(counter, a, y.shape[1], bm=bm, bn=bn, bk=bk,
+                         fold_beta=fold_beta)
     lib = compat.load("ffip_gemm", _SIGS)
     out = launch_pair(lib.ffip_gemm_launch, a, y, (carry,), bm=bm, bn=bn,
                       bk=bk, fold_beta=fold_beta, what="ffip_gemm_y")

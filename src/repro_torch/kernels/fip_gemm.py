@@ -113,6 +113,18 @@ def launch_pair(lib_fn, a: Tensor, b: Tensor, extra, *, bm: int, bn: int,
     return out
 
 
+def meta_pair(counter, a: Tensor, n: int, *, bm: int, bn: int, bk: int,
+              fold_beta: bool) -> Tensor:
+    """K2's or K3's meta path: the launch's geometry checked as
+    :func:`launch_pair` checks it, the call charged to the costing trace
+    (``compat.on_meta``), an empty (M, N) accumulator returned."""
+    pair_geom(bm, bn, bk)
+    m, k = a.shape
+    compat.on_meta(counter, m=m, k=k, n=n,
+                   dtype=compat.DTYPE_NAMES[a.dtype], fold_beta=fold_beta)
+    return torch.empty((m, n), dtype=acc_dtype_of(a.dtype), device=a.device)
+
+
 def fip_tile(a: Tensor, b: Tensor, *, fold_beta: bool,
              k_chunk: int = 0) -> Tensor:
     """Eq. (2) on one (bm, bk) x (bk, bn) tile in the accumulation dtype:
@@ -159,7 +171,8 @@ def fip_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
     """a: (M, K), b: (K, N) -> (M, N) via Eq. (2), f32 or int32. With
     ``fold_beta=True`` the caller adds ``fold_beta_into_bias(b)`` (Eq. 15)
     afterwards. CPU tensors take :func:`fip_gemm_plain`; CUDA tensors launch
-    the kernel (or raise)."""
+    the kernel (or raise); meta tensors charge a costing trace
+    (:func:`meta_pair`)."""
     if a.device.type == "cpu":
         return fip_gemm_plain(a, b, bm=bm, bn=bn, bk=bk, fold_beta=fold_beta)
     k, k2 = a.shape[1], b.shape[0]
@@ -167,6 +180,9 @@ def fip_gemm(a: Tensor, b: Tensor, *, bm: int = 64, bn: int = 64,
         raise ValueError(f"fip_gemm: bad operands {a.shape} {a.dtype} x "
                          f"{b.shape} {b.dtype}")
     compat.require_cuda(a, b)
+    if a.device.type == "meta":
+        return meta_pair(counter, a, b.shape[1], bm=bm, bn=bn, bk=bk,
+                         fold_beta=fold_beta)
     lib = compat.load("fip_gemm", {"fip_gemm_launch": _SIG})
     out = launch_pair(lib.fip_gemm_launch, a, b, (), bm=bm, bn=bn, bk=bk,
                       fold_beta=fold_beta, what="fip_gemm")

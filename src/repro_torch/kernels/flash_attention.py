@@ -141,7 +141,8 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
                causal: bool = True) -> Tuple[Tensor, Tensor]:
     """q: (BH, Sq, d), k: (BH, Sk, d), v: (BH, Sk, dv) -> (o (BH, Sq, dv)
     in q's dtype, lse (BH, Sq) f32). CPU tensors take
-    :func:`_flash_fwd_plain`; CUDA tensors launch the kernel (or raise)."""
+    :func:`_flash_fwd_plain`; CUDA tensors launch the kernel (or raise);
+    meta tensors charge a costing trace (``compat.on_meta``)."""
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, window, causal=causal)
     _check_widths("flash_fwd", q, k, v)
@@ -150,6 +151,11 @@ def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, window: int = 0, *,
     compat.require_cuda(q, k, v)
     o = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        compat.on_meta(counter, bh=bh, sq=sq, sk=sk, d=d, dv=dv,
+                       dtype=compat.DTYPE_NAMES[q.dtype], window=int(window),
+                       causal=bool(causal))
+        return o, lse
     lib = compat.load("flash_fwd", {"flash_fwd_launch": _SIG})
     err = lib.flash_fwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -200,7 +206,8 @@ def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """q: (BH, Sq, d); k: (BH, Sk, d); v: (BH, Sk, dv); o, do: (BH, Sq,
     dv); lse: (BH, Sq) f32 from the forward -> f32 (dq, dk, dv). CPU tensors
-    take :func:`_flash_bwd_plain`; CUDA tensors launch K8 (or raise)."""
+    take :func:`_flash_bwd_plain`; CUDA tensors launch K8 (or raise); meta
+    tensors charge a costing trace."""
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, o, lse, do, window, causal=causal)
     _check_widths("flash_bwd", q, k, v)
@@ -219,6 +226,11 @@ def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     dk = torch.empty((bh, sk, d), dtype=f32, device=q.device)
     dv = torch.empty((bh, sk, dv_w), dtype=f32, device=q.device)
     delta = torch.empty((bh, sq), dtype=f32, device=q.device)
+    if q.device.type == "meta":
+        compat.on_meta(bwd_counter, bh=bh, sq=sq, sk=sk, d=d, dv=dv_w,
+                       dtype=compat.DTYPE_NAMES[q.dtype], window=int(window),
+                       causal=bool(causal))
+        return dq, dk, dv
     lib = compat.load("flash_bwd", {"flash_bwd_launch": _BWD_SIG})
     err = lib.flash_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -136,7 +136,7 @@ def flash_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     -> (B, H, Sq, dv) in q's dtype; rows with no valid key are exactly 0.
 
     CPU tensors take :func:`flash_attention_paged_plain`; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel (or raise); meta tensors charge a costing trace."""
     compat.refuse_grad("flash_attention_paged", q, k_pool, v_pool)
     if q.device.type == "cpu":
         return flash_attention_paged_plain(q, k_pool, v_pool, page_table,
@@ -160,6 +160,12 @@ def flash_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     qs = _vec(q_start, b, q.device).to(torch.int64).contiguous()
     compat.require_cuda(q, k_pool, v_pool, pt, ln, qs)
     o = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        # a meta trace has no lengths: every sequence fills its table
+        compat.on_meta(counter, b=b, h=h, sq=sq, d=d, dv=dv, kv=kv, ps=ps,
+                       max_pages=max_pages, dtype=compat.DTYPE_NAMES[q.dtype],
+                       window=int(window), causal=bool(causal))
+        return o
     kps, n_splits = split_plan(max_pages * ps)
     lib = compat.load("flash_paged", {"flash_paged_launch": _SIG})
     err = lib.flash_paged_launch(

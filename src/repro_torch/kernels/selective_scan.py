@@ -166,7 +166,8 @@ def selective_scan(x: Tensor, dt: Tensor, b: Tensor, c: Tensor, a: Tensor,
     h_starts (B, S / chunk, di, N) f32: the chunk-start states K9 will
     consumes). ``chunk = min(chunk, S)`` and ``bd = min(bd, di)`` must divide
     S and di. CPU tensors take :func:`selective_scan_plain`; CUDA tensors
-    launch the kernel (or raise). Forward-only, as the reference's:
+    launch the kernel (or raise); meta tensors charge a costing trace
+    (``compat.on_meta``). Forward-only, as the reference's:
     gradients go through :func:`selective_scan_trainable`."""
     compat.refuse_grad("selective_scan", x, dt, b, c, a, h0,
                        hint=" or differentiate selective_scan_trainable "
@@ -192,6 +193,10 @@ def selective_scan(x: Tensor, dt: Tensor, b: Tensor, c: Tensor, a: Tensor,
     h_fin = torch.empty_like(h32)
     starts = torch.empty((bt, s // chunk, di, n), dtype=torch.float32,
                          device=x.device)
+    if x.device.type == "meta":
+        compat.on_meta(counter, bt=bt, s=s, di=di, n=n, chunk=chunk,
+                       dtype=compat.DTYPE_NAMES[x.dtype])
+        return y, h_fin.to(h0.dtype), starts
     lib = compat.load("selective_scan", _SIGS)
     err = lib.selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
@@ -298,7 +303,7 @@ def selective_scan_bwd(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
     S / chunk, di, N) from the forward; all f32 -> f32 (dx, ddt, dB, dC,
     dA), exact adjoints (the gradient into h0 is zero: training starts from
     h0 = 0). CPU tensors take :func:`selective_scan_bwd_plain`; CUDA tensors
-    launch K9 (or raise)."""
+    launch K9 (or raise); meta tensors charge a costing trace."""
     if x.device.type == "cpu":
         return selective_scan_bwd_plain(x, dt, b, c, a, h_starts, dy,
                                         chunk=chunk, bd=bd)
@@ -326,6 +331,10 @@ def selective_scan_bwd(x: Tensor, dt: Tensor, b: Tensor, c: Tensor,
     da_part = torch.empty((bt, di, n), dtype=f32, device=x.device)
     starts = torch.empty(bwd_scratch_floats(bt, di, n, chunk), dtype=f32,
                          device=x.device)
+    if x.device.type == "meta":
+        compat.on_meta(bwd_counter, bt=bt, s=s, di=di, n=n, chunk=chunk)
+        return (dx, ddt, db_part.sum(dim=2), dc_part.sum(dim=2),
+                da_part.sum(dim=0))
     lib = compat.load("selective_scan_bwd",
                       {"selective_scan_bwd_launch": _BWD_SIG})
     err = lib.selective_scan_bwd_launch(

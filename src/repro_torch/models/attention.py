@@ -65,7 +65,10 @@ def _cache_write(buf: Tensor, new: Tensor, cache_pos,
     s_max = buf.shape[1]
     pos = torch.as_tensor(cache_pos, dtype=torch.long, device=buf.device)
     if pos.dim() == 0:
-        start = min(max(int(pos), 0), s_max - s)
+        # a Python int is read as it is (a prefill's offset 0): no host read
+        # of a device scalar, and none of a meta one, which has no value
+        at = cache_pos if isinstance(cache_pos, int) else int(pos)
+        start = min(max(at, 0), s_max - s)
         if write_mask is not None:
             keep = write_mask.reshape((-1,) + (1,) * (new.dim() - 1))
             new = torch.where(keep, new, buf[:, start:start + s])

@@ -48,7 +48,11 @@ class Model:
 
     # -- init ------------------------------------------------------------
     def init(self, seed: int = 0) -> dict:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the meta device has no generator of its own (it is no
+        # accelerator); its draws are shapes only, so a CPU one serves
+        gen = torch.Generator(
+            device="cpu" if self.device.type == "meta" else self.device
+        ).manual_seed(seed)
         return T.init_params(gen, self.cfg, device=self.device)
 
     def init_cache(self, batch: int, max_len: int) -> dict:

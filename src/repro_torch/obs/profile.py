@@ -29,9 +29,9 @@ multiplier. This module gives every kernel call site one place to record:
 * **compile events** — :func:`compile_snapshot` gathers the weight-transform
   memo's counters (``kernels/compat.DerivedCache.stats``), the schedule
   cache's lookups (``repro_torch.tune.stats``) and the timing harness's
-  candidates (``tune/measure.counters``), as the reference does. The
-  reference's ``dispatch_cost`` (a jaxpr cost model) waits for the
-  profiler-based cost report of ROADMAP item 15.
+  candidates (``tune/measure.counters``), as the reference does.
+  :func:`dispatch_cost` gives a dispatch's (flops, bytes) from the cost
+  model of ``launch/costs.py``, traced on meta copies of its arguments.
 
 These hooks count dispatches at the provider, on either device;
 ``kernels/compat.LaunchCounter`` counts CUDA launches only. They measure
@@ -256,7 +256,20 @@ def on_flash(q, k, *, causal: bool) -> None:
         pass
 
 
-# -- compile-event unification ----------------------------------------------
+# -- cost derivation / compile-event unification -----------------------------
+
+def dispatch_cost(fn, *args) -> Optional[Tuple[float, float]]:
+    """(flops, bytes) of one dispatch of ``fn(*args)`` from the cost model
+    in ``launch/costs.py``, run on meta copies of the arguments (nothing is
+    computed, no device is touched). Returns None when tracing fails: cost
+    accounting must never break serving."""
+    try:
+        from repro_torch.launch import costs
+        c = costs.fn_cost(fn, *costs.to_meta(args))
+        return float(c.flops), float(c.bytes)
+    except Exception:
+        return None
+
 
 def compile_snapshot() -> Dict[str, Dict[str, int]]:
     """One dict of the compile-side counters: ``derived_cache``

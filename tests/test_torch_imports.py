@@ -43,7 +43,9 @@ for name in ("repro_torch.optim.adamw", "repro_torch.data.pipeline",
              "repro_torch.prepare.artifact", "repro_torch.launch.prepare",
              "repro_torch.dist", "repro_torch.dist.context",
              "repro_torch.dist.sharding", "repro_torch.dist.parity",
-             "repro_torch.launch.mesh"):
+             "repro_torch.launch.mesh", "repro_torch.launch.costs",
+             "repro_torch.launch.roofline", "repro_torch.launch.inputs",
+             "repro_torch.launch.dryrun", "repro_torch.launch.report"):
     assert name in names, name
 
 import torch

@@ -74,3 +74,18 @@ def die_on_rank_1(mesh, device):
         raise RuntimeError("planted rank failure")
     with dctx.mesh_context(mesh):
         dctx.all_sum(torch.ones(1, device=device))
+
+
+def decode_collectives(mesh, device, *, cfg, quantized):
+    """A rank's collectives in one decode step at 4 slots as a server on
+    the mesh runs it (``launch.dryrun.served_steps``, after a warm-up
+    step), in ``dist.context.record_collectives``' counting mode."""
+    from repro_torch.launch import dryrun
+
+    model = Model(cfg, device=device)
+    steps, _ = dryrun.served_steps(model, model.init(0), quantized=quantized,
+                                   mesh=mesh, max_len=32, prompt_len=8)
+    steps["decode"]()
+    with dctx.record_collectives() as records:
+        steps["decode"]()
+    return records
