@@ -279,6 +279,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    a middle decoder layer's cross wk and wv, each taken from the next
    layer's; pixtral: a middle layer's attn.wo from the next, and the same
    prompts prefilled without their patches) must read above them.
+14b. The other families on a mesh (phase dist families, DIST_FAMILY_RUNS),
+   tensor-parallel on a (1, DIST_TP) mesh as in 8c., all in one
+   ``spawn_ranks``: gemma3-4b at 6 of 34 layers (one global layer; a
+   prompt past the window of 1024), mixtral-8x22b at 2 of 56 ("ffn" float
+   and int8, "expert" int8), starcoder2-3b, deepseek-coder-33b and
+   pixtral-12b (text) at 8, whisper-small at its 12 + 12 (over a fresh
+   cache's zeroed cross K/V, as 14. serves it), each at its published
+   widths, float and int8 FFIP, DIST_MAX_NEW new tokens; every rank must
+   launch K3 and K4 on its pieces and return rank 0's tokens. Each run is
+   held to the same family at the same depth and weights on one card: the
+   count of tokens equal to the single card's run (int8 equal wherever the
+   partition sums int32, all but mixtral's "ffn" experts), and the
+   readings against the plain path under the float / int8 bars (mixtral:
+   a replay of the run with its expert choices). The planted fault
+   (gemma3: rank 1's piece of layer 0's ``ffn.down`` from rank 0's) must
+   read above the float bar. whisper's frontend entry at tp 2 (4 x 1500
+   stub frames through the encoder, K4 non-causal on 6 heads a rank, then
+   decode over the rank's cross K/V) against 14.'s single-card runs, and
+   pixtral's (256 patches, 8 layers) against a single-card run at its
+   depth, each read against ``FrontendPlain``. One decode step's
+   collectives of whisper and gemma3, float and int8, counted on each rank
+   and equal to the meta-device trace's. The router on the mesh
+   (``launch.serve.router_job``, minicpm-2b at DIST_ROUTER_LAYERS,
+   ``--replicas 2 --quantized-replicas 1 --fault-plan flaky``): every
+   request DONE with its tier's no-fault tokens, no unplanned failure, the
+   ranks' router events, outcomes and tokens identical. Each rank's peak
+   memory and launches are printed, and the kernels line carries each
+   rank's launches of this phase.
 15. The Mamba2 + shared attention hybrid (phase hybrid): zamba2-1.2b at its
    published widths and all 38 layers (6 groups of 6 Mamba2 layers, each
    group followed by the one shared GQA block, then a tail of 2), bf16,
@@ -339,7 +367,11 @@ def pair_ms(adds: float, mads: float, integer: bool) -> float:
 # in_proj (x | z halves) and out_proj pieces at decode and a 128-token
 # prompt, its x_proj (row-parallel, K 4096) and dt_proj (N 4096) pieces at
 # decode; zamba2-1.2b's z_proj / x_proj_in / out_proj (2048 x 2048), dtp (N
-# 32) and the shared block's wq (N 1024) and wo (K 1024) pieces at decode
+# 32) and the shared block's wq (N 1024) and wo (K 1024) pieces at decode;
+# the other families' pieces at tp 2 (phase dist families) at decode and a
+# 128-token bucket: gemma3-4b's wq (4 of 8 heads of 256), pixtral-12b's wo
+# (K 2048: 16 of 32 heads of 128), whisper-small's up (N 1536) and
+# starcoder2-3b's wk (one of its 2 KV heads: N 128)
 GEMM_CASES = tuple(
     (m, k, n) for ms, kns in (
         ((4, 512), ((2304, 2304), (2304, 5760), (5760, 2304),
@@ -351,7 +383,8 @@ GEMM_CASES = tuple(
         ((4,), ((2560, 262144), (2048, 64), (2048, 128))),
         ((4, 128), ((4096, 8192), (4096, 4096))),
         ((4,), ((4096, 288), (256, 4096), (2048, 2048), (2048, 32),
-                (2048, 1024), (1024, 2048))))
+                (2048, 1024), (1024, 2048))),
+        ((4, 512), ((2560, 1024), (2048, 5120), (768, 1536), (3072, 128))))
     for m in ms for k, n in kns)
 HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # K4 checks: (label, BH, S, d, dv, window, causal, dtypes). At BH = 4 x 36
@@ -371,7 +404,12 @@ HEADLINE_GEMM = (4, 2304, 5760, "bf16")     # decode up/gate projection
 # mask above its padded keys); pixtral-12b's prefill: 256 patches + a
 # 128-token prompt, GQA 32 : 8 repeated to BH = 4 x 32, d 128. zamba2-1.2b's
 # shared block at tp 2: a rank's 16 of its 32 heads of 64, one prompt a
-# scatter prefill (BH = 1 x 16).
+# scatter prefill (BH = 1 x 16). The other families at tp 2 (phase dist
+# families), a rank's half of the heads: gemma3-4b's 4 of 8 at d 256 (a
+# 4-slot bucket, and one long prompt past a local layer's window),
+# mixtral-8x22b's 24 of 48, starcoder2-3b's 12 of 24, deepseek-coder-33b's
+# 28 of 56 (d 128), whisper-small's encoder at 6 of 12 (non-causal, S 1500)
+# and pixtral-12b's 16 of 32 behind its patches (S 384).
 BF16_F32 = ("bf16", "f32")
 MLA_D, MLA_DV = 192, 128
 GEMMA_D = 256
@@ -394,7 +432,16 @@ FLASH_CASES = (
     ("starcoder2 S 128", 4 * 24, 128, 128, 128, 0, True, ("bf16",)),
     ("whisper encoder S 1500", 4 * 12, 1500, 64, 64, 0, False, ("bf16",)),
     ("pixtral S 384", 4 * 32, 384, 128, 128, 0, True, ("bf16",)),
-    ("zamba2 tp2 S 128", 1 * 16, 128, 64, 64, 0, True, ("bf16",)))
+    ("zamba2 tp2 S 128", 1 * 16, 128, 64, 64, 0, True, ("bf16",)),
+    ("gemma3 tp2 S 128", 4 * 4, 128, GEMMA_D, GEMMA_D, 0, True, ("bf16",)),
+    ("gemma3 tp2 S 2048 window 1024", 4, 2048, GEMMA_D, GEMMA_D, 1024, True,
+     ("bf16",)),
+    ("mixtral tp2 S 128", 4 * 24, 128, 128, 128, 4096, True, ("bf16",)),
+    ("starcoder2 tp2 S 128", 4 * 12, 128, 128, 128, 0, True, ("bf16",)),
+    ("deepseek-coder tp2 S 128", 4 * 28, 128, 128, 128, 0, True, ("bf16",)),
+    ("whisper encoder tp2 S 1500", 4 * 6, 1500, 64, 64, 0, False,
+     ("bf16",)),
+    ("pixtral tp2 S 384", 4 * 16, 384, 128, 128, 0, True, ("bf16",)))
 HEADLINE_FLASH = ("S 128", "bf16")
 # Token bars, in standard deviations of the plain-path logits. Each lies
 # between the sound readings of its tier and the planted faults it must see;
@@ -3662,55 +3709,34 @@ class FrontendPlain:
 
 def frontend_run(model, params, tokens, steps: int, label: str, *, algo,
                  quantized, frames=None, patches=None):
-    """The frontend entry point through the kernels: ``Model.prefill``
-    with the batch's frames or patches, then ``steps`` greedy
-    ``decode_step``s at positions that count the prefix, in the GEMM scope
-    of a ``BatchServer(gemm_algo=algo, gemm_impl="cuda", quantized=)`` and
-    on the weights it prepares first (int8 copies, FFIP y-deltas and carry
+    """The frontend entry point through the kernels on one card
+    (``dist.parity.frontend_run``): ``Model.prefill`` with the batch's
+    frames or patches, then ``steps`` greedy ``decode_step``s at positions
+    that count the prefix, in the GEMM scope of a
+    ``BatchServer(gemm_algo=algo, gemm_impl="cuda", quantized=)`` and on
+    the weights it prepares first (int8 copies, FFIP y-deltas and carry
     tables); the launch counts zeroed before and read after."""
-    from repro_torch.kernels import compat
-    from repro_torch.serve.batcher import BatchServer
+    from repro_torch.dist import parity
 
     b, s = tokens.shape
-    pos = s + (0 if patches is None else patches.shape[1])
-    torch.cuda.reset_peak_memory_stats()
-    srv = BatchServer(model, batch_slots=1, max_len=1, device=model.device,
-                      quantized=quantized, gemm_algo=algo, gemm_impl="cuda")
-    p = srv._params_for(params)
-    with srv._gemm_scope():
-        torch.cuda.synchronize()
-        compat.reset_counters()
-        t0 = time.perf_counter()
-        cache, logits = model.prefill(p, tokens,
-                                      model.init_cache(b, pos + steps + 1),
-                                      frames=frames, patches=patches)
-        first = logits.float()
-        tok = logits.argmax(-1)
-        out = [tok]
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        for i in range(steps):
-            cache, logits = model.decode_step(p, tok[:, None], cache, pos + i)
-            tok = logits.argmax(-1)
-            out.append(tok)
-        ids = torch.stack(out, 1).cpu().numpy()
-        t2 = time.perf_counter()
-        counts = compat.launch_counts()
-    del cache, p, srv
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = parity.frontend_run(None, model.device, cfg=model.cfg, rows=b,
+                              prompt=s, steps=steps, quantized=quantized,
+                              algo=algo, params=params, tokens=tokens,
+                              frames=frames, patches=patches)
     free_device()
-    done = [types.SimpleNamespace(rid=i, out_tokens=[int(t) for t in row])
-            for i, row in enumerate(ids)]
-    ms_step = 1e3 * (t2 - t1) / max(1, steps)
+    done = [types.SimpleNamespace(rid=i, out_tokens=row)
+            for i, row in enumerate(rec["tokens"])]
     print(f"  [{label}] {b} rows x {s} tokens"
           f"{'' if patches is None else f' behind {patches.shape[1]} patches'}"
           f"{'' if frames is None else f' over {frames.shape[1]} frames'}: "
-          f"prefill {t1 - t0:.3f} s, {steps} decode steps "
-          f"{ms_step:.1f} ms/step; peak memory {peak:.2f} GiB; launches "
-          f"{counts}", flush=True)
+          f"prefill {rec['prefill_s']:.3f} s, {steps} decode steps "
+          f"{rec['ms_per_step']:.1f} ms/step; peak memory "
+          f"{rec['peak_gib']:.2f} GiB; launches {rec['launches']}",
+          flush=True)
     return dict(label=label, algo=algo, quantized=quantized, done=done,
-                counts=counts, first=first, prefill_s=t1 - t0,
-                ms_per_step=ms_step, peak_gib=peak)
+                counts=rec["launches"], first=rec["first"].to(model.device),
+                prefill_s=rec["prefill_s"], ms_per_step=rec["ms_per_step"],
+                peak_gib=rec["peak_gib"])
 
 
 def read_frontend(readings: Readings, runs, faults, model, params, tokens,
@@ -4854,6 +4880,332 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
     return totals
 
 
+# phase dist families: the six other families served tensor-parallel on a
+# (1, DIST_TP) mesh (gloo, both ranks on the one card), each at its published
+# widths, bf16, random weights from --seed, 4 slots, DIST_MAX_NEW new tokens
+# a request, float and int8 FFIP: (arch, short tag, depth, max_len, long
+# prompt's length range or None). serve_job draws the whole weights on each
+# rank before the cut and keeps them, so a rank holds the whole model and
+# its half (with FFIP's derived copies) beside the other rank's, and the
+# parent its single-card model after them.
+# - gemma3-4b at 6 of 34 layers: layer 5 is its first global one
+#   (local_global_period 6), so both kinds run; one prompt of 1100-1499
+#   tokens passes the local layers' window of 1024 (as in phase families).
+# - mixtral-8x22b at 2 of 56: a layer is ~5.1 GB of bf16 (experts, which
+#   the einsums read with no derived copies), the untied embeddings 0.8 GB;
+#   whole + half on each of two ranks is ~33 GB at 2 layers, ~64 GB at 4,
+#   where the parent's single-card model (~21 GB) no longer fits beside
+#   them. Its config's "ffn" partition (float and int8) and the "expert"
+#   one (int8).
+# - starcoder2-3b, deepseek-coder-33b and pixtral-12b at 8 layers (the
+#   phase's time; deepseek-coder's 4.7 B parameters at 8 are ~27 GB a rank
+#   in int8 FFIP).
+# - whisper-small at its published 12 + 12.
+# Beside them: the planted fault (gemma3, float: rank 1's piece of layer
+# 0's ffn.down taken from rank 0's), the frontend entry points at tp 2
+# (whisper: ENCDEC_ROWS x 1500 stub frames through the encoder, K4
+# non-causal at BH 4 x 6; pixtral at its 8 layers: 256 patches + a
+# PIXTRAL_PROMPT-token prompt), one decode step's collectives of whisper
+# and gemma3 against the meta-device trace, and the router's replicas on
+# the mesh (minicpm-2b at DIST_ROUTER_LAYERS: --replicas 2
+# --quantized-replicas 1 --fault-plan flaky, 2 slots each).
+DIST_FAMILY_RUNS = (
+    ("gemma3-4b", "gemma3", 6, 1536, (1100, 1500)),
+    ("mixtral-8x22b", "mixtral", 2, 256, None),
+    ("starcoder2-3b", "starcoder2", 8, 256, None),
+    ("deepseek-coder-33b", "deepseek-coder", 8, 256, None),
+    ("pixtral-12b", "pixtral", 8, 256, None),
+    ("whisper-small", "whisper", 12, 256, None),
+)
+DIST_ROUTER_LAYERS = 8
+
+
+def _family_runs(arch: str):
+    """(label suffix, quantized, moe_partition) of a family's served runs
+    in phase dist families."""
+    runs = [("ffip", False), ("int8-ffip", True)]
+    if arch != "mixtral-8x22b":
+        return [(label, q, "expert") for label, q in runs]
+    return ([(f"{label} ffn", q, "ffn") for label, q in runs]
+            + [("int8-ffip expert", True, "expert")])
+
+
+def run_dist_families(args, readings: Readings, problems, encdec):
+    """Phase dist families (ROADMAP item 15c): every family beside
+    minicpm-2b, deepseek-v2-lite-16b and the SSM stacks served on a
+    (1, DIST_TP) mesh through ``launch.serve``'s rank entry, one process a
+    rank (DIST_FAMILY_RUNS), all in one ``spawn_ranks``: each family float
+    and int8 FFIP, every rank launching K3 and K4 on its pieces; the
+    planted fault; whisper's and pixtral's frontend entry at tp 2
+    (``parity.frontend_run``); one decode step's collectives (whisper,
+    gemma3) against the meta-device trace; and ``--replicas 2
+    --mesh-model 2 --fault-plan flaky`` (``router_job``). Then, in this
+    process, each family at the same depth and weights on one card: the
+    count of tokens equal to its single-card run (int8 equal wherever the
+    partition sums int32, all but mixtral's "ffn" experts: gated), and the
+    readings against the plain path under the float / int8 bars (mixtral
+    a replay of each run with its expert choices); the frontend runs
+    against phase encdec's single-card whisper runs (``encdec``) and a
+    single-card pixtral run at 8 layers, read against ``FrontendPlain``.
+    Returns the ranks' launch counts, summed and by rank."""
+    from types import SimpleNamespace
+
+    from repro_torch import configs
+    from repro_torch.dist import parity
+    from repro_torch.kernels import compat
+    from repro_torch.launch.serve import (RankError, router_job, serve,
+                                          serve_job, spawn_ranks)
+    from repro_torch.models.frontends import (audio_frames_stub,
+                                              vision_patches_stub)
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    print(f"phase dist families: tp {DIST_TP}, gloo with both ranks on the "
+          f"one card; " + ", ".join(
+              f"{a} at {n} of {configs.get_config(a).n_layers} layers"
+              for a, _, n, _, _ in DIST_FAMILY_RUNS), flush=True)
+    jobs, labels, families = [], [], {}
+    for arch, tag, layers, max_len, long_range in DIST_FAMILY_RUNS:
+        cfg = dataclasses.replace(configs.get_config(arch), n_layers=layers)
+        prompts = family_prompts(cfg.vocab, args.seed, long_range, False)
+        kw = dict(batch_slots=4, max_len=max_len, gemm_impl="cuda",
+                  gemm_algo="ffip")
+        families[arch] = (tag, cfg, prompts, kw)
+        base = dict(arch=arch, layers=layers, seed=args.seed,
+                    prompts=prompts, max_new=DIST_MAX_NEW)
+        fn = recorded_serve_job if cfg.moe else serve_job
+        for label, quantized, part in _family_runs(arch):
+            jobs.append((fn, dict(base, server_kw=dict(
+                kw, quantized=quantized, moe_partition=part))))
+            labels.append((arch, label))
+        if arch == "gemma3-4b":
+            jobs.append((serve_job, dict(base, server_kw=dict(
+                kw, quantized=False), plant=plant_down_shard)))
+            labels.append((arch, "planted fault"))
+    w_cfg = configs.get_config("whisper-small")
+    p_cfg = dataclasses.replace(configs.get_config("pixtral-12b"),
+                                n_layers=families["pixtral-12b"][1].n_layers)
+    fronts = [(w_cfg, WHISPER_PROMPT), (p_cfg, PIXTRAL_PROMPT)]
+    for cfg, prompt in fronts:
+        for quantized in (False, True):
+            jobs.append((parity.frontend_run, dict(
+                cfg=cfg, rows=ENCDEC_ROWS, prompt=prompt, steps=DIST_MAX_NEW,
+                seed=args.seed, quantized=quantized)))
+            labels.append((cfg.name, "frontend " + ("int8-ffip" if quantized
+                                                    else "ffip")))
+    first_coll = len(jobs)
+    coll = [("whisper-small", w_cfg.n_layers),
+            ("gemma3-4b", families["gemma3-4b"][1].n_layers)]
+    for arch, layers in coll:
+        jobs += collective_jobs(arch, layers, args.seed)
+    mc_cfg = configs.get_config("minicpm-2b")
+    router_prompts = served_prompts(mc_cfg.vocab, args.seed)
+    router_args = dict(replicas=2, quantized_replicas=1, quantized=False,
+                       fault_plan="flaky", deadline_ms=None, slo=None,
+                       slo_windows="5,30", slo_min_count=3,
+                       slo_drain_ticks=0, max_new=DIST_MAX_NEW, paged=False)
+    jobs.append((router_job, dict(
+        arch="minicpm-2b", layers=DIST_ROUTER_LAYERS, seed=args.seed,
+        prompts=router_prompts, router_args=router_args,
+        server_kw=dict(batch_slots=FLEET_SLOTS, max_len=256,
+                       gemm_impl="cuda", gemm_algo="ffip"))))
+    totals = {name: 0 for name in compat.launch_counts()}
+    by_rank = [dict(totals) for _ in range(DIST_TP)]
+    try:
+        ranks = spawn_ranks(DIST_TP, jobs, device="cuda", timeout_s=900)
+    except RankError as e:
+        problems.append(f"dist families: {e}")
+        return totals, by_rank
+    print(f"  ranks: {time.perf_counter() - t0:.1f} s (start, weights, "
+          f"serving, frontends, router)", flush=True)
+    for i, (arch, layers) in enumerate(coll):
+        check_collectives(ranks, first_coll + 2 * i, arch, layers, args.seed,
+                          problems)
+    for r, rank in enumerate(ranks):
+        for rec in rank[:first_coll] + rank[-1:]:
+            for name, n in rec["launches"].items():
+                totals[name] += n
+                by_rank[r][name] += n
+    by = {key: [rank[i] for rank in ranks] for i, key in enumerate(labels)}
+
+    def done(rec):
+        return [SimpleNamespace(rid=rid, out_tokens=toks)
+                for rid, toks in sorted(rec["tokens"].items())]
+
+    for arch, (tag, cfg, prompts, kw) in families.items():
+        t1 = time.perf_counter()
+        runs = _family_runs(arch)
+        if arch == "gemma3-4b":
+            runs.append(("planted fault", False, "expert"))
+        for label, _, _ in runs:
+            recs = by[arch, label]
+            _dist_line(f"tp{DIST_TP} {tag} {cfg.n_layers} layers {label}",
+                       recs)
+            for r, rec in enumerate(recs):
+                if rec["tokens"] != recs[0]["tokens"]:
+                    problems.append(f"dist {tag} {label}: rank {r}'s "
+                                    f"tokens differ from rank 0's")
+                c = rec["launches"]
+                if not (c["ffip_gemm_y"] and c["flash_fwd"]):
+                    problems.append(f"dist {tag} {label}: rank {r} launched "
+                                    f"no ffip_gemm_y or flash_fwd: {c}")
+            if any(len(t) != DIST_MAX_NEW
+                   for t in recs[0]["tokens"].values()):
+                problems.append(f"dist {tag} {label}: a request missed its "
+                                f"budget")
+        model = Model(cfg)
+        params = model.init(args.seed)
+        plain = {}
+        for label, quantized, part in runs:
+            rec = by[arch, label][0]
+            tier = "int8" if quantized else "float"
+            fault = label == "planted fault"
+            if not fault:
+                _, single, _ = serve(model, params, prompts,
+                                     max_new=DIST_MAX_NEW,
+                                     quantized=quantized, **kw)
+                same = sum(a == b for s in single
+                           for a, b in zip(rec["tokens"][s.rid],
+                                           s.out_tokens))
+                total = sum(map(len, rec["tokens"].values()))
+                print(f"  [tp{DIST_TP} {tag} {label}] {same} of {total} "
+                      f"tokens equal to the single card's at "
+                      f"{cfg.n_layers} layers", flush=True)
+                if quantized and part != "ffn" and same != total:
+                    problems.append(f"dist {tag} {label}: the int8 layers "
+                                    f"sum int32, yet {total - same} tokens "
+                                    f"differ from the single card's")
+                del single
+            with (int8_products_by_f64() if quantized
+                  else contextlib.nullcontext()):
+                if cfg.moe is not None:
+                    plain_path = Replay(
+                        model, params, prompts,
+                        [t.cuda() for t in rec["samples"]],
+                        [t.cuda() for t in rec["routes"]], DIST_MAX_NEW,
+                        quantized=quantized, batch_slots=4,
+                        max_len=kw["max_len"])
+                elif quantized not in plain:
+                    plain_path = plain[quantized] = PlainPath(
+                        model, params, prompts, quantized)
+                else:
+                    plain_path = plain[quantized]
+                readings.read(f"tp{DIST_TP} {tag} {label} ({cfg.n_layers} "
+                              f"layers)" + (": rank 1's piece of layer 0's "
+                                            "ffn.down from rank 0's, float "
+                                            "ffip" if fault else ""),
+                              done(rec), plain_path, tier, fault=fault)
+            del plain_path
+        del model, params, plain
+        free_device()
+        print(f"  [tp{DIST_TP} {tag}] single card and plain path: "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    # the frontend entry points at tp 2: whisper against phase encdec's
+    # single-card runs (the same weights, frames and prompt), pixtral
+    # against a single-card run at the same depth
+    singles = {r.get("label"): r for r in encdec}
+    for cfg, prompt in fronts:
+        t1 = time.perf_counter()
+        tag = cfg.name.split("-")[0]
+        model = Model(cfg)
+        params = model.init(args.seed)
+        dev = model.device
+        tokens = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (ENCDEC_ROWS, prompt))).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        inputs = ({"frames": audio_frames_stub(gen, ENCDEC_ROWS, cfg,
+                                               device=dev)}
+                  if cfg.encoder is not None else
+                  {"patches": vision_patches_stub(gen, ENCDEC_ROWS, cfg,
+                                                  device=dev)})
+        for quantized in (False, True):
+            label = "frontend " + ("int8-ffip" if quantized else "ffip")
+            recs = by[cfg.name, label]
+            tier = "int8" if quantized else "float"
+            n_att = (cfg.encoder.n_layers if cfg.encoder else 0) \
+                + cfg.n_layers
+            for r, rec in enumerate(recs):
+                print(f"  [tp{DIST_TP} {tag} {label}] rank {r}: "
+                      f"{ENCDEC_ROWS} rows x {prompt} tokens behind "
+                      f"{next(iter(inputs.values())).shape[1]} "
+                      f"{next(iter(inputs))}, {cfg.n_layers} layers: "
+                      f"prefill {rec['prefill_s']:.3f} s, "
+                      f"{rec['ms_per_step']:.1f} ms/step; peak memory "
+                      f"{rec['peak_gib']:.2f} GiB; launches "
+                      f"{ {k: v for k, v in rec['launches'].items() if v} }",
+                      flush=True)
+                if rec["tokens"] != recs[0]["tokens"]:
+                    problems.append(f"dist {tag} {label}: rank {r}'s "
+                                    f"tokens differ from rank 0's")
+                if (rec["launches"]["flash_fwd"] != n_att
+                        or not rec["launches"]["ffip_gemm_y"]):
+                    problems.append(f"dist {tag} {label}: rank {r} "
+                                    f"launched {rec['launches']}, want "
+                                    f"flash_fwd {n_att} and ffip_gemm_y")
+            rec = recs[0]
+            if cfg.encoder is not None:
+                single = singles[f"whisper {'int8-' if quantized else ''}"
+                                 f"ffip"]
+                ids = [r.out_tokens for r in single["done"]]
+                first = single["first"]
+                what = "phase encdec's single-card run"
+            else:
+                single = parity.frontend_run(
+                    None, dev, cfg=cfg, rows=ENCDEC_ROWS, prompt=prompt,
+                    steps=DIST_MAX_NEW, seed=args.seed, quantized=quantized,
+                    params=params)
+                ids, first = single["tokens"], single["first"]
+                what = f"a single-card run at {cfg.n_layers} layers"
+            same = sum(a == b for got, want in zip(rec["tokens"], ids)
+                       for a, b in zip(got, want))
+            dev_sd = max(float((g.float() - w.float().cpu()).abs().max()
+                               / w.float().std())
+                         for g, w in zip(rec["first"], first))
+            print(f"  [tp{DIST_TP} {tag} {label}] {same} of "
+                  f"{sum(map(len, rec['tokens']))} tokens equal to {what}; "
+                  f"prefill logits off its by up to {dev_sd:.4f} sd",
+                  flush=True)
+            done_rows = [SimpleNamespace(rid=i, out_tokens=list(row))
+                         for i, row in enumerate(rec["tokens"])]
+            with (int8_products_by_f64() if quantized
+                  else contextlib.nullcontext()):
+                plain = FrontendPlain(model, params, tokens, quantized,
+                                      DIST_MAX_NEW, **inputs)
+                readings.read(f"tp{DIST_TP} {tag} {label}", done_rows, plain,
+                              tier)
+            del plain
+        del model, params, inputs
+        free_device()
+        print(f"  [tp{DIST_TP} {tag} frontend] single card and plain path: "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    res = [rank[-1] for rank in ranks]
+    print(f"  [tp{DIST_TP} router] minicpm-2b {DIST_ROUTER_LAYERS} layers, "
+          f"--replicas 2 --quantized-replicas 1 --fault-plan flaky, "
+          f"{FLEET_SLOTS} slots a replica, rank 0's router:", flush=True)
+    print("    " + res[0]["printed"].rstrip().replace("\n", "\n    "),
+          flush=True)
+    for r, rec in enumerate(res):
+        busy = {k: v for k, v in rec["launches"].items() if v}
+        print(f"    rank {r}: peak memory {rec['peak_gib']:.2f} GiB; "
+              f"launches {busy}; {len(rec['events'])} router events, "
+              f"outcomes {rec['outcomes']}", flush=True)
+        problems += [f"dist router: rank {r}: {p}" for p in rec["problems"]]
+    differ = [f"rank {r}'s router {key}" for r, rec in enumerate(res)
+              for key in ("events", "outcomes", "tokens")
+              if rec[key] != res[0][key]]
+    problems += [f"dist router: {d} differ from rank 0's" for d in differ]
+    if res[0]["outcomes"] != {"done": len(router_prompts)}:
+        problems.append(f"dist router: outcomes {res[0]['outcomes']}, want "
+                        f"every request done")
+    print(f"  [tp{DIST_TP} router] ranks' events, outcomes and tokens "
+          f"identical: {not differ}", flush=True)
+    print(f"phase dist families: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return totals, by_rank
+
+
 # phase reports: the prompt length of its bucketed prefill dispatch (4
 # slots), the runs each dispatch is timed over, and the largest roofline
 # share a dispatch may read (above it the cost model overcounts)
@@ -5343,6 +5695,17 @@ def main(argv=None) -> int:
         totals[name] += sum(r["counts"].get(name, 0) for r in encdec)
     free_device()
 
+    # 13b. the other families on a mesh: gemma3-4b, mixtral-8x22b,
+    # starcoder2-3b, deepseek-coder-33b, pixtral-12b and whisper-small
+    # served on two ranks sharing the card, whisper's and pixtral's
+    # frontend entry points at tp 2, the router's replicas on the mesh
+    fam_tp, fam_tp_ranks = run_dist_families(args, readings, problems,
+                                             encdec)
+    for name in totals:
+        totals[name] += fam_tp[name]
+    del encdec
+    free_device()
+
     # 14. the Mamba2 + shared attention hybrid zamba2-1.2b served through
     # K1-K4 and trained through K4 + K8
     # ... and, inside it, phase dist's sharded scan: falcon-mamba-7b and
@@ -5426,6 +5789,8 @@ def main(argv=None) -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shape": shape,
             "fleet_launches": fleet[name],
+            "dist_families_launches_by_rank": [
+                rank[name] for rank in fam_tp_ranks],
             "per_shape": [{k: v for k, v in r.items()
                            if k not in ("kernel", "ok")} for r in recs_k]})
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -28,11 +28,18 @@ f32 scan) and a prefill (B 1, S rows: K6):
 
 :func:`scan_columns`: K6 on this rank's channels against the whole K6's
 columns, bit for bit (every output channel reads its own channel alone).
+
+:func:`frontend_run`: the frontend entry point (``Model.prefill(frames=)``
+for whisper's encoder and cross attention, ``patches=`` for pixtral's
+prefix) and greedy decode steps on this rank's pieces of the params and the
+cache, for comparison with the single device.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import configs
@@ -231,3 +238,79 @@ def scan_columns(mesh, device, *, di: int, cases: Sequence[tuple],
             ok=all(r["ok"] for r in res), tol="bit for bit",
             max_abs_err=max(r["max_abs_err"] for r in res))
     return out
+
+
+def frontend_run(mesh, device, *, cfg, rows: int, prompt: int, steps: int,
+                 seed: int = 0, quantized: bool = False, algo: str = "ffip",
+                 params=None, tokens=None, frames=None, patches=None) -> dict:
+    """The frontend entry point on this rank's pieces: ``Model.prefill``
+    with ``frames`` (whisper: the encoder, non-causal through K4 on the
+    rank's heads, and every decoder layer's cross K/V of those heads into
+    the cache) or ``patches`` (pixtral's prefix), then ``steps`` greedy
+    ``decode_step``s at positions that count the prefix, in the GEMM scope
+    of a ``BatchServer(mesh=, gemm_algo=algo, gemm_impl="cuda",
+    quantized=)`` and on the pieces it prepares (the whole weights
+    quantized, then cut). ``mesh=None``: the same on one device.
+
+    ``params`` default to ``Model.init(seed)``. Without ``tokens`` every
+    input is drawn from ``seed`` as ``chip_smoke.py``'s phase encdec draws
+    them (``rows`` x ``prompt`` tokens by numpy, then the frames or patches
+    by the stubs of ``models.frontends``), so every rank and a single
+    device see the same inputs; with ``tokens``, ``frames`` and
+    ``patches`` are the caller's (None: none). Returns the tokens ((rows,
+    steps + 1) ints), the prefill's and the last step's logits (f32, on
+    the CPU), the launch counts, the peak device memory and the times."""
+    from repro_torch.models.frontends import (audio_frames_stub,
+                                              vision_patches_stub)
+    from repro_torch.models.model import Model
+    from repro_torch.serve.batcher import BatchServer
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    model = Model(cfg, device=device)
+    if params is None:
+        params = model.init(seed)
+    if tokens is None:
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                      (rows, prompt))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if cfg.encoder is not None:
+            frames = audio_frames_stub(gen, rows, cfg, device=device)
+        elif cfg.frontend == "vision":
+            patches = vision_patches_stub(gen, rows, cfg, device=device)
+    tokens, frames, patches = (None if t is None
+                               else torch.as_tensor(t, device=device)
+                               for t in (tokens, frames, patches))
+    pos = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    srv = BatchServer(model, batch_slots=1, max_len=1, device=device,
+                      mesh=mesh, quantized=quantized, gemm_algo=algo,
+                      gemm_impl="cuda")
+    p = srv._params_for(params)
+    cache = model.init_cache(tokens.shape[0], pos + steps + 1)
+    if mesh is not None:
+        cache = sharding.shard_tree(cache, sharding.serving_cache_specs(
+            cache, mesh, cfg, batch=tokens.shape[0]), mesh)
+    if cuda:
+        torch.cuda.synchronize(device)
+    compat.reset_counters()
+    with srv._gemm_scope():
+        t0 = time.perf_counter()
+        cache, logits = model.prefill(p, tokens, cache, frames=frames,
+                                      patches=patches)
+        first = logits.float().cpu()
+        tok = logits.argmax(-1)
+        out = [tok]
+        t1 = time.perf_counter()
+        for i in range(steps):
+            cache, logits = model.decode_step(p, tok[:, None], cache,
+                                              pos + i)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        ids = torch.stack(out, 1).cpu().numpy()
+        t2 = time.perf_counter()
+    return dict(tokens=ids.tolist(), first=first, last=logits.float().cpu(),
+                launches=compat.launch_counts(), prefill_s=t1 - t0,
+                ms_per_step=1e3 * (t2 - t1) / max(1, steps),
+                peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                          if cuda else 0.0))

@@ -58,6 +58,16 @@ d_inner or whole heads, ``out_proj`` row-parallel; ``D``, ``dt_bias``,
 :func:`serving_cache_specs` cuts the streaming state the same way: the
 conv inputs and the scan state on the local d_inner or heads.
 
+The encoder-decoder and the patch prefix need no rule of their own: the
+names carry them. Whisper's ``encoder/layers/...`` cut as the decoder's
+layers do, each decoder layer's cross attention ``xattn/{wq,wk,wv}``
+column-parallel and ``xattn/wo`` row-parallel by heads (whole with the
+self-attention's where the heads do not split), and the cached cross K/V
+``cross_kv/{k,v}`` ((L, B, T, KV, hd)) by KV heads as any K/V leaf; a vocab
+that does not divide the model axis (whisper's 51865) stays whole under
+the guard. Pixtral's patches enter before the first layer, whole on every
+rank.
+
 Apart from these, nothing is split that a spec keeps whole. A
 column-parallel layer reads its piece of a replicated per-channel vector
 (bias, int8 scale, zero point, folded beta, colsum) as a view

@@ -59,10 +59,6 @@ from repro_torch.train.step import TrainConfig, make_train_step
 
 RESULTS_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
                / "reports" / "dryrun")
-# the archs the port's mesh path serves and holds to the reference (ROADMAP
-# items 15a, 15b); the others wait for item 15c
-MESH_ARCHS = ("minicpm-2b", "deepseek-v2-lite-16b", "falcon-mamba-7b",
-              "zamba2-1.2b")
 
 
 def _model_flops(cfg, shape) -> float:
@@ -132,12 +128,11 @@ def _argument_bytes(cfg, shape, params, specs, mesh) -> float:
 
 def _rank_collectives(cfg, shape, params, specs, mesh) -> tuple:
     """(CollectiveStats or None, reason) of one rank's serving step at the
-    mesh's model-axis size, through the port's mesh path: its batch the
-    global batch's piece under the mesh's data specs."""
+    mesh's model-axis size, through the port's mesh path (every arch serves
+    on it; whisper's prefill takes its frames, pixtral's its patches): its
+    batch the global batch's piece under the mesh's data specs."""
     if shape.kind == "train":
         return None, "waits for ROADMAP item 15d (training on a mesh)"
-    if cfg.name not in MESH_ARCHS:
-        return None, f"waits for ROADMAP item 15c ({cfg.name} on a mesh)"
     tp = mesh.size(dctx.MODEL)
     rest = {k: v for k, v in specs.items() if k != "cache"}
     batch_axes = shd.data_specs(rest, mesh)[next(iter(rest))][0]

@@ -72,10 +72,16 @@ collectives, not less memory a rank), and gloo on the CPU with ``--device
 cpu``. The launcher prints which. ``falcon-mamba-7b`` and ``zamba2-1.2b``
 serve on a mesh too: each rank holds its piece of every Mamba mixer's
 d_inner (or heads) and of its streaming state, and runs K6 on its own
-channels. ``--compare-single-device`` serves the
-workload again on one device and requires identical tokens. A rank that
-fails, or a run past 900 s, kills the other ranks and fails the run. ``--mesh-model`` with ``--replicas`` or ``--paged`` is refused
-(ROADMAP queue 1 item 15).
+channels; ``whisper-small`` holds its heads of the encoder, of the cross
+attention and of the cached cross K/V. ``--compare-single-device`` serves
+the workload again on one device and requires identical tokens. A rank
+that fails, or a run past 900 s, kills the other ranks and fails the run.
+``--replicas`` with ``--mesh-model``: every rank runs the router over its
+replicas, each a ``BatchServer(mesh=)``, on a fake clock (every decision
+must be the same on every rank), each tier's replicas sharing one
+preparation and one cut of the weights; the run fails if the ranks' router
+events, outcomes or tokens differ. ``--mesh-model`` with ``--paged`` is
+refused, as the reference refuses a paged cache on a mesh.
 
 ``python -m repro_torch.launch.obs_check`` checks the two files:
 
@@ -309,6 +315,56 @@ def serve_job(mesh, device, *, arch: str, smoke: bool = False,
         tune_missed=sorted(tune._warned_keys))
 
 
+def router_job(mesh, device, *, arch: str, smoke: bool = False,
+               layers: int = 0, seed: int = 0, prompts, router_args: dict,
+               server_kw: dict, prepared: str = "", metrics_json: str = "",
+               trace_out: str = "") -> dict:
+    """A rank's part of ``--replicas`` with ``--mesh-model``: the model from
+    ``seed`` (the same whole weights on every rank), the prompts served
+    through :func:`serve_router` on this rank's mesh (``router_args``: the
+    launcher's arguments it reads: ``replicas``, ``quantized_replicas``,
+    ``quantized``, ``fault_plan``, ``deadline_ms``, ``slo``,
+    ``slo_windows``, ``slo_min_count``, ``slo_drain_ticks``, ``max_new``,
+    ``paged``). Returns the router's gate failures,
+    events, outcomes, stats and each DONE request's tokens (every rank's
+    must be equal), the launch counts, the peak device memory and what the
+    router printed. ``prepared``: an artifact directory, loaded on this
+    rank and served by every replica. Rank 0 alone writes ``metrics_json``
+    and ``trace_out``."""
+    import contextlib
+    import io
+
+    from repro_torch.serve.lifecycle import Lifecycle
+
+    cfg = build_config(arch, smoke, layers)
+    model = Model(cfg, device=device)
+    params = model.init(seed)
+    if prepared:
+        from repro_torch import prepare
+        server_kw = dict(server_kw, prepared=prepare.load(
+            prepared, map_location=device))
+    compat.reset_counters()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        problems, rt = serve_router(model, params, prompts,
+                                    argparse.Namespace(**router_args),
+                                    server_kw, mesh=mesh)
+    if mesh.index("model") == 0 and (metrics_json or trace_out):
+        write_obs(argparse.Namespace(metrics_json=metrics_json,
+                                     trace_out=trace_out), rt.tracer)
+    return dict(
+        problems=problems, events=list(rt.events),
+        outcomes=rt.outcome_counts(), stats=dict(rt.stats),
+        tokens={rid: list(rec.tokens) for rid, rec in rt.records.items()
+                if rec.state is Lifecycle.DONE},
+        launches=compat.launch_counts(),
+        peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                  if device.type == "cuda" else 0.0),
+        printed=printed.getvalue())
+
+
 def unplanned_failures(events) -> list:
     """The replica failures in a router's ``events`` that no fault plan
     made: a step may raise only the plan's ``InjectedFault``, or a
@@ -332,11 +388,23 @@ def unplanned_failures(events) -> list:
     return bad
 
 
-def serve_router(model: Model, params, prompts, args, server_kw: dict):
+def serve_router(model: Model, params, prompts, args, server_kw: dict,
+                 mesh=None):
     """The multi-replica path (``--replicas``), as the reference's: returns
     ``(problems, router)``. Under a fault plan every replica reads the
     router's fake clock, so latencies and spans follow the fault schedule,
-    and a kernel's first launch costs no fake time."""
+    and a kernel's first launch costs no fake time.
+
+    ``mesh``: this process is one rank of a tensor-parallel run and every
+    replica a ``BatchServer(mesh=)``. Each rank runs its own router over its
+    pieces, and every decision must be the same on every rank, or one rank
+    waits in a collective that another never joins: the router and the
+    replicas then run on a FakeClock whether or not a fault plan is given
+    (deadlines, step timeouts, quarantines and SLO windows all read it, and
+    it moves only with the router's ticks and the plan's hangs, never with
+    a rank's wall clock). Each tier's replicas share one preparation
+    (``repro_torch.prepare``, unless ``server_kw`` brings one), and through
+    it one cut of the weights."""
     from repro_torch.serve.faults import FakeClock, FaultPlan
     from repro_torch.serve.lifecycle import Lifecycle, ServeStallError
     from repro_torch.serve.router import ReplicaRouter, RouterConfig
@@ -347,7 +415,12 @@ def serve_router(model: Model, params, prompts, args, server_kw: dict):
                 else FaultPlan.parse(args.fault_plan))
     nq = min(args.quantized_replicas, args.replicas)
     tiers = [i >= args.replicas - nq for i in range(args.replicas)]
-    clock = FakeClock() if plan is not None else None
+    clock = FakeClock() if plan is not None or mesh is not None else None
+    shared = {}
+    if mesh is not None and server_kw.get("prepared") is None:
+        from repro_torch import prepare
+        shared = {q: prepare.prepare_lm(params, quantized=q)
+                  for q in sorted({q or args.quantized for q in tiers})}
     objectives = None
     if args.slo:
         fast_s, slow_s = (float(x) for x in args.slo_windows.split(","))
@@ -356,8 +429,11 @@ def serve_router(model: Model, params, prompts, args, server_kw: dict):
             min_count=args.slo_min_count) for spec in args.slo]
 
     def mk(q):
-        return BatchServer(model, device=model.device,
-                           **dict(server_kw, quantized=q), clock=clock)
+        kw = dict(server_kw, quantized=q)
+        if q in shared:
+            kw["prepared"] = shared[q]
+        return BatchServer(model, device=model.device, mesh=mesh, clock=clock,
+                           **kw)
 
     servers = [mk(q or args.quantized) for q in tiers]
     rt = ReplicaRouter(servers, params, fault_plan=plan, clock=clock,
@@ -554,9 +630,13 @@ def main(argv=None):
         ap.error("--compare-contiguous requires --paged")
     if args.compare_single_device and not args.mesh_model:
         ap.error("--compare-single-device requires --mesh-model")
-    if args.mesh_model and (args.replicas or args.paged):
-        raise SystemExit("--mesh-model with --replicas or --paged is not "
-                         "ported yet: ROADMAP queue 1 item 15")
+    if args.mesh_model and args.paged:
+        raise SystemExit("--mesh-model with --paged is refused, as the "
+                         "reference refuses a paged cache on a mesh (the "
+                         "page pool is host-managed per device)")
+    if args.compare_single_device and args.replicas:
+        ap.error("--compare-single-device does not take --replicas (the "
+                 "router's no-fault oracles hold its tokens)")
     if args.slo and not args.replicas:
         ap.error("--slo requires --replicas (the burn-rate degradation "
                  "controller lives in the router)")
@@ -712,12 +792,16 @@ def _run_mesh(args) -> None:
                      decode_chunk=args.decode_chunk,
                      prefill_buckets=not args.no_prefill_buckets)
     job = dict(arch=args.arch, smoke=args.smoke, layers=args.layers,
-               seed=args.seed, prompts=prompts, max_new=args.max_new,
+               seed=args.seed, prompts=prompts,
                server_kw=server_kw, prepared=args.prepared or "",
                metrics_json=args.metrics_json or "",
                trace_out=args.trace_out or "")
     print(f"mesh (1, {args.mesh_model}): {backend} on "
           f"{', '.join(devices)}", flush=True)
+    if args.replicas:
+        _run_mesh_router(args, job, device)
+        return
+    job["max_new"] = args.max_new
     t0 = time.perf_counter()
     try:
         ranks = spawn_ranks(args.mesh_model, [(serve_job, job)],
@@ -772,6 +856,40 @@ def _run_mesh(args) -> None:
     if problems:
         print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
         raise SystemExit(1)
+    print("OK")
+
+
+def _run_mesh_router(args, job: dict, device: str) -> None:
+    """``--replicas`` with ``--mesh-model``: the router on every rank
+    (:func:`router_job`), reported from rank 0 (what its router printed,
+    each rank's peak memory and launch counts). The run fails on rank 0's
+    gate failures (its tier oracles, typed errors, unplanned failures) or
+    on any rank whose router events, outcomes or tokens differ from rank
+    0's: the ranks must have taken every decision alike."""
+    job["router_args"] = vars(args)
+    try:
+        ranks = spawn_ranks(args.mesh_model, [(router_job, job)],
+                            device=device)
+    except RankError as e:
+        raise SystemExit(f"FAIL: {e}")
+    res = [r[0] for r in ranks]
+    print(res[0]["printed"], end="")
+    for r, rec in enumerate(res):
+        print(f"  rank {r}: kernel launches {rec['launches']}, peak device "
+              f"memory {rec['peak_gib']:.2f} GiB")
+    problems = list(res[0]["problems"])
+    for r, rec in enumerate(res[1:], 1):
+        problems += [f"rank {r}: {p}" for p in rec["problems"]
+                     if p not in res[0]["problems"]]
+        problems += [f"rank {r}'s router {key} differ from rank 0's"
+                     for key in ("events", "outcomes", "tokens")
+                     if rec[key] != res[0][key]]
+    if problems:
+        print("FAIL:\n  " + "\n  ".join(problems), file=sys.stderr)
+        raise SystemExit(1)
+    print(f"  ranks agree: {len(res[0]['events'])} router events, outcomes "
+          f"{res[0]['outcomes']}, {len(res[0]['tokens'])} requests' tokens "
+          f"identical on {args.mesh_model} ranks")
     print("OK")
 
 

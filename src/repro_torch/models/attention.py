@@ -220,7 +220,7 @@ def _local_kv(t: Tensor, h: int, cfg: ModelConfig) -> Tensor:
     return t.index_select(2, kv)
 
 
-def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, keep: Tensor,
+def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, keep: Optional[Tensor],
                  cfg: ModelConfig) -> Tensor:
     """:func:`_sdpa` over the cache for this rank's q heads. Under tensor
     parallelism it runs at the whole head count, the other ranks' heads
@@ -490,19 +490,27 @@ def cross_init(gen, cfg: ModelConfig, dtype, *, device, lead=()) -> dict:
 
 
 def cross_kv(p: dict, enc: Tensor, cfg: ModelConfig) -> dict:
-    """The encoder states' keys and values: (B, T, KV, hd) each."""
+    """The encoder states' keys and values: (B, T, KV, hd) each; under
+    tensor parallelism this rank's KV heads (all of them where they do not
+    split), read from the pieces' widths."""
     b, t, _ = enc.shape
-    return {"k": L.dense(enc, p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.hd),
-            "v": L.dense(enc, p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.hd)}
+    return {"k": L.dense(enc, p["wk"]).reshape(b, t, -1, cfg.hd),
+            "v": L.dense(enc, p["wv"]).reshape(b, t, -1, cfg.hd)}
 
 
 def cross_from_kv(p: dict, x: Tensor, kv: dict, cfg: ModelConfig) -> Tensor:
     """Queries from the decoder states x (B, S, d) against precomputed
-    encoder keys and values: plain attention, no mask."""
+    encoder keys and values: plain attention, no mask. Under tensor
+    parallelism the rank's q heads attend at the whole head count, as the
+    decode path's (:func:`_cached_sdpa`: the single device's batched GEMM
+    shapes, and a kv head kept whole where the kv heads do not split), and
+    ``wo`` runs row-parallel, as in :func:`gqa_apply`."""
     b, s, _ = x.shape
-    q = L.dense(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    out = _sdpa(q, kv["k"], kv["v"], None)
-    return L.dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"])
+    q = L.dense(x, p["wq"]).reshape(b, s, -1, cfg.hd)
+    h = q.shape[2]                       # this rank's heads (tp: H / tp)
+    out = _cached_sdpa(q, kv["k"], kv["v"], None, cfg)
+    return L.dense(out.reshape(b, s, h * cfg.hd), p["wo"],
+                   row_parallel=h != cfg.n_heads)
 
 
 def cross_apply(p: dict, x: Tensor, enc: Tensor, cfg: ModelConfig) -> Tensor:

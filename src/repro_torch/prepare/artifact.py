@@ -258,6 +258,10 @@ class PreparedModel:
     # offline work done anywhere since this artifact became ready
     baseline: Dict[str, int] = dataclasses.field(
         default_factory=counters_snapshot)
+    # this artifact's cuts by (mesh, specs): the servers that share the
+    # artifact on a rank share its cut (a router's replicas of one tier)
+    cuts: Dict[Any, "PreparedModel"] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def recomputed(self) -> int:
@@ -310,9 +314,13 @@ class PreparedModel:
         to the piece's own delta there, Eq. 9 across the join. The carry
         tables are built for the local y on the card (counted
         in ``built``, never in ``recomputed``); nothing is quantized or
-        derived again."""
+        derived again. The cut is made once for each mesh and spec tree:
+        a second call returns the first one's."""
         from repro_torch.dist import sharding
 
+        key = (mesh, repr(specs))
+        if key in self.cuts:
+            return self.cuts[key]
         params = sharding.shard_tree(self.params, specs, mesh)
         derived = {}
         for path, y in self.derived.items():
@@ -330,9 +338,10 @@ class PreparedModel:
                                      - w[..., j - 1].to(local.dtype))
             derived[path] = local
         pm = dataclasses.replace(self, params=params, derived=derived,
-                                 carry={}, built={})
+                                 carry={}, built={}, cuts={})
         pm.built = {"y": 0, "carry": pm.build_carry()}
         pm.baseline = counters_snapshot()
+        self.cuts[key] = pm
         return pm
 
     # -- persistence -------------------------------------------------------

@@ -74,12 +74,13 @@ in the same order, and no decision here reads a clock or another value
 that differs between ranks. The int8 layers give the single device's bits;
 what a partition sums in f32 in another order (a float row-parallel
 layer, the "ffn" experts' partials) rounds differently.
-The SSM and hybrid stacks serve on a mesh too: each rank holds its piece
-of every Mamba mixer's d_inner (or heads) and of its streaming state, runs
-K6 (Mamba1 prefill) on its own channels, and takes the scatter prefill in
-the same order as every other rank. ``paged=True`` with ``mesh=`` raises
-``NotImplementedError``, as the reference's does, and so does an
-encoder-decoder stack (ROADMAP queue 1 item 15c).
+Every family serves on a mesh. The SSM and hybrid stacks: each rank holds
+its piece of every Mamba mixer's d_inner (or heads) and of its streaming
+state, runs K6 (Mamba1 prefill) on its own channels, and takes the scatter
+prefill in the same order as every other rank. The encoder-decoder: each
+rank holds its heads of the encoder's attention, of every decoder layer's
+cross attention and of the cached cross K/V. ``paged=True`` with ``mesh=``
+raises ``NotImplementedError``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -228,10 +229,6 @@ class BatchServer:
                     "paged=True with mesh= is not supported yet (the page "
                     "pool is host-managed per device); use the contiguous "
                     "cache for tensor-parallel serving")
-            if model.cfg.encoder is not None:
-                raise NotImplementedError(
-                    f"tensor-parallel serving of the {model.cfg.family} "
-                    f"family (its encoder) is ROADMAP queue 1 item 15c")
             if mesh.size(dctx.MODEL) > 1 and not mesh.connected:
                 raise ValueError(f"{mesh} is shape-only: tensor-parallel "
                                  f"serving needs a process group")

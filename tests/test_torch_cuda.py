@@ -31,7 +31,8 @@ token-identical to its no-fault oracle on the card. The GEMM cases include
 minicpm-2b's local shapes at tensor-parallel size 2, and the
 tensor-parallel int8 layers equal the whole layer bit for bit on two
 ranks sharing the card; K6 on one rank's half of d_inner equals the whole
-K6's columns bit for bit.
+K6's columns bit for bit; whisper's frontend entry on two ranks gives one
+card's int8 tokens.
 """
 import numpy as np
 import pytest
@@ -1279,3 +1280,37 @@ def test_scan_on_a_rank_columns_equals_the_whole_scan(dev, rank):
     assert len(result) == 3
     for label, rec in result.items():
         assert rec["ok"] and rec["max_abs_err"] == 0.0, (label, rec)
+
+
+def test_frontend_entry_on_two_ranks_equals_one_card(dev):
+    """whisper-small at its published widths and 2 + 2 layers, the frontend
+    entry on two ranks sharing the card (repro_torch.dist.parity.
+    frontend_run: the encoder through K4 non-causal on a rank's 6 heads
+    over 1500 stub frames, the rank's cross K/V cached, then greedy decode
+    steps): int8 FFIP gives one card's tokens (its products sum in int32
+    and the cross attention keeps one card's batched shapes), float FFIP
+    prefill logits within the float token bar (0.6 sd) of one card's; both
+    ranks agree, and each launches K4 once a layer."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.dist import parity
+    from repro_torch.launch import serve as launch_serve
+
+    cfg = configs.get_config("whisper-small")
+    cfg = dataclasses.replace(cfg, n_layers=2, encoder=dataclasses.replace(
+        cfg.encoder, n_layers=2))
+    kw = dict(cfg=cfg, rows=2, prompt=16, steps=4, seed=0)
+    ranks = launch_serve.spawn_ranks(
+        2, [(parity.frontend_run, dict(kw, quantized=q))
+            for q in (False, True)], device="cuda", timeout_s=600)
+    for i, quantized in enumerate((False, True)):
+        single = parity.frontend_run(None, dev, quantized=quantized, **kw)
+        r0, r1 = ranks[0][i], ranks[1][i]
+        assert r1["tokens"] == r0["tokens"]
+        assert r0["launches"]["flash_fwd"] == 4
+        if quantized:
+            assert r0["tokens"] == single["tokens"]
+        else:
+            ref = single["first"]
+            assert float((r0["first"] - ref).abs().max() / ref.std()) < 0.6

@@ -6,10 +6,12 @@ minicpm-2b (GQA) and deepseek-v2-lite-16b (MLA + MoE, both partitions),
 float and int8 FFIP (the port's int8 GEMMs through gemm_impl="cuda", the
 kernels' plain versions here); a prepared artifact cut per rank serves
 them with recomputed == 0; decode_chunk=2 gives them too; paged with a
-mesh and a bad moe_partition are refused; the int8 column- and
+mesh and a bad moe_partition are refused, an encoder-decoder serves on a
+mesh; the int8 column- and
 row-parallel layers equal the whole layer bit for bit
 (repro_torch.dist.parity); the launcher's --mesh-model 2
---compare-single-device exits 0; and a rank that raises fails the run
+--compare-single-device exits 0, and with --replicas 2 --fault-plan flaky
+too, while --paged is refused; and a rank that raises fails the run
 within its time limit. The ranks are spawned once for all the serving
 cases (launch.serve.spawn_ranks: a file:// store under a temporary
 directory, one intra-op thread a rank)."""
@@ -33,7 +35,7 @@ from repro_torch.dist import context as dctx
 from repro_torch.dist import parity
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.model import Model
-from repro_torch.serve.batcher import BatchServer
+from repro_torch.serve.batcher import BatchServer, Request
 
 MAX_LEN = 48
 ARCHS = ("minicpm-2b", "deepseek-v2-lite-16b")
@@ -222,11 +224,14 @@ def test_mesh_rejects_paged_and_bad_moe_partition():
     with pytest.raises(ValueError, match="moe_partition"):
         BatchServer(model, batch_slots=2, max_len=MAX_LEN, device="cpu",
                     moe_partition="bogus")
+    # an encoder-decoder serves on a mesh (tests/test_torch_dist_families.py
+    # holds it to the reference at tp 2)
     encdec = Model(configs.smoke_config(configs.get_config("whisper-small")),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15c"):
-        BatchServer(encdec, batch_slots=2, max_len=MAX_LEN, device="cpu",
-                    mesh=mesh)
+    srv = BatchServer(encdec, batch_slots=2, max_len=MAX_LEN, device="cpu",
+                      mesh=mesh)
+    srv.submit(Request(rid=0, prompt=np.arange(5), max_new_tokens=2))
+    assert len(srv.run_until_drained(encdec.init(0))[0].out_tokens) == 2
 
 
 def test_launch_serve_mesh_model_compare_single_device(capsys):
@@ -238,10 +243,19 @@ def test_launch_serve_mesh_model_compare_single_device(capsys):
     assert "gloo on cpu, cpu" in out
     assert "compare-single-device: 9 tokens identical at tp=2" in out
     assert out.rstrip().endswith("OK")
-    for argv in (["--replicas", "2"], ["--paged"]):
-        with pytest.raises(SystemExit, match="item 15"):
-            launch_serve.main(["--arch", "minicpm-2b", "--smoke", "--device",
-                               "cpu", "--mesh-model", "2"] + argv)
+    with pytest.raises(SystemExit, match="paged"):
+        launch_serve.main(["--arch", "minicpm-2b", "--smoke", "--device",
+                           "cpu", "--mesh-model", "2", "--paged"])
+    # the router's replicas on the mesh, under the flaky fault plan: every
+    # request DONE with its oracle's tokens, the ranks' routers in step
+    launch_serve.main(["--arch", "minicpm-2b", "--smoke", "--device", "cpu",
+                       "--slots", "2", "--requests", "3", "--max-new", "3",
+                       "--mesh-model", "2", "--replicas", "2",
+                       "--fault-plan", "flaky"])
+    out = capsys.readouterr().out
+    assert "3/3 done" in out and "faults[" in out
+    assert "3 requests' tokens identical on 2 ranks" in out
+    assert out.rstrip().endswith("OK")
 
 
 def test_a_failed_rank_fails_the_run_in_time():

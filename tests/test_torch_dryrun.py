@@ -13,11 +13,12 @@ against the reference's, on the CPU and the meta device.
 * ``report``: its table rows equal the reference's on two fixture result
   files (each package's ``RESULTS`` pointed at them), and ``-`` with the
   reason for a null collective term;
-* the CLI writes only into ``--out``;
+* the CLI writes only into ``--out``; a serving cell of whisper-small has
+  its collective term, a training cell none, naming ROADMAP item 15d;
 * ``served_steps`` traced on meta: the predicted launches of a served
   prefill and decode step, and one rank's collectives at tp 2 on a
   shape-only mesh equal to what each of two connected gloo ranks counts
-  on the CPU.
+  on the CPU (minicpm-2b, falcon-mamba-7b, whisper-small, gemma3-4b).
 """
 import dataclasses
 import json
@@ -173,12 +174,20 @@ def test_cli_writes_only_into_out(tmp_path, capsys):
                         "--out", str(out)]) == 0
     assert dryrun.main(["--arch", "whisper-small", "--shape", "decode_32k",
                         "--out", str(out)]) == 0
+    assert dryrun.main(["--arch", "whisper-small", "--shape", "train_4k",
+                        "--out", str(out)]) == 0
     files = sorted(p.name for p in tmp_path.rglob("*") if p.is_file())
     assert files == ["minicpm-2b__long_500k__16x16.json",
-                     "whisper-small__decode_32k__16x16.json"]
+                     "whisper-small__decode_32k__16x16.json",
+                     "whisper-small__train_4k__16x16.json"]
+    # every serving cell has one rank's collectives; a training cell's
+    # term is null, with the reason
     r = json.loads((out / files[1]).read_text())
+    assert r["status"] == "ok" and r["collective_s"] is not None
+    assert r["collective_counts"]["all-reduce"] > 0
+    r = json.loads((out / files[2]).read_text())
     assert r["status"] == "ok" and r["collective_s"] is None
-    assert "15c" in r["collective_reason"]
+    assert "15d" in r["collective_reason"]
     assert "OK   whisper-small x decode_32k" in capsys.readouterr().out
     assert report.main(["--dir", str(out)]) == 0
 
@@ -207,7 +216,8 @@ def test_served_steps_predicted_launches(quantized):
 
 def test_one_rank_s_collectives_equal_the_connected_ranks():
     runs = [("minicpm-2b", False), ("minicpm-2b", True),
-            ("falcon-mamba-7b", True)]
+            ("falcon-mamba-7b", True), ("whisper-small", False),
+            ("gemma3-4b", True)]
     job_list = [(jobs.decode_collectives, dict(cfg=_smoke(a), quantized=q))
                 for a, q in runs]
     ranks = launch_serve.spawn_ranks(2, job_list, device="cpu",

@@ -43,17 +43,30 @@ def serve_ssm_tokens(mesh, device, *, cfg, params, prompts, max_new,
                                       prompts, max_new=max_new, mesh=mesh,
                                       prepared=pm, **server_kw)
     group = "layers" if cfg.family == "ssm" else "hybrid_groups"
-
-    def shapes(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: v for key, sub in tree.items()
-                    for k, v in shapes(sub, f"{prefix}{key}/").items()}
-        return {prefix[:-1]: tuple(tree.shape)}
-
     return dict(tokens={r.rid: list(r.out_tokens) for r in done},
-                shapes=shapes(srv._prepared_params[group]["ssm"]),
-                cache=shapes(srv.cache[group]),
+                shapes=leaf_shapes(srv._prepared_params[group]["ssm"]),
+                cache=leaf_shapes(srv.cache[group]),
                 recomputed=None if pm is None else pm.recomputed)
+
+
+def leaf_shapes(tree, prefix=""):
+    """{"a/b/c": shape} of every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in leaf_shapes(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tuple(tree.shape)}
+
+
+def serve_pieces(mesh, device, *, cfg, params, prompts, max_new, server_kw):
+    """The prompts served through BatchServer(mesh=) on ``params`` (the
+    whole tree, the same on every rank): the tokens and the shape of every
+    local leaf of the served params and of the slot cache."""
+    srv, done, _ = launch_serve.serve(Model(cfg, device=device), params,
+                                      prompts, max_new=max_new, mesh=mesh,
+                                      **server_kw)
+    return dict(tokens={r.rid: list(r.out_tokens) for r in done},
+                params=leaf_shapes(srv._prepared_params),
+                cache=leaf_shapes(srv.cache))
 
 
 def contiguous_in_proj(specs):
