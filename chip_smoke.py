@@ -87,7 +87,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through the kernels give the host's tokens.
 4. Serve minicpm-2b at its published widths (random weights from --seed)
    through ``BatchServer(gemm_impl="cuda")``: 4 slots, 8 requests of 16-128
-   prompt tokens, 16 new tokens each, once each with gemm_algo ffip, fip and
+   prompt tokens, 8 new tokens each, once each with gemm_algo ffip, fip and
    baseline and once int8 (quantized, ffip). Launch counts are zeroed just
    before each run and read just after. Every request must complete with its
    exact budget.
@@ -120,7 +120,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. Serve minicpm-2b paged (``paged=True``, K5 for all attention): 4 slots,
    max_len 256 in pages of 16, prefill chunks of 64, 8 prompts of 16-128
    tokens (the even ones behind a shared 64-token prefix, the last a copy of
-   the first), 16 new tokens each: flash ffip at decode_chunk 4 and flash
+   the first), 8 new tokens each: flash ffip at decode_chunk 4 and flash
    int8 at decode_chunk 1, their first and second tokens held to the plain
    path under the same bars. Then, at the first IDENTITY_LAYERS layers:
    int8 and float FFIP with every prompt in one chunk must give the tokens
@@ -182,7 +182,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    time), every replica sharing its weights and its tier's one
    ``repro_torch.prepare`` preparation (float or int8: no server derives y,
    carry tables or int8 weights), 2 slots each, the
-   prompts of 4., 16 new tokens: no-fault oracles (ffip with the profiler
+   prompts of 4., 8 new tokens: no-fault oracles (ffip with the profiler
    hooks toggled every step, its decode ms/step with them off and on
    printed; int8-ffip; paged flash fip), then ``ReplicaRouter`` on a FakeClock over ffip +
    int8-ffip under each fault plan of tests/test_serve_router.py (raise,
@@ -197,7 +197,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (tighten, probe and recover counted, the alert cleared) and one
    ``launch.dash`` frame.
 10. The Mamba1 path (phase ssm): falcon-mamba-7b at its published widths and
-   40 of its 64 layers (SSM_SERVE_LAYERS), bf16, random weights from --seed, served as in
+   20 of its 64 layers (SSM_SERVE_LAYERS), bf16, random weights from --seed, served as in
    4. (every prompt in its own scatter-prefill dispatch) with ffip, fip,
    baseline and int8 ffip. Each run must meet every budget, launch its GEMM
    kernel, and launch K6 exactly once per layer per prompt. Tokens against
@@ -222,7 +222,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    through the plain path: where the plain path's last loss falls below its
    first, the kernels' must too.
 12. The MLA + MoE path (phase moe): deepseek-v2-lite-16b at its published
-   widths and 8 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
+   widths and 4 of its 27 layers (MOE_SERVE_LAYERS), bf16, random weights
    from --seed, served as in 4.
    with ffip, fip, baseline and int8 ffip (every prefill dispatch launches
    K4 at d 192 / dv 128 once per layer, decode attends through the absorbed
@@ -240,10 +240,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 13. The other LM families (phase families, FAMILY_RUNS), each at its
    published widths, bf16, random weights from --seed: gemma3-4b at 34
    layers (5 local : 1 global, windows of 1024, thetas 1e4 / 1e6, K4, K8
-   and K5 at d 256), mixtral-8x22b at 12 of 56 (GQA 48 : 8 + MoE 8 experts
-   top-2, window 4096), starcoder2-3b at 16 of 30 (layernorm, gelu, a qkv bias,
-   GQA 24 : 2) and deepseek-coder-33b at 19 of 62 (GQA 56 : 8), the cuts
-   being one card's memory. Each is served contiguous (gemma3 ffip,
+   and K5 at d 256), mixtral-8x22b at 6 of 56 (GQA 48 : 8 + MoE 8 experts
+   top-2, window 4096), starcoder2-3b at 8 of 30 (layernorm, gelu, a qkv bias,
+   GQA 24 : 2) and deepseek-coder-33b at 10 of 62 (GQA 56 : 8), the cuts
+   being the run's time. Each is served contiguous (gemma3 ffip,
    baseline and int8 ffip; the others ffip and int8 ffip) and, but for
    deepseek-coder, paged (flash ffip) as in 4. and 6., every prefill
    dispatch launching K4 once a layer and every paged one K5; gemma3's and
@@ -307,9 +307,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ranks' router events, outcomes and tokens identical. Each rank's peak
    memory and launches are printed, and the kernels line carries each
    rank's launches of this phase.
+14c. Training on a mesh (phase dist train, DIST_TRAIN_RUNS), two gloo
+   ranks sharing the card in one ``spawn_ranks``, each run on its own
+   ("data", "model") mesh over them, at the published widths:
+   minicpm-2b at 4 layers, 4 x 256, at (2, 1) and (1, 2); falcon-mamba-7b
+   at 4, 2 x 256, at (1, 2) (K6 and K9 on a rank's 4096 of 8192 channels)
+   and (2, 1); deepseek-v2-lite-16b at 3, 2 x 256, at (1, 2) "expert" and
+   "ffn" and (2, 1). Each rank holds its pieces of the weights and of
+   AdamW's moments (``train_specs``: the ZeRO "data" cut and the "model"
+   cut) and takes DIST_TRAIN_STEPS steps on the pipeline's global batches.
+   Step 0's gradients, every leaf gathered whole, must read under GRAD_BAR
+   (per-leaf relative L2) against one card's step on the whole weights
+   (rank 0; the MoE with the mesh run's gathered expert choices), and a
+   planted fault (minicpm-2b at (1, 2): rank 1's piece of a middle layer's
+   attn.wo taken from the next layer) above it; the losses are printed
+   beside one card's. deepseek's keep masks at (2, 1) must equal, bit for
+   bit, the global rule applied to the ranks' gathered expert choices.
+   Each rank's collectives of step 0 must equal the meta-device trace's
+   (``launch.dryrun.train_collectives``); every rank must launch K4 and K8
+   (falcon: K6 and K9) once a layer a step and nothing else. minicpm-2b's
+   state is saved at (2, 1) (``CheckpointManager.save(shardings=)``, whole
+   leaves from rank 0) and restored at (1, 2) (``restore(shardings=)``):
+   the restored params and moments, gathered whole on each rank, must
+   equal the saved leaves bit for bit, and the next step's loss lie within
+   DIST_TRAIN_LOSS_RTOL of the unbroken run's. The kernels line carries
+   each rank's launches of this phase.
 15. The Mamba2 + shared attention hybrid (phase hybrid): zamba2-1.2b at its
-   published widths and all 38 layers (6 groups of 6 Mamba2 layers, each
-   group followed by the one shared GQA block, then a tail of 2), bf16,
+   published widths and HYBRID_LAYERS of its 38 layers (3 groups of 6
+   Mamba2 layers, each group followed by the one shared GQA block, then a
+   tail of 2; the run's time), bf16,
    random weights from --seed, served as in 4. with ffip, fip, baseline and
    int8 ffip: every prompt in its own scatter-prefill dispatch (the state
    has no sequence axis to bucket), each dispatch launching K4 once per
@@ -570,8 +596,8 @@ PAGED_SLOTS, PAGED_MAX_LEN, PAGE_SIZE, PREFILL_CHUNK = 4, 256, 16, 64
 # Phase fleet: 2-slot replicas behind the router; the fault plans of
 # tests/test_serve_router.py (replica 0, seed 3): kind -> (at_dispatch,
 # duration). The poison window is stretched from 8 to 24 dispatches: a
-# poison fires only on a completion, and with 16 new tokens replica 0's
-# first one comes at its 16th dispatch (5 new tokens in the test).
+# poison fires only on a completion, and with 8 new tokens replica 0's
+# first one comes at its 8th dispatch (5 new tokens in the test).
 FLEET_SLOTS = 2
 FLEET_PLANS = {"raise": (1, 2), "hang": (1, 2), "exhaust": (0, 3),
                "poison": (0, 24)}
@@ -612,14 +638,13 @@ HEADLINE_SCAN_BWD = "train B 2 S 256"
 # more than the card's 80 GB; 48 layers (5.3 B params, ~64 GB) leave room
 # for the activations and AdamW's f32 slices.
 TRAIN_RUNS = (("minicpm-2b", 40, 4, 256), ("falcon-mamba-7b", 48, 2, 256))
-# Depth of the served runs of phases ssm and moe: falcon-mamba-7b at 40 of
-# its 64 layers, deepseek-v2-lite-16b at 8 of 27, widths kept, so that the
-# whole run, phases encdec, fleet and dist included, stays under its 1200-s
-# limit: at their published depths it took 837.9 s before phases encdec
-# and fleet on an H100 (PERF.md section 4); at 14 of 27 deepseek's phase
-# took 126.1 s, and the whole run with phase dist 1226.1 s (PR 27).
-SSM_SERVE_LAYERS = 40
-MOE_SERVE_LAYERS = 8
+# Depth of the served runs of phases ssm and moe: falcon-mamba-7b at 20 of
+# its 64 layers, deepseek-v2-lite-16b at 4 of 27, widths kept, so that the
+# whole run, the mesh phases included, stays under its 1200-s limit on a
+# card whose host runs slow (at 40 and 8 a run took 1368.1 s on one H100;
+# at their published depths 837.9 s before phases encdec and fleet).
+SSM_SERVE_LAYERS = 20
+MOE_SERVE_LAYERS = 4
 # phase moe: deepseek-v2-lite-16b (MLA + MoE) served at its published widths
 # (27 layers: 15.7 B parameters, 31 GB in bf16; MOE_SERVE_LAYERS of them
 # here), and trained at 10 of 27:
@@ -641,28 +666,29 @@ MOE_TRAIN_RUNS = ((MOE_ARCH, 10, 2, 256),)
 #   mask inside K4 at prefill and K5 paged), and trained at batch 1 x 1536
 #   through K4 + K8 at (256, 256): 3.88 B x 12 B (bf16 params and grads, f32
 #   moments) = 47 GB plus activations.
-# - mixtral-8x22b at 12 of 56 layers: a layer is 2.47 B params of experts
-#   (4.5 GiB in bf16; the expert einsums are library calls, with no derived
-#   copies) and 88 M of attention (0.6 GiB in int8 FFIP). At 12 layers the
-#   int8 run with a prompt of 4200-4399 tokens (past its window of 4096; a 4
-#   x 4608-row prefill dispatch, ~6 GiB of capacity buffers) peaked at 69.5
-#   GiB on the H100; at 13 it peaked at 75.4 GiB of the card's 79.2, and the
-#   planted fault's run (a copy of the faulty attn.wo beside the weights)
-#   then ran out of memory.
-# - starcoder2-3b at 16 of 30 layers (the run's time; at 30, 4.16 B params,
+# - mixtral-8x22b at 6 of 56 layers (the run's time; 12 fit): a layer is
+#   2.47 B params of experts (4.5 GiB in bf16; the expert einsums are
+#   library calls, with no derived copies) and 88 M of attention (0.6 GiB
+#   in int8 FFIP). At 12 layers the int8 run with a prompt of 4200-4399
+#   tokens (past its window of 4096; a 4 x 4608-row prefill dispatch, ~6
+#   GiB of capacity buffers) peaked at 69.5 GiB on the H100; at 13 it
+#   peaked at 75.4 GiB of the card's 79.2, and the planted fault's run (a
+#   copy of the faulty attn.wo beside the weights) then ran out of memory.
+# - starcoder2-3b at 8 of 30 layers (the run's time; at 30, 4.16 B params,
 #   it served in 55.2 s of PR 27's run).
-# - deepseek-coder-33b at 19 of 62 layers: 0.53 B params a layer (3.5 GiB
-#   in int8 FFIP). At 18 layers the int8 run peaked at 66.3 GiB on the
-#   H100, so 19 take ~69.8 GiB and its planted fault's run ~71.6 (a copy of
-#   attn.wo); 20 (~75 GiB) is where mixtral's fault run failed.
+# - deepseek-coder-33b at 10 of 62 layers (the run's time; 19 fit): 0.53
+#   B params a layer (3.5 GiB in int8 FFIP). At 18 layers the int8 run
+#   peaked at 66.3 GiB on the H100, so 19 take ~69.8 GiB and its planted
+#   fault's run ~71.6 (a copy of attn.wo); 20 (~75 GiB) is where mixtral's
+#   fault run failed.
 FAMILY_RUNS = (
     ("gemma3-4b", "gemma3", 34, 1536, (1100, 1500),
      (("ffip", False), ("baseline", False), ("ffip", True)), True, (1, 1536)),
-    ("mixtral-8x22b", "mixtral", 12, 4608, (4200, 4400),
+    ("mixtral-8x22b", "mixtral", 6, 4608, (4200, 4400),
      (("ffip", False), ("ffip", True)), True, None),
-    ("starcoder2-3b", "starcoder2", 16, 256, None,
+    ("starcoder2-3b", "starcoder2", 8, 256, None,
      (("ffip", False), ("ffip", True)), True, None),
-    ("deepseek-coder-33b", "deepseek-coder", 19, 256, None,
+    ("deepseek-coder-33b", "deepseek-coder", 10, 256, None,
      (("ffip", False), ("ffip", True)), False, None),
 )
 # phase encdec: whisper-small (the encoder-decoder) at its published 12 + 12
@@ -673,14 +699,17 @@ FAMILY_RUNS = (
 # patches and a PIXTRAL_PROMPT-token prompt. pixtral's layer holds 273 M
 # parameters, its untied embeddings 1.34 G; a served run's peak is about 7 B
 # a parameter in int8 FFIP (deepseek-coder-33b's 70.6 GiB at 10.5 B), so 32
-# layers (10.1 B) take about 67 GiB of the card's 79. whisper is trained at
+# layers (10.1 B) would take about 67 GiB of the card's 79; 16 keep the
+# run's time. whisper is trained at
 # WHISPER_TRAIN: batch 2 x 448 decoder tokens (its decoder's length) over
 # 1500 frames.
-# phase hybrid: zamba2-1.2b at its published widths and all 38 layers (1.06
-# B parameters, 2.1 GB in bf16), trained at HYBRID_TRAIN (bf16 params and
+# phase hybrid: zamba2-1.2b at its published widths and HYBRID_LAYERS of
+# its 38 layers (the run's time; at 38, 1.06 B parameters, 2.1 GB in bf16,
+# it took 124.4 s of the run), trained at HYBRID_TRAIN (bf16 params and
 # grads and f32 AdamW moments: ~13 GB); its gradient reading at 2 groups of
 # 6 Mamba2 layers, each with its shared attention block.
 HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_LAYERS = 20
 HYBRID_TRAIN = (2, 256)
 HYBRID_GRAD_LAYERS = 12
 # phase tune: the M buckets minicpm-2b's served runs dispatch (decode: 4
@@ -713,7 +742,8 @@ DIST_LAYER_SHAPES = tuple((m, k, n) for m in (4, 512) for k, n in (
     (2304, 2304), (2304, 5760), (5760, 2304)))
 # phase dist, the sharded scan (run inside phase hybrid, whose zamba2 runs
 # and plain paths it reads against): falcon-mamba-7b at its published widths
-# and DIST_SSM_LAYERS of 64 layers (the run's time), zamba2-1.2b at all 38,
+# and DIST_SSM_LAYERS of 64 layers (the run's time), zamba2-1.2b at
+# HYBRID_LAYERS,
 # each served float and int8 FFIP at tp 2, falcon's planted fault (in_proj
 # cut contiguously over x | z, the layout bug the halves cut prevents); the
 # mixers at both archs' full widths against the whole mixer (B x S of
@@ -725,7 +755,7 @@ DIST_MIXER_CASES = ((4, 1), (1, 128))
 DIST_SCAN_CASES = ((1, 128), (2, 256))
 ENCDEC_ROWS = 4
 WHISPER_PROMPT = 32
-PIXTRAL_LAYERS = 32
+PIXTRAL_LAYERS = 16
 PIXTRAL_PROMPT = 128
 WHISPER_TRAIN = (2, 448)
 # the served prompt that the long one replaces: odd (not behind the paged
@@ -3336,16 +3366,20 @@ def _leaf_names(tree, prefix=""):
 
 def one_step_grads(model, params, batch):
     """(loss, {leaf path: gradient}) of one training step's loss, on a copy
-    of ``params`` (the reference's value_and_grad)."""
+    of ``params``, as the train step computes them (``train.step.
+    value_and_grad``, the reference's value_and_grad)."""
     from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
 
-    p = adamw.tree_map(lambda t: t.detach().clone().requires_grad_(True),
-                       params)
-    leaves = adamw.tree_leaves(p)
-    with torch.enable_grad():
-        loss = model.loss(p, batch)
-        grads = torch.autograd.grad(loss, leaves)
-    return float(loss.detach()), dict(zip(_leaf_names(p), grads))
+    p = adamw.tree_map(lambda t: t.detach().clone(), params)
+    loss, grads = tstep.value_and_grad(model, p, batch)
+    return float(loss), dict(zip(_leaf_names(p), adamw.tree_leaves(grads)))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors hold the same dtype, shape and bits."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
 
 
 def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4071,7 +4105,7 @@ def run_encdec(args, readings: Readings, problems):
 
 
 def run_hybrid(args, readings: Readings, problems):
-    """zamba2-1.2b at its published widths and all 38 layers through the
+    """zamba2-1.2b at its published widths and HYBRID_LAYERS layers through the
     Mamba2 + shared attention path: served four ways (every prompt its own
     scatter prefill, K4 once per group's shared block, the projections
     through K1-K3, the SSD in torch ops), tokens held to the plain path
@@ -4085,7 +4119,8 @@ def run_hybrid(args, readings: Readings, problems):
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    cfg = configs.get_config(HYBRID_ARCH)
+    full = configs.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS)
     s_cfg = cfg.ssm
     period = cfg.hybrid_attn_period
     n_groups = cfg.n_layers // period
@@ -4098,7 +4133,7 @@ def run_hybrid(args, readings: Readings, problems):
           f"{cfg.n_heads}x{cfg.hd} (kv {cfg.n_kv_heads}) after each of "
           f"{n_groups} groups of {period}, a tail of "
           f"{cfg.n_layers - n_grouped}; vocab {cfg.vocab}, {cfg.param_dtype}, "
-          f"tied; n_layers {cfg.n_layers} (published), "
+          f"tied; n_layers {cfg.n_layers} (published {full.n_layers}), "
           f"{cfg.param_count() / 1e9:.3f} B params", flush=True)
     model = Model(cfg)
     params = model.init(args.seed)
@@ -4723,7 +4758,7 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
     against the whole mixer (``repro_torch.dist.parity``), each mixer's
     output deviation read in sd of the whole mixer's output beside the
     token readings; falcon-mamba-7b at DIST_SSM_LAYERS and zamba2-1.2b at
-    all 38 layers, float and int8 FFIP, each read against the plain path
+    HYBRID_LAYERS, float and int8 FFIP, each read against the plain path
     under the bars beside the count of tokens equal to a single card
     (falcon: a single-device run at the same depth, read against its own
     plain paths; zamba2: phase hybrid's runs and plain paths, ``zamba``).
@@ -4758,8 +4793,8 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
     f_prompts = served_prompts(f_cfg.vocab, args.seed)
     fc = dict(arch="falcon-mamba-7b", layers=DIST_SSM_LAYERS, seed=args.seed,
               prompts=f_prompts, max_new=DIST_MAX_NEW)
-    zc = dict(arch=HYBRID_ARCH, seed=args.seed, prompts=zamba["prompts"],
-              max_new=DIST_MAX_NEW)
+    zc = dict(arch=HYBRID_ARCH, layers=z_cfg.n_layers, seed=args.seed,
+              prompts=zamba["prompts"], max_new=DIST_MAX_NEW)
     checks = [(parity.scan_columns, dict(di=f_di, n=f_cfg.ssm.d_state,
                                          cases=DIST_SCAN_CASES)),
               (parity.mixer_parity, dict(arch="falcon-mamba-7b",
@@ -4897,14 +4932,14 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
 #   where the parent's single-card model (~21 GB) no longer fits beside
 #   them. Its config's "ffn" partition (float and int8) and the "expert"
 #   one (int8).
-# - starcoder2-3b, deepseek-coder-33b and pixtral-12b at 8 layers (the
-#   phase's time; deepseek-coder's 4.7 B parameters at 8 are ~27 GB a rank
+# - starcoder2-3b, deepseek-coder-33b and pixtral-12b at 4 layers (the
+#   run's time; deepseek-coder's 4.7 B parameters at 8 were ~27 GB a rank
 #   in int8 FFIP).
 # - whisper-small at its published 12 + 12.
 # Beside them: the planted fault (gemma3, float: rank 1's piece of layer
 # 0's ffn.down taken from rank 0's), the frontend entry points at tp 2
 # (whisper: ENCDEC_ROWS x 1500 stub frames through the encoder, K4
-# non-causal at BH 4 x 6; pixtral at its 8 layers: 256 patches + a
+# non-causal at BH 4 x 6; pixtral at its 4 layers: 256 patches + a
 # PIXTRAL_PROMPT-token prompt), one decode step's collectives of whisper
 # and gemma3 against the meta-device trace, and the router's replicas on
 # the mesh (minicpm-2b at DIST_ROUTER_LAYERS: --replicas 2
@@ -4912,9 +4947,9 @@ def run_dist_ssm(args, readings: Readings, problems, zamba: dict):
 DIST_FAMILY_RUNS = (
     ("gemma3-4b", "gemma3", 6, 1536, (1100, 1500)),
     ("mixtral-8x22b", "mixtral", 2, 256, None),
-    ("starcoder2-3b", "starcoder2", 8, 256, None),
-    ("deepseek-coder-33b", "deepseek-coder", 8, 256, None),
-    ("pixtral-12b", "pixtral", 8, 256, None),
+    ("starcoder2-3b", "starcoder2", 4, 256, None),
+    ("deepseek-coder-33b", "deepseek-coder", 4, 256, None),
+    ("pixtral-12b", "pixtral", 4, 256, None),
     ("whisper-small", "whisper", 12, 256, None),
 )
 DIST_ROUTER_LAYERS = 8
@@ -5209,6 +5244,349 @@ def run_dist_families(args, readings: Readings, problems, encdec):
 # phase reports: the prompt length of its bucketed prefill dispatch (4
 # slots), the runs each dispatch is timed over, and the largest roofline
 # share a dispatch may read (above it the cost model overcounts)
+# phase dist train (ROADMAP item 15d): training on a ("data", "model") mesh
+# of two gloo ranks sharing the card, at the published widths: (arch,
+# layers, batch, seq, ((mesh shape, moe_partition), ...)). Each run takes
+# DIST_TRAIN_STEPS AdamW steps against one card's at the same depth and
+# batch. minicpm-2b's 4 layers and falcon-mamba-7b's and deepseek's 2 x 256
+# batches keep the phase near two minutes: each gloo all-reduce crosses the
+# host, the ZeRO gathers of a (2, 1) mesh every weight a step.
+DIST_TRAIN_RUNS = (
+    ("minicpm-2b", 4, 4, 256, (((2, 1), "expert"), ((1, 2), "expert"))),
+    ("falcon-mamba-7b", 4, 2, 256, (((1, 2), "expert"), ((2, 1), "expert"))),
+    ("deepseek-v2-lite-16b", 3, 2, 256, (((1, 2), "expert"), ((1, 2), "ffn"),
+                                         ((2, 1), "expert"))))
+DIST_TRAIN_STEPS = 2
+# the loss of a step after a restore across mesh shapes against the
+# unbroken run's: both are bf16 steps of the same state, rounded in other
+# places. The restored state itself is held to the saved bits.
+DIST_TRAIN_LOSS_RTOL = 1e-3
+
+
+def dist_train_job(mesh, device, *, arch: str, layers: int, batch_size: int,
+                   seq: int, seed: int, runs, fault: bool = False,
+                   ckpt_dir: str = "", smoke: bool = False):
+    """A rank's part of phase dist train for one arch: for each (mesh
+    shape, moe_partition) of ``runs``, a ("data", "model") mesh over the
+    two ranks, the rank's pieces of the whole weights from ``seed``
+    (``train_specs``) and DIST_TRAIN_STEPS AdamW steps on the pipeline's
+    global batches (every rank the same). Step 0 records the routing, the
+    collectives and the gradients, gathered whole; rank 0 then takes one
+    card's step on the whole weights (an MoE with the mesh run's gathered
+    expert choices: ``routing``) and reads each leaf's relative L2 error.
+    With ``fault``, rank 1's piece of a middle layer's output projection
+    taken from the next layer's, at the "model" mesh. With ``ckpt_dir``
+    the (2, 1) state is saved after its steps and a third step taken (the
+    unbroken run); the (1, 2) run restores it (``restore(shardings=)``)
+    and takes the same step. Returns one record a run: losses, readings,
+    keep-mask mismatches, collectives, launches, times and peak memory.
+    ``smoke``: the smoke widths (a rehearsal on the CPU)."""
+    from repro_torch import configs
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist import parity
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import compat
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    base = _dist_train_cfg(arch, layers, smoke)
+    data = SyntheticLM(DataConfig(global_batch=batch_size, seq_len=seq,
+                                  vocab=base.vocab, seed=seed))
+    cuda = device.type == "cuda"
+    batches = [{k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(i).items()}
+               for i in range(DIST_TRAIN_STEPS + 1)]
+    tcfg = tstep.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=TRAIN_LR, schedule="const", warmup_steps=1))
+    params = Model(base, device=device).init(seed)
+    names = _leaf_names(params)
+    stack, group, proj = (("layers", "ssm", "out_proj") if base.ssm
+                          else ("layers", "attn", "wo"))
+
+    def sync_s(t):
+        if cuda:
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t
+
+    out = []
+    for shape, part in runs:
+        cfg = base if base.moe is None else dataclasses.replace(
+            base, moe=dataclasses.replace(base.moe, partition=part))
+        model = Model(cfg, device=device)
+        m = dctx.make_mesh(shape, ("data", dctx.MODEL))
+        specs = shd.train_specs(params, m, cfg)
+        full = shd.Shardings(tstep.state_specs(specs), m)
+        pieces = shd.own_pieces(params, specs, m)
+        opt = adamw.init(pieces)
+        step = tstep.make_train_step(model, tcfg, specs=specs)
+        rec = dict(shape=shape, part=part, losses=[], step_s=[],
+                   peak_gib=0.0)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        compat.reset_counters()
+        with dctx.mesh_context(m):
+            got: list = []
+            t = time.perf_counter()
+            with parity.record_routing() as rr, routing() as chosen, \
+                    dctx.record_collectives() as coll:
+                pieces, opt, met = step(pieces, opt, batches[0],
+                                        grads_out=got)
+            rec["step_s"].append(sync_s(t))
+            rec["losses"].append(float(met["loss"]))
+            for i in range(1, DIST_TRAIN_STEPS):
+                t = time.perf_counter()
+                pieces, opt, met = step(pieces, opt, batches[i])
+                rec["step_s"].append(sync_s(t))
+                rec["losses"].append(float(met["loss"]))
+            rec["launches"] = compat.launch_counts()
+            rec["collectives"] = coll
+            rec["keep"] = parity.keep_mismatches(rr, cfg)
+            choices = [dctx.all_gather(c, 0, dctx.batch_axes())
+                       for c in chosen]
+            with torch.no_grad():
+                whole = dict(zip(names, adamw.tree_leaves(
+                    shd.unshard_tree(got[0], specs))))
+            del got, rr
+            if cuda:
+                rec["peak_gib"] = (torch.cuda.max_memory_allocated(device)
+                                   / 2 ** 30)
+            if ckpt_dir and shape == (2, 1):
+                CheckpointManager(ckpt_dir).save(
+                    DIST_TRAIN_STEPS, (pieces, opt), shardings=full)
+                _, _, met = step(pieces, opt, batches[DIST_TRAIN_STEPS])
+                rec["loss_unbroken"] = float(met["loss"])
+            if ckpt_dir and shape == (1, 2):
+                mgr = CheckpointManager(ckpt_dir)
+                state, _ = mgr.restore((pieces, opt), shardings=full)
+                # the restored pieces gathered whole against the saved
+                # leaves, read back whole
+                with torch.no_grad():
+                    back = shd.unshard_tree(state, full.specs)
+                saved = adamw.tree_leaves(mgr.restore(adamw.tree_map(
+                    lambda t: torch.empty(t.shape, dtype=t.dtype), back))[0])
+                back = adamw.tree_leaves(back)
+                rec["restored_leaves"] = (sum(
+                    not _same_bits(a.cpu(), b)
+                    for a, b in zip(back, saved)), len(saved))
+                del back, saved
+                _, _, met = step(*state, batches[DIST_TRAIN_STEPS])
+                rec["loss_restored"] = float(met["loss"])
+                del state
+        del pieces, opt
+        ref = None
+        if mesh.rank == 0:
+            # one card: the same step on the whole weights
+            t = time.perf_counter()
+            with routing(choices if cfg.moe else None):
+                loss, ref = one_step_grads(model, params, batches[0])
+            p1 = adamw.tree_map(torch.clone, params)
+            adamw.update(tcfg.optimizer, adamw.tree_unflatten(
+                params, [ref[n] for n in names]), adamw.init(p1), p1)
+            with torch.no_grad():
+                loss1 = float(model.loss(p1, batches[1]))
+            del p1
+            rec["one_card"] = dict(losses=[loss, loss1], s=sync_s(t))
+            rec["rel_l2"] = {n: _rel_l2(whole[n], ref[n]) for n in names}
+        del whole
+        if fault and shape == (1, 2):
+            n_layers = params[stack][group][proj]["w"].shape[0]
+            mid = (n_layers - 1) // 2
+            pf = shd.own_pieces(params, specs, m)
+            w = pf[stack][group][proj]["w"]
+            if m.index(dctx.MODEL) == 1:
+                w[mid].copy_(w[mid + 1])
+            got = []
+            with dctx.mesh_context(m):
+                step(pf, adamw.init(pf), batches[0], grads_out=got)
+                with torch.no_grad():
+                    faulty = dict(zip(names, adamw.tree_leaves(
+                        shd.unshard_tree(got[0], specs))))
+            del pf, got
+            if ref is not None:
+                rec["fault"] = (f"rank 1's piece of {stack}.{group}.{proj}"
+                                f"[{mid}] from layer {mid + 1}",
+                                max(_rel_l2(faulty[n], ref[n])
+                                    for n in names))
+            del faulty
+        del ref, choices
+        out.append(rec)
+    return out
+
+
+def _dist_train_cfg(arch: str, layers: int, smoke: bool):
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if smoke:       # the smoke widths in the card's dtype
+        cfg = dataclasses.replace(configs.smoke_config(cfg),
+                                  param_dtype=cfg.param_dtype)
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def run_dist_train(args, problems, runs=DIST_TRAIN_RUNS, device="cuda",
+                   smoke: bool = False):
+    """Phase dist train (ROADMAP item 15d): DIST_TRAIN_RUNS trained on
+    ("data", "model") meshes of two gloo ranks sharing the card, all in one
+    ``spawn_ranks`` (``dist_train_job``): every leaf's gradient, gathered
+    whole, under GRAD_BAR against one card's step (rank 0), the planted
+    fault above it; the MoE keep masks at (2, 1) equal to the global rule
+    on the gathered expert choices, bit for bit; each rank's collectives of
+    one step equal to the meta-device trace's (``launch.dryrun.
+    train_collectives``, traced here while the ranks run); the launches of
+    K4 and K8 (K6 and K9) once a layer a step and nothing else; the
+    checkpoint saved at (2, 1) and restored at (1, 2). Returns the ranks'
+    launch counts by rank. ``runs``, ``device`` and ``smoke``: a
+    rehearsal on the CPU at the smoke widths."""
+    import threading
+
+    from repro_torch import configs
+    from repro_torch.kernels import compat
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.serve import RankError, spawn_ranks
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    print(f"phase dist train: two gloo ranks on the one card; " + "; ".join(
+        f"{a} at {n} of {configs.get_config(a).n_layers} layers, {b} x {s}, "
+        f"meshes " + ", ".join(f"{d}x{m}" + (f" {p}" if a.startswith(
+            "deepseek") else "") for (d, m), p in runs)
+        for a, n, b, s, runs in runs), flush=True)
+    by_rank = [{name: 0 for name in compat.launch_counts()}
+               for _ in range(DIST_TP)]
+    want: dict = {}
+
+    def traces():
+        for arch, layers, b, s, shapes in runs:
+            base = _dist_train_cfg(arch, layers, smoke)
+            mparams = Model(base, device="meta").init(args.seed)
+            batch = {k: torch.empty((b, s), dtype=torch.int32,
+                                    device="meta")
+                     for k in ("tokens", "labels")}
+            for shape, part in shapes:
+                cfg = base if base.moe is None else dataclasses.replace(
+                    base, moe=dataclasses.replace(base.moe, partition=part))
+                try:
+                    want[(arch, shape, part)] = dryrun.train_collectives(
+                        cfg, mparams, batch, shape, ("data", "model"))
+                except Exception as e:  # noqa: BLE001 - reported below
+                    want[(arch, shape, part)] = f"{type(e).__name__}: {e}"
+
+    ckpt = tempfile.mkdtemp(prefix="dist_train_ckpt_")
+    jobs = [(dist_train_job, dict(
+        arch=arch, layers=layers, batch_size=b, seq=s, seed=args.seed,
+        runs=shapes, fault=arch == "minicpm-2b", smoke=smoke,
+        ckpt_dir=ckpt if arch == "minicpm-2b" else ""))
+        for arch, layers, b, s, shapes in runs]
+    if device != "cpu":
+        compat.build_all()
+    tracer = threading.Thread(target=traces)
+    tracer.start()
+    try:
+        ranks = spawn_ranks(DIST_TP, jobs, device=device, timeout_s=600)
+    except RankError as e:
+        problems.append(f"dist train: {e}")
+        return by_rank
+    finally:
+        tracer.join()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  ranks: {time.perf_counter() - t0:.1f} s (start, weights, "
+          f"steps, one card's steps, checks); meta traces done",
+          flush=True)
+    for i, (arch, layers, b, s, shapes) in enumerate(runs):
+        pair = (("selective_scan", "selective_scan_bwd")
+                if arch == "falcon-mamba-7b" else ("flash_fwd", "flash_bwd"))
+        if device == "cpu":          # the plain versions launch nothing
+            pair = ()
+        for j, (shape, part) in enumerate(shapes):
+            recs = [rank[i][j] for rank in ranks]
+            r0 = recs[0]
+            tag = (f"{arch} {shape[0]}x{shape[1]}"
+                   + (f" {part}" if arch.startswith("deepseek") else ""))
+            one = r0["one_card"]
+            top = max(r0["rel_l2"], key=r0["rel_l2"].get)
+
+            def nums(xs, fmt):
+                return ", ".join(format(x, fmt) for x in xs)
+
+            print(f"  [{tag}] losses {nums(r0['losses'], '.6f')} (one card "
+                  f"{nums(one['losses'], '.6f')}); step s "
+                  f"{nums(r0['step_s'], '.3f')} (one card's step and next "
+                  f"loss {one['s']:.3f}); largest per-leaf gradient error "
+                  f"{r0['rel_l2'][top]:.4g} ({top}); peak GiB by rank "
+                  f"{nums([r['peak_gib'] for r in recs], '.2f')}",
+                  flush=True)
+            worst = sorted(r0["rel_l2"].items(), key=lambda kv: -kv[1])[:5]
+            print(f"    per-leaf errors, the largest: " + ", ".join(
+                f"{k} {v:.4g}" for k, v in worst), flush=True)
+            if r0["rel_l2"][top] >= GRAD_BAR:
+                problems.append(f"dist train {tag}: gradient error "
+                                f"{r0['rel_l2'][top]:.4g} ({top}) over "
+                                f"GRAD_BAR {GRAD_BAR}")
+            if "fault" in r0:
+                label, worst = r0["fault"]
+                print(f"  [{tag} planted fault: {label}] largest per-leaf "
+                      f"gradient error {worst:.4g}", flush=True)
+                if worst <= GRAD_BAR:
+                    problems.append(f"dist train {tag}: the planted fault "
+                                    f"reads {worst:.4g}, under GRAD_BAR")
+            if any(r["losses"] != r0["losses"] for r in recs):
+                problems.append(f"dist train {tag}: the ranks' losses "
+                                f"differ")
+            if arch.startswith("deepseek"):
+                keep = [r["keep"] for r in recs]
+                print(f"  [{tag}] keep-mask elements off the global rule, "
+                      f"a layer, by rank: {keep}", flush=True)
+                if any(any(k) for k in keep) or not all(keep):
+                    problems.append(f"dist train {tag}: keep masks {keep}")
+            w = want.get((arch, shape, part), "not traced")
+            if isinstance(w, str):
+                problems.append(f"dist train {tag}: the meta trace failed: "
+                                f"{w}")
+                w = []
+            for r, rec in enumerate(recs):
+                got = rec["collectives"]
+                same = got == w
+                busy = {k: v for k, v in rec["launches"].items() if v}
+                print(f"    rank {r}: collectives of step 0 predicted "
+                      f"{len(w)} ({sum(x for _, x, _ in w):.0f} B), counted "
+                      f"{len(got)} ({sum(x for _, x, _ in got):.0f} B): "
+                      f"{'equal' if same else 'DIFFER'}; launches {busy}",
+                      flush=True)
+                if not same:
+                    problems.append(f"dist train {tag}: rank {r} issued "
+                                    f"{len(got)} collectives, the trace "
+                                    f"predicts {len(w)}")
+                n = layers * DIST_TRAIN_STEPS
+                bad = {k: v for k, v in rec["launches"].items()
+                       if v != (n if k in pair else 0)}
+                if bad:
+                    problems.append(f"dist train {tag}: rank {r} launched "
+                                    f"{bad}, want {pair} {n} each")
+                for k, v in rec["launches"].items():
+                    by_rank[r][k] += v
+            if "loss_restored" in r0:
+                unbroken = ranks[0][i][0]["loss_unbroken"]
+                got = r0["loss_restored"]
+                off = [r["restored_leaves"] for r in recs]
+                print(f"  [{arch} checkpoint saved at 2x1, restored at 1x2] "
+                      f"leaves (params, AdamW's step, m, v) gathered whole "
+                      f"off the saved bits, by rank: "
+                      f"{', '.join(f'{a} of {n}' for a, n in off)}; next "
+                      f"step's loss {got:.6f}, unbroken run's "
+                      f"{unbroken:.6f}", flush=True)
+                if any(a for a, _ in off):
+                    problems.append(f"dist train: restored leaves off the "
+                                    f"saved bits, by rank: {off}")
+                if abs(got - unbroken) > DIST_TRAIN_LOSS_RTOL * abs(unbroken):
+                    problems.append(f"dist train: the restored step's loss "
+                                    f"{got} is off the unbroken {unbroken}")
+    print(f"phase dist train: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_rank
+
+
 REPORT_PROMPT = 128
 REPORT_REPS = 3
 REPORT_SHARE_MAX = 1.05
@@ -5365,7 +5743,7 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="depth of minicpm-2b (published: 40); widths stay")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=8)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5392,7 +5770,6 @@ def main(argv=None) -> int:
     build_s = compat.build_all()
     print(f"phase build: {len(compat.build_log)} kernel sources compiled "
           f"for sm_90a in {build_s:.1f} s (parallel nvcc)", flush=True)
-
     # 2. kernels against their plain versions
     t0 = time.perf_counter()
     print("phase kernels: hand-written kernel vs plain version", flush=True)
@@ -5706,6 +6083,14 @@ def main(argv=None) -> int:
     del encdec
     free_device()
 
+    # 13c. training on a mesh: minicpm-2b, falcon-mamba-7b and
+    # deepseek-v2-lite-16b trained on (2, 1) and (1, 2) meshes of two ranks
+    # sharing the card
+    train_tp_ranks = run_dist_train(args, problems)
+    for name in totals:
+        totals[name] += sum(rank[name] for rank in train_tp_ranks)
+    free_device()
+
     # 14. the Mamba2 + shared attention hybrid zamba2-1.2b served through
     # K1-K4 and trained through K4 + K8
     # ... and, inside it, phase dist's sharded scan: falcon-mamba-7b and
@@ -5791,6 +6176,8 @@ def main(argv=None) -> int:
             "fleet_launches": fleet[name],
             "dist_families_launches_by_rank": [
                 rank[name] for rank in fam_tp_ranks],
+            "dist_train_launches_by_rank": [
+                rank[name] for rank in train_tp_ranks],
             "per_shape": [{k: v for k, v in r.items()
                            if k not in ("kernel", "ok")} for r in recs_k]})
     print(f"total {time.perf_counter() - t_start:.1f} s")

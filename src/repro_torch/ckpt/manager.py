@@ -18,6 +18,13 @@ earlier format) by its bits.
 A checkpoint is valid iff its directory has no ``.tmp`` suffix (atomic
 rename on completion). Restore picks the latest valid step; an interrupted
 write is removed by the next save.
+
+On a mesh (``shardings``: a ``dist.sharding.Shardings``, a spec tree and
+its mesh) a save gathers every leaf whole from the ranks' pieces, rank 0
+writes them, and every rank returns once they are committed; a restore
+cuts each whole leaf into this rank's piece under the specs it is given,
+whatever mesh wrote it (elastic re-sharding, as the reference's
+``restore(shardings=)``).
 """
 from __future__ import annotations
 
@@ -30,7 +37,10 @@ from typing import Any, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.optim.adamw import tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -77,9 +87,15 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: PyTree, *, extra: Optional[dict] = None,
-             block: bool = False) -> None:
+             block: bool = False, shardings: Optional[shd.Shardings] = None
+             ) -> None:
         """Copy to host memory now, write on a thread (one write in flight
-        at a time)."""
+        at a time). With ``shardings`` the leaves are this rank's pieces:
+        every rank of the mesh calls, rank 0 writes the whole leaves before
+        any rank returns."""
+        if shardings is not None and shardings.mesh.devices.size > 1:
+            self._save_from_mesh(step, tree, extra, shardings)
+            return
         leaves = tree_leaves(tree)
         host = [_to_numpy(t) for t in leaves]          # device -> host now
         meta = {
@@ -113,6 +129,16 @@ class CheckpointManager:
         else:
             write()
 
+    def _save_from_mesh(self, step, tree, extra, shardings) -> None:
+        mesh = shardings.mesh
+        with torch.no_grad(), dctx.mesh_context(mesh):
+            whole = shd.unshard_tree(tree, shardings.specs)
+        if mesh.rank == 0:
+            self.save(step, whole, extra=extra, block=True)
+        del whole
+        if mesh.connected:
+            dist.barrier(group=mesh.world)
+
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
@@ -139,11 +165,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: PyTree, *, step: Optional[int] = None
-                ) -> tuple:
+    def restore(self, template: PyTree, *, step: Optional[int] = None,
+                shardings: Optional[shd.Shardings] = None) -> tuple:
         """Restore into the structure of ``template``: each leaf takes its
         template leaf's dtype and device (the model's device). Returns (tree,
-        extra)."""
+        extra). ``shardings`` (a spec tree matching ``template`` and a mesh)
+        returns this rank's piece of each leaf instead; the template's
+        leaves may then be whole or the pieces."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -154,11 +182,23 @@ class CheckpointManager:
             raise ValueError(f"tree mismatch: checkpoint has "
                              f"{meta['n_leaves']} leaves, template "
                              f"{len(leaves)}")
+        specs = (shd.tree_leaves_of_specs(shardings.specs)
+                 if shardings is not None else [None] * len(leaves))
         out = []
-        for i, tmpl in enumerate(leaves):
+        for i, (tmpl, spec) in enumerate(zip(leaves, specs)):
             arr = np.load(d / f"arr_{i:05d}.npy")
-            if list(arr.shape) != list(tmpl.shape):
+            piece = (tuple(shd.shard_leaf(torch.empty(arr.shape,
+                                                      device="meta"),
+                                          spec, shardings.mesh).shape)
+                     if spec is not None else tuple(arr.shape))
+            if tuple(tmpl.shape) not in (tuple(arr.shape), piece):
                 raise ValueError(f"leaf {i}: checkpoint shape {arr.shape}, "
                                  f"template {tuple(tmpl.shape)}")
-            out.append(_from_numpy(arr, meta["dtypes"][i], tmpl))
+            if spec is None:
+                out.append(_from_numpy(arr, meta["dtypes"][i], tmpl))
+                continue
+            whole = _from_numpy(arr, meta["dtypes"][i],
+                                torch.empty(0, dtype=tmpl.dtype))
+            out.append(shd.shard_leaf(whole, spec, shardings.mesh).to(
+                tmpl.device))
         return tree_unflatten(template, out), meta["extra"]

@@ -33,11 +33,21 @@ columns, bit for bit (every output channel reads its own channel alone).
 for whisper's encoder and cross attention, ``patches=`` for pixtral's
 prefix) and greedy decode steps on this rank's pieces of the params and the
 cache, for comparison with the single device.
+
+Training on a mesh (:func:`train_parity`): train steps on this rank's
+``("data", "model")`` pieces (``sharding.train_specs``) of the global
+batch, returning what the single device's step is held to: the loss,
+every gradient gathered whole, the gradient norm, the metrics and the
+params after the steps, the pieces' shapes, the first step's collectives
+and, for a MoE, each layer's keep mask against the global rule applied to
+the ranks' gathered expert choices (:func:`record_routing`,
+:func:`keep_mismatches`).
 """
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +61,7 @@ from repro_torch.dist.sharding import P, shard_leaf
 from repro_torch.kernels import compat
 from repro_torch.kernels import selective_scan as ssk
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
 
@@ -314,3 +325,118 @@ def frontend_run(mesh, device, *, cfg, rows: int, prompt: int, steps: int,
                 ms_per_step=1e3 * (t2 - t1) / max(1, steps),
                 peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
                           if cuda else 0.0))
+
+
+# --- training on a mesh ------------------------------------------------------
+
+@contextlib.contextmanager
+def record_routing() -> Iterator[list]:
+    """Record each MoE routing the forward runs in the block: (this rank's
+    expert choices (T, k), its keep mask (T k,)) a call of
+    ``moe.assign_slots``."""
+    records: list = []
+    real = MOE.assign_slots
+
+    def recorded(expert_idx, cfg):
+        out = real(expert_idx, cfg)
+        records.append((expert_idx.detach(), out[2].detach()))
+        return out
+
+    MOE.assign_slots = recorded
+    try:
+        yield records
+    finally:
+        MOE.assign_slots = real
+
+
+def keep_mismatches(records: list, cfg) -> list:
+    """For each recorded routing on the ambient mesh: the elements of this
+    rank's keep mask that differ from the single device's rule
+    (``moe.assign_slots`` without a mesh) applied to the ranks' expert
+    choices gathered over the batch axes, this rank's rows of it. Every
+    rank of the mesh takes part."""
+    axes = dctx.batch_axes()
+    out = []
+    for idx, keep in records:
+        gathered = dctx.all_gather(idx, 0, axes)
+        with dctx.mesh_context(None):
+            _, _, want, _ = MOE.assign_slots(gathered, cfg)
+        lo = dctx.axis_index(axes) * keep.numel()
+        out.append(int((want[lo:lo + keep.numel()] != keep).sum()))
+    return out
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu")
+
+
+def _shapes(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _shapes(sub, f"{prefix}{key}/").items()}
+    return {prefix[:-1]: tuple(tree.shape)}
+
+
+def train_parity(mesh, device, *, cfg, batch: dict, params=None,
+                 seed: int = 0, steps: int = 1,
+                 optimizer: Optional[dict] = None) -> dict:
+    """A rank job: ``steps`` AdamW steps (``optimizer``: its config's
+    fields) of ``cfg`` on this rank's pieces of ``params`` (a whole tree,
+    the same on every rank; default the model's from ``seed``) and of the
+    global ``batch`` (numpy, the same on every rank). Returns, on the
+    host: ``loss`` and ``grads`` (step 0's, every leaf gathered whole),
+    ``history`` (each step's metrics), ``params`` (whole, after the steps),
+    ``shapes`` (the pieces'), ``collectives`` (step 0's records), ``keep``
+    (step 0's keep-mask mismatches a MoE layer), ``aux`` (step 0's MoE
+    aux losses, summed over the layers) and ``launches`` (the kernels'
+    launch counts over the steps)."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    model = Model(cfg, device=device)
+    whole = (model.init(seed) if params is None
+             else T._tree_map(lambda t: t.to(device), params))
+    specs = sharding.train_specs(whole, mesh, cfg)
+    pieces = sharding.own_pieces(whole, specs, mesh)
+    opt = adamw.init(pieces)
+    tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    step = tstep.make_train_step(model, tstep.TrainConfig(
+        optimizer=adamw.AdamWConfig(**(optimizer or {}))), specs=specs)
+    out = dict(shapes=_shapes(pieces), history=[])
+    compat.reset_counters()
+    aux: list = []
+    real_moe = MOE.moe_apply
+
+    def moe_aux(*a, **kw):
+        res = real_moe(*a, **kw)
+        aux.append(res[1].detach())
+        return res
+
+    with dctx.mesh_context(mesh):
+        for i in range(steps):
+            got: list = []
+            if i == 0:
+                MOE.moe_apply = moe_aux
+                try:
+                    with record_routing() as routing, \
+                            dctx.record_collectives() as records:
+                        pieces, opt, met = step(pieces, opt, tb,
+                                                grads_out=got)
+                finally:
+                    MOE.moe_apply = real_moe
+                with torch.no_grad():
+                    out["grads"] = _host(sharding.unshard_tree(got[0],
+                                                               specs))
+                out.update(loss=float(met["loss"]), collectives=records,
+                           keep=keep_mismatches(routing, cfg),
+                           aux=float(sum(aux)) if aux else 0.0)
+            else:
+                pieces, opt, met = step(pieces, opt, tb)
+            out["history"].append({k: float(v) for k, v in met.items()})
+        out["launches"] = compat.launch_counts()
+        with torch.no_grad():
+            out["params"] = _host(sharding.unshard_tree(pieces, specs))
+    return out

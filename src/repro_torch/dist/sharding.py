@@ -73,14 +73,24 @@ column-parallel layer reads its piece of a replicated per-channel vector
 (bias, int8 scale, zero point, folded beta, colsum) as a view
 (``context.local_slice``); a row-parallel one adds it once, after the
 reduce.
+
+Training (:func:`train_specs`) holds each rank's ``("data", "model")``
+piece of every leaf and of AdamW's moments: the ``"model"`` cut of
+:func:`serving_specs`, so the same model code runs, and the reference's
+``"data"`` cut (ZeRO) on its own dim where the ``"model"`` cut left that
+dim whole. :func:`gather_data` joins a tree's ``"data"`` pieces for the
+forward, and its backward reduce-scatters the gradients back to the
+pieces; :func:`unshard_tree` gathers whole leaves (a checkpoint from a
+mesh).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.dist.context import MODEL
+from repro_torch.dist import context as dctx
+from repro_torch.dist.context import DATA, MODEL
 
 PyTree = Any
 
@@ -405,6 +415,12 @@ def shard_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return out if out is t else out.contiguous()
 
 
+def _rebuild(node, items: list):
+    """A list or tuple like ``node`` (a NamedTuple too) of ``items``."""
+    return type(node)(*items) if hasattr(node, "_fields") \
+        else type(node)(items)
+
+
 def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     """The rank's local pieces of every leaf (the reference's ``to_named``
     + ``device_put``): each a contiguous tensor, or the leaf itself where
@@ -412,8 +428,128 @@ def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(shard_tree(v, s, mesh)
-                          for v, s in zip(tree, specs))
+        return _rebuild(tree, [shard_tree(v, s, mesh)
+                               for v, s in zip(tree, specs)])
     if isinstance(tree, torch.Tensor):
         return shard_leaf(tree, specs, mesh)
     return tree
+
+
+def train_specs(params: PyTree, mesh, cfg,
+                moe_partition: Optional[str] = None) -> PyTree:
+    """The training cut (module docstring): :func:`serving_specs`'
+    ``"model"`` entries, and :func:`param_specs`' ``"data"`` entry where
+    its dim is not cut over ``"model"``. ``moe_partition`` defaults to the
+    config's."""
+    if moe_partition is None:
+        moe_partition = cfg.moe.partition if cfg.moe else "expert"
+    serve = serving_specs(params, mesh, cfg, moe_partition)
+    ref = param_specs(params, mesh, moe_partition)
+
+    def join(s, r):
+        if isinstance(s, dict):
+            return {k: join(s[k], r[k]) for k in s}
+        if isinstance(s, (list, tuple)) and not isinstance(s, P):
+            return type(s)(join(a, b) for a, b in zip(s, r))
+        axes = [a if a == MODEL else (DATA if b == DATA else None)
+                for a, b in zip(s, r)]
+        return (Blocked(*axes, blocks=s.blocks) if isinstance(s, Blocked)
+                else P(*axes))
+
+    return join(serve, ref)
+
+
+def _dim_of(spec, axis: str) -> Optional[int]:
+    """The dim of ``spec`` cut over ``axis`` (alone or in a tuple)."""
+    for d, axes in enumerate(spec):
+        if axes == axis or (isinstance(axes, tuple) and axis in axes):
+            return d
+    return None
+
+
+def own_pieces(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """:func:`shard_tree`, each piece in storage of its own: a leaf the
+    specs keep whole, or a cut that is a view of it, is copied. Training
+    updates the pieces in place and leaves ``tree`` as it was, and ``tree``
+    may be freed."""
+    def fresh(piece, whole):
+        if isinstance(piece, dict):
+            return {k: fresh(v, whole[k]) for k, v in piece.items()}
+        if isinstance(piece, (list, tuple)):
+            return _rebuild(piece, [fresh(a, b)
+                                    for a, b in zip(piece, whole)])
+        if not isinstance(piece, torch.Tensor):
+            return piece
+        same = (piece.untyped_storage().data_ptr()
+                == whole.untyped_storage().data_ptr())
+        return piece.clone() if same else piece
+
+    return fresh(shard_tree(tree, specs, mesh), tree)
+
+
+def gather_data(tree: PyTree, specs: PyTree) -> PyTree:
+    """The ambient mesh's ``"model"`` pieces of a tree of ``"data"``
+    pieces (:func:`context.gather_leaf` a leaf, in the tree's order): the
+    backward reduce-scatters each gradient to its piece, and sums that of
+    a leaf held whole over the ``"data"`` ranks."""
+    if isinstance(tree, dict):
+        return {k: gather_data(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [gather_data(v, s)
+                               for v, s in zip(tree, specs)])
+    if isinstance(tree, torch.Tensor):
+        return dctx.gather_leaf(tree, _dim_of(specs, DATA))
+    return tree
+
+
+def unshard_leaf(t: torch.Tensor, spec) -> torch.Tensor:
+    """The whole leaf from this rank's piece under ``spec`` on the ambient
+    mesh: each cut dim gathered over its axes (a :class:`Blocked` dim block
+    by block). Every rank of the mesh takes part."""
+    out = t
+    for dim, axes in enumerate(spec):
+        if axes is None or dctx.axis_size(axes) == 1:
+            continue
+        names = axes if isinstance(axes, tuple) else (axes,)
+        blocks = getattr(spec, "blocks", 1) if MODEL in names else 1
+        whole = dctx.all_gather(out, dim, axes)
+        if blocks > 1:           # (count, blocks, n) -> (blocks, count, n)
+            count = dctx.axis_size(axes)
+            shp = list(whole.shape)
+            n = shp[dim] // (count * blocks)
+            whole = whole.reshape(*shp[:dim], count, blocks, n,
+                                  *shp[dim + 1:]).transpose(
+                dim, dim + 1).reshape(shp)
+        out = whole
+    return out
+
+
+def unshard_tree(tree: PyTree, specs: PyTree) -> PyTree:
+    """:func:`unshard_leaf` over a tree, in its order."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, [unshard_tree(v, s)
+                               for v, s in zip(tree, specs)])
+    if isinstance(tree, torch.Tensor):
+        return unshard_leaf(tree, specs)
+    return tree
+
+
+def tree_leaves_of_specs(specs: PyTree) -> list:
+    """A spec tree's specs in the order of its tree's leaves
+    (``optim.adamw.tree_leaves``: a dict by sorted keys; a spec is a
+    tuple, not a node)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs)
+                for x in tree_leaves_of_specs(specs[k])]
+    if isinstance(specs, (list, tuple)) and not isinstance(specs, P):
+        return [x for t in specs for x in tree_leaves_of_specs(t)]
+    return [specs]
+
+
+class Shardings(NamedTuple):
+    """A spec tree and the mesh it cuts over: the port's counterpart of a
+    tree of ``NamedSharding`` (``CheckpointManager.restore(shardings=)``)."""
+    specs: PyTree
+    mesh: Any

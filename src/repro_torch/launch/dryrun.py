@@ -21,11 +21,14 @@ trace:
     ``data_specs``, the reference's specs leaf for leaf);
   * ``peak_live_bytes``: the largest live tensor storage of the
     single-device trace;
-  * the collective term: one rank's trace at the mesh's model-axis size
-    through the port's own mesh path (``serving_specs``, ``shard_tree``,
-    ``mesh_context``), its collectives recorded
-    (``dist.context.record_collectives``). Where that path does not take a
-    cell, ``collective_s`` is null and ``collective_reason`` says why.
+  * the collective term: one rank's trace through the port's own mesh
+    path, its collectives recorded (``dist.context.record_collectives``):
+    a serving cell at the mesh's model-axis size (``serving_specs``,
+    ``shard_tree``, ``mesh_context``), a training cell on the whole mesh
+    (``train_specs``: the forward, the backward, the ``"data"`` gathers
+    and reduce-scatters of the ZeRO cut and the gradient norm's sum). Where
+    that path does not take a cell, ``collective_s`` is null and
+    ``collective_reason`` says why.
 
 Results land in ``build/reports/dryrun/<arch>__<shape>__<mesh>.json`` (or
 ``--out``); ``python -m repro_torch.launch.report`` renders them.
@@ -126,18 +129,43 @@ def _argument_bytes(cfg, shape, params, specs, mesh) -> float:
     return total + _piece_bytes(rest, shd.data_specs(rest, mesh), mesh)
 
 
+def train_collectives(cfg, params, batch, shape, axes) -> list:
+    """One rank's collectives in one train step on a shape-only mesh of
+    ``shape`` over ``axes`` (rank 0's coordinate), traced on the meta
+    device: ``params`` whole and ``batch`` the global batch (as every rank
+    is handed it), both meta tensors. What a connected rank of that mesh
+    records in the same step (phase dist train holds them equal)."""
+    mesh = dctx.make_mesh(shape, axes, connect=False)
+    meta = Model(cfg, device="meta")
+    specs = shd.train_specs(params, mesh, cfg)
+    local = shd.shard_tree(params, specs, mesh)
+    step = make_train_step(meta, TrainConfig(), specs=specs)
+    with dctx.mesh_context(mesh), costs.CostMode(), \
+            dctx.record_collectives() as records:
+        step(local, adamw.init(local), batch)
+    return records
+
+
 def _rank_collectives(cfg, shape, params, specs, mesh) -> tuple:
-    """(CollectiveStats or None, reason) of one rank's serving step at the
-    mesh's model-axis size, through the port's mesh path (every arch serves
-    on it; whisper's prefill takes its frames, pixtral's its patches): its
-    batch the global batch's piece under the mesh's data specs."""
+    """(CollectiveStats or None, reason) of one rank's step through the
+    port's mesh path: a serving step at the mesh's model-axis size (every
+    arch serves on it; whisper's prefill takes its frames, pixtral's its
+    patches), its batch the global batch's piece under the mesh's data
+    specs; a train step on the whole mesh (:func:`train_collectives`)."""
     if shape.kind == "train":
-        return None, "waits for ROADMAP item 15d (training on a mesh)"
+        try:
+            records = train_collectives(cfg, params, specs,
+                                        tuple(mesh.devices.shape),
+                                        mesh.axis_names)
+        except Exception as e:  # noqa: BLE001 - the reason is the result
+            return None, (f"the port's mesh path does not take this "
+                          f"training cell: {type(e).__name__}: {e}")
+        return roof.collective_stats(records), ""
     tp = mesh.size(dctx.MODEL)
     rest = {k: v for k, v in specs.items() if k != "cache"}
     batch_axes = shd.data_specs(rest, mesh)[next(iter(rest))][0]
     batch = shape.global_batch // _split(batch_axes, mesh)
-    rank_mesh = dctx.make_mesh((1, tp), ("data", dctx.MODEL))
+    rank_mesh = dctx.make_mesh((1, tp), ("data", dctx.MODEL), connect=False)
     part = cfg.moe.partition if cfg.moe else "expert"
     model = Model(cfg, device="meta")
     local = shd.shard_tree(params, shd.serving_specs(

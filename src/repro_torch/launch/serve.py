@@ -159,9 +159,10 @@ class RankError(RuntimeError):
 
 
 def mesh_backend(tp: int, device: str) -> Tuple[str, List[str]]:
-    """(backend, each rank's device): nccl with rank r on ``cuda:r`` when
-    there are ``tp`` cards; gloo with every rank on ``cuda:0`` on fewer
-    (NCCL refuses two ranks on one device); gloo on the CPU for ``cpu``."""
+    """(backend, each rank's device) for ``tp`` ranks: nccl with rank r on
+    ``cuda:r`` when there are ``tp`` cards; gloo with every rank on
+    ``cuda:0`` on fewer (NCCL refuses two ranks on one device); gloo on the
+    CPU for ``cpu``."""
     if device == "cpu":
         return "gloo", ["cpu"] * tp
     if not torch.cuda.is_available():
@@ -172,15 +173,25 @@ def mesh_backend(tp: int, device: str) -> Tuple[str, List[str]]:
     return "gloo", ["cuda:0"] * tp
 
 
-def rank_main(rank: int, tp: int, store: str, backend: str, device: str,
+def mesh_shape(shape) -> Tuple[int, int]:
+    """The ("data", "model") shape of ``spawn_ranks``' ``shape``: an int
+    ``tp`` is (1, tp), tensor parallelism alone."""
+    if isinstance(shape, int):
+        return (1, shape)
+    data, model = (int(n) for n in shape)
+    return (data, model)
+
+
+def rank_main(rank: int, shape, store: str, backend: str, device: str,
               jobs: Sequence[Tuple[Callable, dict]], out: str,
               timeout_s: float) -> None:
     """One rank: join the process group through the ``file://`` store, build
-    the (1, tp) mesh, run each job ``fn(mesh, device, **kwargs)`` in order
-    and pickle the list of their results to ``out``. On the CPU a rank
-    keeps to one intra-op thread (the ranks share the host's cores). A
-    rank only loads the kernels its parent built: it never builds into the
-    shared kernel directory."""
+    the ("data", "model") mesh of ``shape`` (an int: (1, shape)), run each
+    job ``fn(mesh, device, **kwargs)`` in order and pickle the list of
+    their results to ``out``. On the CPU a rank keeps to one intra-op
+    thread (the ranks share the host's cores). A rank only loads the
+    kernels its parent built: it never builds into the shared kernel
+    directory."""
     from repro_torch.dist import context as dctx
 
     dev = torch.device(device)
@@ -192,11 +203,12 @@ def rank_main(rank: int, tp: int, store: str, backend: str, device: str,
                                f"parent: {missing}")
     else:
         torch.set_num_threads(1)
-    dist.init_process_group(backend, init_method=store, world_size=tp,
-                            rank=rank,
+    shape = mesh_shape(shape)
+    dist.init_process_group(backend, init_method=store,
+                            world_size=shape[0] * shape[1], rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        mesh = dctx.make_mesh((1, tp), ("data", "model"))
+        mesh = dctx.make_mesh(shape, ("data", "model"))
         results = [fn(mesh, dev, **kw) for fn, kw in jobs]
     finally:
         dist.destroy_process_group()
@@ -204,15 +216,19 @@ def rank_main(rank: int, tp: int, store: str, backend: str, device: str,
         pickle.dump(results, f)
 
 
-def spawn_ranks(tp: int, jobs: Sequence[Tuple[Callable, dict]], *,
+def spawn_ranks(shape, jobs: Sequence[Tuple[Callable, dict]], *,
                 device: str = "cuda", timeout_s: float = 900.0) -> list:
-    """Run ``jobs`` on ``tp`` ranks and return each rank's list of results
-    (rank order). The ranks start by ``spawn`` (the parent may hold CUDA);
+    """Run ``jobs`` on the ranks of a ("data", "model") mesh of ``shape``
+    (an int ``tp``: (1, tp), as the serving callers run) and return each
+    rank's list of results (rank order). The ranks start by ``spawn`` (the
+    parent may hold CUDA);
     the jobs and their kwargs must pickle, functions by import path. On the
     card every kernel is built here first, so that no two ranks build. The
     parent polls: a rank that exits non-zero, or a run past ``timeout_s``,
     kills the others and raises :class:`RankError`, so a rank that dies
     mid-collective never leaves the others waiting."""
+    shape = mesh_shape(shape)
+    tp = shape[0] * shape[1]
     backend, devices = mesh_backend(tp, device)
     if devices[0] != "cpu":
         compat.build_all()
@@ -221,8 +237,8 @@ def spawn_ranks(tp: int, jobs: Sequence[Tuple[Callable, dict]], *,
         store = f"file://{pathlib.Path(d) / 'store'}"
         outs = [str(pathlib.Path(d) / f"rank{r}.pkl") for r in range(tp)]
         procs = [ctx.Process(target=rank_main, name=f"rank{r}",
-                             args=(r, tp, store, backend, devices[r], jobs,
-                                   outs[r], timeout_s))
+                             args=(r, shape, store, backend, devices[r],
+                                   jobs, outs[r], timeout_s))
                  for r in range(tp)]
         for p in procs:
             p.start()
@@ -251,8 +267,9 @@ def spawn_ranks(tp: int, jobs: Sequence[Tuple[Callable, dict]], *,
             if bad:
                 failed = f"{bad[0].name} exited with code {bad[0].exitcode}"
         if failed is not None:
-            raise RankError(f"tensor-parallel run ({backend}, {tp} ranks) "
-                            f"failed: {failed}; the other ranks were killed")
+            raise RankError(f"mesh run ({backend}, {shape[0]} x {shape[1]} "
+                            f"ranks) failed: {failed}; the other ranks were "
+                            f"killed")
         results = []
         for out in outs:
             with open(out, "rb") as f:

@@ -210,10 +210,12 @@ def _local_kv(t: Tensor, h: int, cfg: ModelConfig) -> Tensor:
     heads split too a local q head's kv head is local, and ``t`` serves as
     it is. Where they stay whole (KV % tp != 0) while the q heads split,
     global q head g reads kv head g // (H / KV), as on one card: its rows
-    are selected here, one a local q head."""
+    are selected here, one a local q head (the whole K or V's gradient
+    then summed over the ranks)."""
     group = cfg.n_heads // cfg.n_kv_heads
     if t.shape[2] * group == h:
         return t
+    t = dctx.sum_grad(t)
     first = dctx.tp_rank() * h
     kv = torch.div(torch.arange(first, first + h, device=t.device), group,
                    rounding_mode="floor")
@@ -236,8 +238,8 @@ def _cached_sdpa(q: Tensor, k: Tensor, v: Tensor, keep: Optional[Tensor],
     first = dctx.tp_rank() * h
 
     def whole(t: Tensor, n: int) -> Tensor:
-        if t.shape[2] == n:
-            return t
+        if t.shape[2] == n:          # whole K or V: each rank reads part
+            return dctx.sum_grad(t)
         out = t.new_zeros((*t.shape[:2], n, t.shape[3]))
         lo = dctx.tp_rank() * t.shape[2]
         out[:, :, lo:lo + t.shape[2]] = t
@@ -268,9 +270,12 @@ def gqa_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     b, s, _ = x.shape
     hd = cfg.hd
     theta = cfg.rope_theta if rope_theta is None else rope_theta
-    q = L.dense(x, p["wq"]).reshape(b, s, -1, hd)
-    k = L.dense(x, p["wk"]).reshape(b, s, -1, hd)
-    v = L.dense(x, p["wv"]).reshape(b, s, -1, hd)
+    xq = L.col_input(x, p["wq"], cfg.n_heads * hd)
+    # kv heads split only where q heads do; kept whole, they read x
+    xkv = xq if L.is_piece(p["wk"], cfg.n_kv_heads * hd) else x
+    q = L.dense(xq, p["wq"]).reshape(b, s, -1, hd)
+    k = L.dense(xkv, p["wk"]).reshape(b, s, -1, hd)
+    v = L.dense(xkv, p["wv"]).reshape(b, s, -1, hd)
     h = q.shape[2]                       # this rank's heads (tp: H / tp)
     q = L.apply_rope(q, positions, theta)
     k = L.apply_rope(k, positions, theta)
@@ -379,7 +384,9 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
     m = cfg.mla
     b, s, _ = x.shape
     denom = (m.nope_head_dim + m.rope_head_dim) ** 0.5   # scores / denom
-    q = L.dense(x, p["wq"]).reshape(b, s, -1, m.nope_head_dim + m.rope_head_dim)
+    qd = m.nope_head_dim + m.rope_head_dim
+    q = L.dense(L.col_input(x, p["wq"], cfg.n_heads * qd),
+                p["wq"]).reshape(b, s, -1, qd)
     h = q.shape[2]                       # this rank's heads (tp: H / tp)
     row = h != cfg.n_heads               # wo holds this rank's head rows
     q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
@@ -390,7 +397,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
 
     if page_table is None and (cache is None
                                or (prefill and cfg.attention_impl == "flash")):
-        k_nope, v = _mla_kv(p, c_kv, cfg)
+        # the whole latent and rope key feed this rank's heads
+        k_nope, v = _mla_kv(p, dctx.sum_grad(c_kv) if row else c_kv, cfg)
         new_cache = None
         if cache is not None:   # prefill: write the compressed cache
             new_cache = {
@@ -399,7 +407,8 @@ def mla_apply(p: dict, x: Tensor, *, cfg: ModelConfig, positions: Tensor,
                 "k_rope": _cache_write(cache["k_rope"], k_rope[:, :, 0, :],
                                        cache_pos, cache_write_mask),
             }
-        kr = k_rope.expand(*k_nope.shape[:3], m.rope_head_dim)
+        kr = (dctx.sum_grad(k_rope) if row else k_rope).expand(
+            *k_nope.shape[:3], m.rope_head_dim)
         if cfg.attention_impl == "flash":
             # nope + rope concatenated into d 192 against dv 128: K4
             q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -494,6 +503,7 @@ def cross_kv(p: dict, enc: Tensor, cfg: ModelConfig) -> dict:
     tensor parallelism this rank's KV heads (all of them where they do not
     split), read from the pieces' widths."""
     b, t, _ = enc.shape
+    enc = L.col_input(enc, p["wk"], cfg.n_kv_heads * cfg.hd)
     return {"k": L.dense(enc, p["wk"]).reshape(b, t, -1, cfg.hd),
             "v": L.dense(enc, p["wv"]).reshape(b, t, -1, cfg.hd)}
 
@@ -506,7 +516,8 @@ def cross_from_kv(p: dict, x: Tensor, kv: dict, cfg: ModelConfig) -> Tensor:
     shapes, and a kv head kept whole where the kv heads do not split), and
     ``wo`` runs row-parallel, as in :func:`gqa_apply`."""
     b, s, _ = x.shape
-    q = L.dense(x, p["wq"]).reshape(b, s, -1, cfg.hd)
+    q = L.dense(L.col_input(x, p["wq"], cfg.n_heads * cfg.hd),
+                p["wq"]).reshape(b, s, -1, cfg.hd)
     h = q.shape[2]                       # this rank's heads (tp: H / tp)
     out = _cached_sdpa(q, kv["k"], kv["v"], None, cfg)
     return L.dense(out.reshape(b, s, h * cfg.hd), p["wo"],

@@ -64,6 +64,21 @@ def dense(x: Tensor, p: dict, *, row_parallel: bool = False) -> Tensor:
     return out
 
 
+def is_piece(p: dict, whole: int) -> bool:
+    """Whether the dense layer ``p`` holds a piece of its ``whole`` output
+    columns (a column-parallel layer under tensor parallelism)."""
+    w = p.get("w")
+    return w is not None and w.shape[-1] != whole
+
+
+def col_input(x: Tensor, p: dict, whole: int) -> Tensor:
+    """``x`` as the input of the dense layer ``p`` whose whole output width
+    is ``whole``: where ``p`` holds a piece of the columns, each rank's
+    gradient of ``x`` is partial and is summed over the ranks
+    (``context.sum_grad``)."""
+    return dctx.sum_grad(x) if is_piece(p, whole) else x
+
+
 def rmsnorm_init(d: int, dtype, *, device, lead=()) -> dict:
     return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
 
@@ -73,10 +88,12 @@ def rmsnorm(x: Tensor, p: dict, eps: float = 1e-5, whole: int = 0
     """RMS norm over the last dim. ``whole``: the normalised width when
     ``x`` holds this rank's piece of it (tensor parallelism): the ranks'
     sums of squares are summed and divided by ``whole``, and the rank reads
-    its piece of the scale. Otherwise the mean is taken here."""
+    its piece of the scale (the summed ``var`` feeds each rank's piece, so
+    its gradient is summed too). Otherwise the mean is taken here."""
     x32 = x.to(torch.float32)
     if whole and x.shape[-1] != whole:
-        var = dctx.all_sum(torch.sum(x32 * x32, dim=-1, keepdim=True)) / whole
+        var = dctx.sum_grad(dctx.all_sum(
+            torch.sum(x32 * x32, dim=-1, keepdim=True))) / whole
     else:
         var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
@@ -144,6 +161,8 @@ def mlp(x: Tensor, p: dict, act: str = "silu", d_ff: int = 0) -> Tensor:
     """Gated MLP (SwiGLU-style). Under tensor parallelism up and gate are
     column-parallel and down row-parallel, where this rank holds a piece
     of the ``d_ff`` hidden width."""
+    if d_ff:
+        x = col_input(x, p["gate"], d_ff)
     h = act_fn(act)(dense(x, p["gate"])) * dense(x, p["up"])
     return dense(h, p["down"],
                  row_parallel=bool(d_ff) and h.shape[-1] != d_ff)

@@ -10,6 +10,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dctx
 from repro_torch.kernels.compat import resolve_device
 from repro_torch.models import transformer as T
 
@@ -21,7 +22,9 @@ def chunked_cross_entropy(params, hidden: Tensor, labels: Tensor,
     """Mean cross-entropy over the vocab without (B, S, V) f32 logits at
     once: per sequence chunk of ``chunk`` tokens (the whole S when S is not
     a multiple of it), f32 logits, ``logsumexp - gold``, summed, then
-    divided by B * S."""
+    divided by B * S. On a mesh with batch axes ("pod", "data") ``hidden``
+    holds this rank's rows of the global batch: the ranks' sums, each
+    divided by the global B * S, are summed over those axes."""
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -35,7 +38,8 @@ def chunked_cross_entropy(params, hidden: Tensor, labels: Tensor,
         gold = torch.gather(logits, -1,
                             labels[:, c0:c0 + chunk, None])[..., 0]
         total = total + torch.sum(logz - gold)
-    return total / (b * s)
+    axes = dctx.batch_axes()
+    return dctx.all_sum(total / (b * dctx.axis_size(axes) * s), axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,7 +86,10 @@ class Model:
         """batch: tokens (B, S), labels (B, S), and the frontend stubs
         ``frames`` / ``patches`` where the model takes them -> CE + the aux
         loss (the MoE routers' load-balancing term summed over layers; zero
-        for the other stacks)."""
+        for the other stacks). On a mesh the params are the rank's
+        ``"model"`` pieces and, with a "data" axis, the batch its rows of
+        the global batch: the loss is the global batch's, the same on every
+        rank (``train.step`` cuts both)."""
         hidden, aux, _ = T.forward(params, batch["tokens"], self.cfg,
                                    frames=batch.get("frames"),
                                    patches=batch.get("patches"))

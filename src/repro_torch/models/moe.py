@@ -18,7 +18,17 @@ ranks sum (exact: one nonzero term an element), and the combine then
 gathers and weights exactly as on one card. "ffn": a rank holds every
 expert's d_ff_expert/tp piece, and the f32 partials of ``w_down`` are
 summed as a row-parallel layer's. The shared experts are an MLP, column-
-then row-parallel.
+then row-parallel. Under autograd the replicated capacity buffer's
+gradient is summed over the ranks (``context.sum_grad``).
+
+Data parallelism over the ambient mesh's batch axes routes the global
+batch as one device does, a rank holding its own rows (the global token
+order is the ranks' rows in rank order): the ranks' per-expert assignment
+counts ((E,) ints, never the tokens) are gathered, a rank's slots start
+after the earlier ranks' counts, the capacity comes from the global T and
+the aux loss takes its means over the global T. A rank's capacity buffer
+then holds its own assignments at their global slots, and the experts run
+on it alone: each capacity row is independent of the others.
 """
 from __future__ import annotations
 
@@ -76,11 +86,37 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return int(tokens * m.top_k * m.capacity_factor / m.n_experts) + 1
 
 
+def assign_slots(expert_idx: Tensor, cfg: ModelConfig
+                 ) -> Tuple[Tensor, Tensor, Tensor, int]:
+    """The capacity-bounded positions of the (T, k) assignments ``expert_idx``
+    in token order: (flat expert ids (T k,), slots (T k,), keep (T k,)
+    bool, capacity). On a mesh with batch axes ("pod", "data") the rows are
+    this rank's piece of the global batch: the positions count the earlier
+    ranks' assignments first and the capacity is the global T's."""
+    m = cfg.moe
+    flat_e = expert_idx.reshape(-1)                               # (T k,)
+    onehot = F.one_hot(flat_e, m.n_experts).to(torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    axes = dctx.batch_axes()
+    dp = dctx.axis_size(axes)
+    if dp > 1:
+        counts = dctx.all_gather(
+            torch.sum(onehot, dim=0, dtype=torch.int32)[None], 0, axes)
+        pos_in_e = pos_in_e + torch.sum(counts[:dctx.axis_index(axes)],
+                                        dim=0, dtype=torch.int32)
+    pos = torch.sum(pos_in_e * onehot, dim=-1, dtype=torch.int32)
+    cap = capacity(expert_idx.shape[0] * dp, cfg)
+    keep = pos < cap
+    return flat_e, torch.where(keep, pos, 0).to(torch.long), keep, cap
+
+
 def _experts(buf: Tensor, p: dict, n_experts: int, d_ff: int) -> Tensor:
     """The experts' gated MLPs over the capacity buffer (E, C, d), in the
     partition this rank's bank shapes show."""
     w_gate, w_up, w_down = p["w_gate"], p["w_up"], p["w_down"]
     e_local = w_gate.shape[-3]
+    if e_local != n_experts or w_gate.shape[-1] != d_ff:
+        buf = dctx.sum_grad(buf)       # each rank reads part of the buffer
     if e_local != n_experts:                           # "expert"
         e0 = dctx.tp_rank() * e_local
         buf = buf[e0:e0 + e_local]
@@ -109,14 +145,7 @@ def moe_apply(p: dict, x: Tensor, *, cfg: ModelConfig
     gate_vals, expert_idx = top_k(probs, m.top_k)                 # (T, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
 
-    # capacity-bounded positions: the (T, k) assignments in token order
-    flat_e = expert_idx.reshape(-1)                               # (T k,)
-    onehot = F.one_hot(flat_e, m.n_experts).to(torch.int32)
-    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
-    pos = torch.sum(pos_in_e * onehot, dim=-1, dtype=torch.int32)
-    cap = capacity(t, cfg)
-    keep = pos < cap
-    slot = torch.where(keep, pos, 0).to(torch.long)
+    flat_e, slot, keep, cap = assign_slots(expert_idx, cfg)
 
     # dropped assignments add zeros to slot 0 of their expert, as the
     # reference's scatter-add does: a kept value plus zeros is exact
@@ -136,9 +165,16 @@ def moe_apply(p: dict, x: Tensor, *, cfg: ModelConfig
         out = out + L.mlp(xt, p["shared"], cfg.act,
                           d_ff=m.d_ff_expert * m.n_shared)
 
-    # switch-style aux loss: E * sum_e f_e * p_e
-    me = torch.mean(probs, dim=0)                                 # (E,)
-    ce = torch.mean(F.one_hot(expert_idx[:, 0], m.n_experts).to(
-        torch.float32), dim=0)
+    # switch-style aux loss: E * sum_e f_e * p_e, the means over the
+    # global T on a data-parallel mesh
+    top1 = F.one_hot(expert_idx[:, 0], m.n_experts).to(torch.float32)
+    axes = dctx.batch_axes()
+    dp = dctx.axis_size(axes)
+    if dp > 1:
+        me = dctx.all_sum(torch.sum(probs, dim=0), axes) / (t * dp)
+        ce = dctx.all_sum(torch.sum(top1, dim=0), axes) / (t * dp)
+    else:
+        me = torch.mean(probs, dim=0)                             # (E,)
+        ce = torch.mean(top1, dim=0)
     aux = m.n_experts * torch.sum(me * ce) * m.router_aux_weight
     return out.reshape(b, s, d), aux

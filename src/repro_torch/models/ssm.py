@@ -21,6 +21,10 @@ K6, the SSD of a head), so a rank runs it on its piece; the layers that
 contract d_inner (Mamba1's ``x_proj``, ``out_proj``) are row-parallel and
 Mamba2's gated norm sums its squares over the ranks. Without a mesh, or
 with the leaves whole, the single device's arithmetic runs unchanged.
+Training on a mesh runs the K6 + K9 pair (and Mamba2's SSD) on the rank's
+channels and batch rows; the replicated tensors that feed them (the
+mixer's input, Mamba1's reduced ``x_proj`` output, Mamba2's B and C) sum
+their gradients over the ranks (``context.sum_grad``).
 """
 from __future__ import annotations
 
@@ -125,7 +129,7 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     b, s, d = x.shape
     di = s_cfg.expand * d
     dt_rank = s_cfg.dt_rank or -(-d // 16)
-    xz = L.dense(x, p["in_proj"])
+    xz = L.dense(L.col_input(x, p["in_proj"], 2 * di), p["in_proj"])
     di_local = xz.shape[-1] // 2
     split = di_local != di
     xs, z = torch.split(xz, di_local, dim=-1)
@@ -133,6 +137,8 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     xs, new_conv = _causal_conv(xs, p["conv_w"], conv_state)
     xs = F.silu(xs)
     proj = L.dense(xs, p["x_proj"], row_parallel=split)
+    if split:               # dt, B and C feed this rank's channels
+        proj = dctx.sum_grad(proj)
     dt, bmat, cmat = torch.split(proj, [dt_rank, s_cfg.d_state,
                                         s_cfg.d_state], dim=-1)
     dt = softplus(L.dense(dt, p["dt_proj"]))
@@ -144,8 +150,7 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     f32 = torch.float32
     if s > 1:
         y, h = _selective_scan_fused(
-            xs, dt, bmat, cmat, A, h0, s_cfg.chunk, trainable=not prefill,
-            mesh=dctx.get_mesh() if split else None)
+            xs, dt, bmat, cmat, A, h0, s_cfg.chunk, trainable=not prefill)
         y = y.to(f32) + xs.to(f32) * D.to(f32)
         if h is None:
             h = h0
@@ -162,19 +167,15 @@ def mamba1_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
 
 
 def _selective_scan_fused(xs, dt, bmat, cmat, A, h0, chunk, *,
-                          trainable: bool = False, mesh=None):
-    """The fused scan over the whole batch. ``trainable=True`` runs the K6 +
-    K9 pair (:func:`selective_scan_trainable`, exact gradients from a
-    chunk-checkpointed recompute) and returns (y, None); otherwise K6 alone,
-    (y, h_final) for the streaming cache. ``mesh``: the mesh whose
-    ``"model"`` ranks each hold a piece of d_inner. The reference
-    shard_maps this call over it; here each rank's process runs K6 on its
-    own channels (every output channel depends on its own channel alone).
-    Training on a mesh is not ported."""
-    if mesh is not None and trainable:
-        raise NotImplementedError(
-            "the selective scan's training pair on a mesh is not ported "
-            "yet: ROADMAP queue 1 item 15d (training on a mesh)")
+                          trainable: bool = False):
+    """The fused scan over the rank's batch and channels. ``trainable=True``
+    runs the K6 + K9 pair (:func:`selective_scan_trainable`, exact gradients
+    from a chunk-checkpointed recompute) and returns (y, None); otherwise K6
+    alone, (y, h_final) for the streaming cache. On a mesh whose
+    ``"model"`` ranks each hold a piece of d_inner the reference shard_maps
+    this call over it; here each rank's process runs the kernels on its own
+    channels (every output channel depends on its own channel alone), in
+    training as in serving."""
     ck, bd = min(chunk, 128), min(512, xs.shape[-1])
     # B and C are column slices of x_proj's output; the kernels take them
     # contiguous, as they do every operand
@@ -296,10 +297,11 @@ def mamba2_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
     hdim = s_cfg.head_dim
     g, n = s_cfg.n_groups, s_cfg.d_state
     f32 = torch.float32
-    z = L.dense(x, p["z_proj"])
-    xin = L.dense(x, p["x_proj_in"])
+    xh_in = L.col_input(x, p["x_proj_in"], di)
+    z = L.dense(xh_in, p["z_proj"])
+    xin = L.dense(xh_in, p["x_proj_in"])
     bc = L.dense(x, p["bc_proj"])
-    dt = L.dense(x, p["dtp"])
+    dt = L.dense(xh_in, p["dtp"])
     di_local = xin.shape[-1]
     h_local = di_local // hdim
     xs, new_conv_x = _causal_conv(xin, p["conv_x"],
@@ -308,6 +310,8 @@ def mamba2_apply(p: dict, x: Tensor, *, cfg: ModelConfig,
         bc, p["conv_bc"], cache["conv_bc"] if cache is not None else None)
     xs = F.silu(xs)
     bc = F.silu(bc)
+    if di_local != di:      # the whole B and C feed this rank's heads
+        bc = dctx.sum_grad(bc)
     bmat, cmat = torch.split(bc, [g * n, g * n], dim=-1)
     dt = softplus(dt.to(f32)
                   + dctx.local_slice(p["dt_bias"], h_local).to(f32))

@@ -10,6 +10,7 @@ loop over that leading axis. Caches are stacked the same way and written in
 place; a paged cache stacks page pools (:func:`init_paged_cache`)."""
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -18,6 +19,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gemm import current_config, use_gemm
 from repro_torch.dist import context as dctx
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -203,6 +205,29 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def _remat_contexts(policy):
+    """``checkpoint``'s (forward, recompute) contexts: the recompute runs in
+    the backward, maybe on the autograd engine's device thread, under the
+    forward's mesh and GEMM config (both thread-local), so that it issues
+    the forward's collectives in the forward's order on every rank.
+    ``policy``: the selective policy, or None to keep only the inputs."""
+    mesh, gemm_cfg = dctx.get_mesh(), current_config()
+    fwd, rec = (ckpt.create_selective_checkpoint_contexts(policy)
+                if policy is not None
+                else (contextlib.nullcontext(), contextlib.nullcontext()))
+
+    @contextlib.contextmanager
+    def recompute():
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.enter_context(dctx.mesh_context(mesh))
+            stack.enter_context(use_gemm(gemm_cfg))
+            stack.enter_context(rec)
+            yield
+
+    return fwd, recompute()
+
+
 def _maybe_remat(body, cfg: ModelConfig):
     """Per-layer rematerialisation for training memory (the reference's
     ``jax.checkpoint`` around its layer scan body): ``"full"`` keeps only
@@ -211,14 +236,13 @@ def _maybe_remat(body, cfg: ModelConfig):
     Without autograd there is nothing to keep, so the body runs as it is."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return body
-    if cfg.remat == "full":
-        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
-    if cfg.remat == "dots":
-        return functools.partial(
-            ckpt.checkpoint, body, use_reentrant=False,
-            context_fn=functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _dots_policy))
-    raise ValueError(f"remat must be none, dots or full; got {cfg.remat!r}")
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, dots or full; got "
+                         f"{cfg.remat!r}")
+    policy = _dots_policy if cfg.remat == "dots" else None
+    return functools.partial(
+        ckpt.checkpoint, body, use_reentrant=False,
+        context_fn=functools.partial(_remat_contexts, policy))
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
@@ -408,10 +432,16 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, *,
 
 
 def _local_logits(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:
-    """This rank's vocab columns of the logits (all of them on one card)."""
+    """This rank's vocab columns of the logits (all of them on one card);
+    a vocab-parallel unembedding sums ``hidden``'s gradient over the
+    ranks."""
     if cfg.tie_embeddings:
-        return L.unembed(hidden, params["embed"])
-    return L.dense(hidden, params["unembed"])
+        table = params["embed"]
+        if table["table"].shape[0] != cfg.vocab:
+            hidden = dctx.sum_grad(hidden)
+        return L.unembed(hidden, table)
+    return L.dense(L.col_input(hidden, params["unembed"], cfg.vocab),
+                   params["unembed"])
 
 
 def logits_fn(params, hidden: Tensor, cfg: ModelConfig) -> Tensor:

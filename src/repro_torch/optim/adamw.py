@@ -18,6 +18,9 @@ from typing import Any, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import context as dctx
+from repro_torch.dist.sharding import tree_leaves_of_specs
+
 Tensor = torch.Tensor
 PyTree = Any
 
@@ -118,15 +121,37 @@ def _slices(*leaves: Tensor) -> Iterator[Tuple[Tensor, ...]]:
     yield from zip(*(t.split(rows, dim=0) for t in leaves))
 
 
-def global_norm(tree: PyTree) -> Tensor:
+def _counted_here(spec, mesh) -> bool:
+    """Whether this rank counts a leaf cut by ``spec``: on every axis that
+    holds the leaf whole, only the axis' rank 0 does."""
+    cut = {a for axes in spec if axes is not None
+           for a in (axes if isinstance(axes, tuple) else (axes,))}
+    return all(mesh.index(a) == 0 for a in mesh.axis_names if a not in cut)
+
+
+def global_norm(tree: PyTree, specs: Optional[PyTree] = None) -> Tensor:
     """sqrt of the sum over leaves of sum(g^2) in f32 (leaves summed in
-    flatten order, as the reference's Python ``sum``)."""
+    flatten order, as the reference's Python ``sum``). With ``specs`` (the
+    spec tree of a tree of pieces on the ambient mesh) each element counts
+    once: each rank sums its pieces' squares, a leaf that an axis holds
+    whole counted on that axis' rank 0 alone, and the ranks' sums are
+    summed; every rank gets the same bits."""
+    mesh = dctx.get_mesh() if specs is not None else None
+    leaves = tree_leaves(tree)
+    if mesh is not None:
+        leaves = [g for g, spec in zip(leaves, tree_leaves_of_specs(specs))
+                  if _counted_here(spec, mesh)]
     total = None
-    for g in tree_leaves(tree):
+    for g in leaves:
         sq = sum(torch.sum(torch.square(part.to(torch.float32)))
                  for (part,) in _slices(g))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    if mesh is None:
+        return torch.sqrt(total)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=tree_leaves(tree)[0].device)
+    return torch.sqrt(dctx.all_sum(total, tuple(mesh.axis_names)))
 
 
 @torch.no_grad()

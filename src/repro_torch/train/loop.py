@@ -1,6 +1,14 @@
 """Resumable training loop, counterpart of ``repro/train/loop.py``: data +
 step + checkpoints + watchdog + metrics, on the model's device (the card
-unless the model was built for another)."""
+unless the model was built for another).
+
+The loop reads the ambient mesh, as the reference's launcher wraps
+``train()`` in ``mesh_context``. On a mesh of more than one rank every rank
+draws the same whole weights and the same one-host global batches (the
+same seed), holds its pieces of the params and of AdamW's moments
+(``dist.sharding.train_specs``), and logs the same metrics; a checkpoint
+holds whole leaves, written by rank 0 (the reference's format), and a
+resume cuts them for the mesh it finds."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,9 +19,11 @@ import torch
 
 from repro_torch.ckpt.manager import CheckpointManager
 from repro_torch.data.pipeline import make_pipeline
+from repro_torch.dist import context as dctx
+from repro_torch.dist import sharding as shd
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
-from repro_torch.train.step import TrainConfig, make_train_step
+from repro_torch.train.step import TrainConfig, make_train_step, state_specs
 from repro_torch.train.watchdog import StepWatchdog, WatchdogConfig
 
 
@@ -41,10 +51,16 @@ def train(model: Model, *, loop_cfg: LoopConfig,
     training; returns the final params and optimizer state, the logged
     history and the watchdog's straggler events."""
     tcfg = train_cfg or TrainConfig()
-    step_fn = make_train_step(model, tcfg)
     dev = model.device
+    mesh = dctx.get_mesh()
 
     params = model.init(loop_cfg.seed)
+    specs = shardings = None
+    if mesh is not None and mesh.devices.size > 1:
+        specs = shd.train_specs(params, mesh, model.cfg)
+        params = shd.own_pieces(params, specs, mesh)
+        shardings = shd.Shardings(state_specs(specs), mesh)
+    step_fn = make_train_step(model, tcfg, specs=specs)
     opt_state = adamw.init(params)
     start_step = 0
 
@@ -52,7 +68,8 @@ def train(model: Model, *, loop_cfg: LoopConfig,
     if loop_cfg.ckpt_dir:
         mgr = CheckpointManager(loop_cfg.ckpt_dir)
         if mgr.latest_step() is not None:
-            (params, opt_state), extra = mgr.restore((params, opt_state))
+            (params, opt_state), extra = mgr.restore((params, opt_state),
+                                                     shardings=shardings)
             start_step = int(extra.get("data_step", mgr.latest_step()))
 
     pipe = make_pipeline(model.cfg, loop_cfg.global_batch, loop_cfg.seq_len,
@@ -78,7 +95,8 @@ def train(model: Model, *, loop_cfg: LoopConfig,
             if mgr is not None and loop_cfg.ckpt_every and \
                     (data_step + 1) % loop_cfg.ckpt_every == 0:
                 mgr.save(data_step + 1, (params, opt_state),
-                         extra={"data_step": data_step + 1})
+                         extra={"data_step": data_step + 1},
+                         shardings=shardings)
     finally:
         pipe.close()
         if mgr is not None:

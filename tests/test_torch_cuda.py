@@ -32,7 +32,10 @@ minicpm-2b's local shapes at tensor-parallel size 2, and the
 tensor-parallel int8 layers equal the whole layer bit for bit on two
 ranks sharing the card; K6 on one rank's half of d_inner equals the whole
 K6's columns bit for bit; whisper's frontend entry on two ranks gives one
-card's int8 tokens.
+card's int8 tokens. A train step on two ranks sharing the card, at (1, 2)
+and (2, 1), gives one card's loss (rtol 1e-5) and gradients (the CPU
+tests' bar, rtol 1e-3, atol 1e-3 * max|leaf|), with K4 and K8 launched on
+each rank's heads and batch rows, and K6 and K9 on its channels.
 """
 import numpy as np
 import pytest
@@ -1314,3 +1317,51 @@ def test_frontend_entry_on_two_ranks_equals_one_card(dev):
         else:
             ref = single["first"]
             assert float((r0["first"] - ref).abs().max() / ref.std()) < 0.6
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "falcon-mamba-7b"])
+def test_mesh_train_step_equals_one_card_on_two_ranks(dev, arch):
+    """One AdamW step of 2 layers at the published widths in f32 (the
+    CPU tests' bars hold) on two ranks sharing the card, at (1, 2) and
+    (2, 1) (repro_torch.dist.parity.train_parity), against the same step
+    on one card: the loss, every gradient gathered whole, and the flash
+    pair (minicpm-2b) or the scan pair (falcon-mamba-7b) launched on each
+    rank."""
+    import dataclasses
+
+    import torch_rank_jobs as jobs
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=2,
+                              param_dtype="float32")
+    rng = np.random.default_rng(3)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 128)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    leaves = adamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.loss(params, {k: torch.from_numpy(v).to(dev)
+                               for k, v in batch.items()})
+    want = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    del params, leaves
+    torch.cuda.empty_cache()
+    pair = (("flash_fwd", "flash_bwd") if arch == "minicpm-2b"
+            else ("selective_scan", "selective_scan_bwd"))
+    ranks = launch_serve.spawn_ranks(2, [
+        (jobs.train_on, dict(shape=shape, cfg=cfg, batch=batch))
+        for shape in ((1, 2), (2, 1))], device="cuda", timeout_s=600)
+    for rank in ranks:
+        for r in rank:
+            np.testing.assert_allclose(r["loss"], float(loss), rtol=1e-5)
+            got = adamw.tree_leaves(r["grads"])
+            for g, w in zip(got, want):
+                torch.testing.assert_close(
+                    g, w, rtol=1e-3, atol=1e-3 * float(w.abs().max()))
+            assert all(r["launches"][k] == cfg.n_layers for k in pair), \
+                r["launches"]
+

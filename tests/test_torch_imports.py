@@ -5,9 +5,10 @@ neither JAX nor the reference package (nor ml_dtypes), and its entry points
 (the LM models, dense and SSM, the server, the serve launcher with its
 router, the vision models and launcher, the training loop and launcher,
 the tune and prepare launchers and the artifact loader, the
-tensor-parallel launcher)
-default to the card, raising (not falling back to the CPU) when there is
-none."""
+tensor-parallel launcher, the mesh training launcher and the five
+examples/torch_*.py) default to the card, raising (not falling back to the
+CPU) when there is none; the examples import nothing of JAX or the
+reference either."""
 import os
 import pathlib
 import subprocess
@@ -61,6 +62,17 @@ from repro_torch.models.model import Model
 from repro_torch.train import loop as train_loop
 from repro_torch.serve.batcher import BatchServer
 from repro_torch.vision import models as vm
+import contextlib, importlib.util, io, pathlib
+examples = []
+for path in sorted(pathlib.Path(EXAMPLES).glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    examples.append(importlib.util.module_from_spec(spec))
+    spec.loader.exec_module(examples[-1])
+assert len(examples) == 5, examples
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+assert not bad, bad
 assert not torch.cuda.is_available()
 assert compat.device_kind() == "cpu"
 cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
@@ -83,9 +95,13 @@ for make in (lambda: Model(cfg), lambda: Model(ssm),
              lambda: launch_tune.main(["--arch", "minicpm-2b", "--smoke"]),
              lambda: launch_prepare.main(["--arch", "minicpm-2b", "--smoke",
                                           "--out", "unused"]),
-             lambda: prepare.load("unused")):
+             lambda: prepare.load("unused"),
+             lambda: launch_train.main(["--arch", "minicpm-2b", "--smoke",
+                                        "--mesh-data", "2"])) + tuple(
+        (lambda m=m: m.main([])) for m in examples):
     try:
-        make()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make()
     except RuntimeError as e:
         assert "no CUDA device" in str(e), e
     else:
@@ -97,17 +113,19 @@ print("OK", len(names))
 def test_port_imports_no_jax_and_needs_a_card():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    probe = _PROBE.replace("EXAMPLES", repr(str(ROOT / "examples")))
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
 
 
 def test_no_reference_imports_in_sources():
-    """The static form of the same rule, over every port source and
-    chip_smoke.py."""
+    """The static form of the same rule, over every port source,
+    chip_smoke.py and the port's examples."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     banned = ("import jax", "from jax", "ml_dtypes", "import repro.",
               "import repro ", "from repro.", "from repro ",
               "from repro import")

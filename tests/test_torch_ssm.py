@@ -222,9 +222,30 @@ def test_mamba1_without_cache_and_not_prefill():
     _close(out, jout, 1e-4)
     _close(out2, jout, 1e-4)
     assert not one["ssm"].any() and one["conv"].any()
-    with pytest.raises(NotImplementedError, match="item 15d"):
-        S._selective_scan_fused(*[None] * 6, 8, trainable=True,
-                                mesh=object())
+    # the training pair on a mesh rank's piece of d_inner (item 15d): the
+    # whole scan's channels and their gradients
+    rng = np.random.default_rng(7)
+    di, n = 2 * jc.d_model, jc.ssm.d_state
+    xs, dt = (torch.from_numpy(rng.standard_normal((2, 8, di)).astype(
+        np.float32)) for _ in range(2))
+    dt = torch.nn.functional.softplus(dt)
+    bm, cm = (torch.from_numpy(rng.standard_normal((2, 8, n)).astype(
+        np.float32)) for _ in range(2))
+    a = -torch.exp(torch.from_numpy(rng.standard_normal((di, n)).astype(
+        np.float32)))
+    xs.requires_grad_(True)
+    h0 = torch.zeros(2, di, n)
+    y, none = S._selective_scan_fused(xs, dt, bm, cm, a, h0, 8,
+                                      trainable=True)
+    gx, = torch.autograd.grad(y[..., :di // 2].sum(), xs)
+    half = xs[..., :di // 2].detach().requires_grad_(True)
+    yh, _ = S._selective_scan_fused(half, dt[..., :di // 2], bm, cm,
+                                    a[:di // 2], h0[:, :di // 2], 8,
+                                    trainable=True)
+    gh, = torch.autograd.grad(yh.sum(), half)
+    assert none is None
+    torch.testing.assert_close(yh, y[..., :di // 2], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gh, gx[..., :di // 2], rtol=1e-6, atol=1e-6)
 
 
 # --- the model -------------------------------------------------------------

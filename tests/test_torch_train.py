@@ -215,6 +215,49 @@ def test_train_step_takes_the_gradient_norm_once(monkeypatch):
     assert metrics["grad_norm"] is norms[0] and float(norms[0]) > 1e-3
 
 
+@pytest.mark.parametrize("microbatch", [0, 1])
+def test_train_step_sums_16bit_gemms_in_f32(microbatch, monkeypatch):
+    """The step's forward and backward run with cuBLAS's 16-bit split-K
+    sums off (``step.f32_sums``), one card and a mesh alike, and the
+    process's setting is put back after the step."""
+    mm = torch.backends.cuda.matmul
+    cfg = configs.smoke_config(configs.get_config("minicpm-2b"))
+    m = M.Model(cfg, device="cpu")
+    params = m.init(0)
+    ds = pipeline.SyntheticLM(pipeline.DataConfig(global_batch=B, seq_len=S,
+                                                  vocab=cfg.vocab, seed=3))
+    seen = []
+    real = M.Model.loss
+
+    def flags(when):
+        seen.append((when, mm.allow_bf16_reduced_precision_reduction,
+                     mm.allow_fp16_reduced_precision_reduction))
+
+    def loss(self, p, batch):
+        flags("forward")
+        out = real(self, p, batch)
+        out.register_hook(lambda g: flags("backward"))
+        return out
+
+    monkeypatch.setattr(M.Model, "loss", loss)
+    fn = step.make_train_step(m, step.TrainConfig(microbatch=microbatch))
+    saved = (mm.allow_bf16_reduced_precision_reduction,
+             mm.allow_fp16_reduced_precision_reduction)
+    mm.allow_bf16_reduced_precision_reduction = True
+    mm.allow_fp16_reduced_precision_reduction = True
+    try:
+        fn(params, adamw.init(params), _tbatch(ds.batch_at(0)))
+        after = (mm.allow_bf16_reduced_precision_reduction,
+                 mm.allow_fp16_reduced_precision_reduction)
+    finally:
+        (mm.allow_bf16_reduced_precision_reduction,
+         mm.allow_fp16_reduced_precision_reduction) = saved
+    calls = max(1, B // microbatch if microbatch else 1)
+    assert seen == [("forward", False, False),
+                    ("backward", False, False)] * calls
+    assert after == (True, True)
+
+
 def test_int8_error_feedback_matches_reference():
     rng = np.random.default_rng(7)
     g = {"a": rng.standard_normal((5, 3)).astype(np.float32),
@@ -443,9 +486,16 @@ def test_launcher_trains_the_smoke_config(capsys):
     assert len(out["history"]) == 2 and int(out["opt_state"].step) == 3
     assert all(np.isfinite(h["loss"]) for h in out["history"])
     assert "done on cpu" in capsys.readouterr().out
+    # --smoke --multi-pod trains on the one-rank host mesh, as the
+    # reference's does: the same history
+    pod = launch_train.main(["--arch", "minicpm-2b", "--smoke",
+                             "--multi-pod", "--device", "cpu", "--steps",
+                             "3", "--batch", "2", "--seq", "16"])
+    assert pod["history"] == out["history"]
     for argv in (["--arch", "minicpm-2b"],
-                 ["--arch", "minicpm-2b", "--smoke", "--multi-pod"]):
-        with pytest.raises(SystemExit, match="item 15"):
+                 ["--arch", "minicpm-2b", "--multi-pod"],
+                 ["--arch", "minicpm-2b", "--multi-pod", "--layers", "2"]):
+        with pytest.raises(SystemExit, match="production mesh"):
             launch_train.main(argv + ["--device", "cpu"])
 
 

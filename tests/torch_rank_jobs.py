@@ -102,3 +102,64 @@ def decode_collectives(mesh, device, *, cfg, quantized):
     with dctx.record_collectives() as records:
         steps["decode"]()
     return records
+
+
+def train_on(mesh, device, *, shape, **kw):
+    """``parity.train_parity`` on a ("data", "model") mesh of ``shape`` built
+    over the spawned ranks (every rank builds it)."""
+    from repro_torch.dist import parity
+
+    return parity.train_parity(
+        dctx.make_mesh(shape, ("data", "model")), device, **kw)
+
+
+def ckpt_across(mesh, device, *, cfg, params, batch, ckpt_dir, ref_dir,
+                ref_cfg=None):
+    """One AdamW step at (2, 1), the state saved from the mesh to
+    ``ckpt_dir``; restored at (1, 2) with ``restore(shardings=)``; and the
+    reference's checkpoint in ``ref_dir`` (of ``ref_cfg``'s model) restored
+    onto the (1, 2) mesh. Returns the whole trees (host): what was saved,
+    what (1, 2) restored, and the reference's restored."""
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as tstep
+
+    def state_at(shape, c):
+        m = dctx.make_mesh(shape, ("data", "model"))
+        specs = shd.train_specs(params, m, c)
+        pieces = shd.shard_tree(adamw.tree_map(torch.clone, params), specs,
+                                m)
+        return m, specs, pieces, adamw.init(pieces)
+
+    def whole(tree, specs, m):
+        with torch.no_grad(), dctx.mesh_context(m):
+            return adamw.tree_map(lambda t: t.detach().clone(),
+                                  shd.unshard_tree(tree, specs))
+
+    model = Model(cfg, device=device)
+    m21, specs, pieces, opt = state_at((2, 1), cfg)
+    step = tstep.make_train_step(model, tstep.TrainConfig(), specs=specs)
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with dctx.mesh_context(m21):
+        pieces, opt, _ = step(pieces, opt, tb)
+    full = tstep.state_specs(specs)
+    mgr = CheckpointManager(ckpt_dir)
+    mgr.save(1, (pieces, opt), extra={"data_step": 1},
+             shardings=shd.Shardings(full, m21))
+    saved = whole((pieces, opt), full, m21)
+
+    m12, specs12, pieces12, opt12 = state_at((1, 2), cfg)
+    full12 = tstep.state_specs(specs12)
+    state, extra = mgr.restore((pieces12, opt12),
+                               shardings=shd.Shardings(full12, m12))
+    shapes = [tuple(t.shape) for t in adamw.tree_leaves(state)]
+    restored = whole(state, full12, m12)
+
+    rc = ref_cfg or cfg
+    _, rspecs, rpieces, ropt = state_at((1, 2), rc)
+    rfull = tstep.state_specs(rspecs)
+    rstate, _ = CheckpointManager(ref_dir).restore(
+        (rpieces, ropt), shardings=shd.Shardings(rfull, m12))
+    return dict(saved=saved, restored=restored, extra=extra,
+                shapes=shapes, ref=whole(rstate, rfull, m12))
